@@ -1,10 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of dgraph_tpu_torch on one NVIDIA GPU (H100), end to end.
 
-    python3 chip_smoke.py                 # the full run; needs one CUDA card
-    python3 chip_smoke.py --cpu-rehearsal --scale 12
-                                          # rehearse the phases on the CPU
-                                          # (plain kernels); prints no result
+    python3 chip_smoke.py                 # needs one CUDA card
 
 At the repository's headline configuration — R-MAT scale 20, edge factor 16,
 seed 7, 128 seeds from default_rng(3), as bench.py measures the JAX package —
@@ -29,7 +26,6 @@ the JAX package.
 
 from __future__ import annotations
 
-import argparse
 import cProfile
 import json
 import pstats
@@ -40,10 +36,12 @@ from pathlib import Path
 
 import numpy as np
 
+SCALE, EDGE_FACTOR, SEED = 20, 16, 7   # the headline graph (bench.py)
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate (data sheet)
-CORE_OPS_PER_S = 67e12      # H100 SXM non-tensor-core fp32 peak, the
-                            # table's rate for scalar work outside tensor cores
-# scalar operations per edge as the kernels do them: K1 rank→(row, lane,
+# both kernels do integer work: 64 INT32 operations per clock per SM
+# (4 partitions x 16 lanes) x 132 SMs x 1.98 GHz boost on the H100 SXM
+INT32_OPS_PER_S = 64 * 132 * 1.98e9
+# integer operations per edge as the kernels do them: K1 rank→(row, lane,
 # bit) decode, word test, scan add; K2 a 7-step lower bound (compare +
 # select) and a 32-entry compare + or, then the scan add
 OPS_PER_EDGE = {"active_prefix": 8, "active_prefix_sparse": 79}
@@ -89,19 +87,9 @@ def say(tag: str, **kw) -> None:
 
 
 def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--scale", type=int, default=20)
-    ap.add_argument("--ef", type=int, default=16)
-    ap.add_argument("--seed", type=int, default=7)
-    ap.add_argument("--cpu-rehearsal", action="store_true",
-                    help="run every phase on the CPU with the plain kernels "
-                         "and exit non-zero without a result")
-    args = ap.parse_args()
-
     import torch
 
-    rehearsal = args.cpu_rehearsal
-    if not rehearsal and not torch.cuda.is_available():
+    if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; no result",
               file=sys.stderr)
         return 2
@@ -118,33 +106,28 @@ def main() -> int:
     from dgraph_tpu_torch.utils.schema import SchemaState, parse_schema
     from dgraph_tpu_torch.utils.types import TypeID
 
-    dev = torch.device("cpu" if rehearsal else "cuda")
-
-    def sync():
-        if dev.type == "cuda":
-            torch.cuda.synchronize()
+    dev = torch.device("cuda")
+    sync = torch.cuda.synchronize
 
     # ---- 1. card + build ---------------------------------------------------
-    card = "cpu rehearsal"
-    if not rehearsal:
-        card = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], capture_output=True, text=True,
-            timeout=60).stdout.strip().splitlines()[0]
-        print(card, flush=True)
-        t0 = time.perf_counter()
-        lib_path, build_log = px.build(verbose=True)
-        build_s = time.perf_counter() - t0
-        ptxas = [ln.split("ptxas info    : ")[-1] for ln in
-                 build_log.splitlines() if "Used" in ln or "Compiling" in ln]
-        say("build", seconds=build_s, library=lib_path.name, ptxas=ptxas,
-            torch=torch.__version__, cuda=torch.version.cuda,
-            kind=torch.cuda.get_device_name(0))
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
+    print(card, flush=True)
+    t0 = time.perf_counter()
+    lib_path, build_log = px.build(verbose=True)
+    build_s = time.perf_counter() - t0
+    ptxas = [ln.split("ptxas info    : ")[-1] for ln in
+             build_log.splitlines() if "Used" in ln or "Compiling" in ln]
+    say("build", seconds=build_s, library=lib_path.name, ptxas=ptxas,
+        torch=torch.__version__, cuda=torch.version.cuda,
+        kind=torch.cuda.get_device_name(0))
 
     # ---- data --------------------------------------------------------------
     t0 = time.perf_counter()
-    subjects, indptr, indices = rmat_csr(args.scale, args.ef, seed=args.seed)
-    num_nodes = 1 + (1 << args.scale) + 1
+    subjects, indptr, indices = rmat_csr(SCALE, EDGE_FACTOR, seed=SEED)
+    num_nodes = 1 + (1 << SCALE) + 1
     seeds = np.unique(np.random.default_rng(3).choice(
         subjects, size=128, replace=False)).astype(np.int32)
     g = pb.prep_pull(subjects, indptr, indices, num_nodes, device=dev)
@@ -162,18 +145,13 @@ def main() -> int:
         sync()
         ts = []
         for _ in range(reps):
-            if dev.type == "cuda":
-                a = torch.cuda.Event(enable_timing=True)
-                b = torch.cuda.Event(enable_timing=True)
-                a.record()
-                fn()
-                b.record()
-                b.synchronize()
-                ts.append(a.elapsed_time(b))
-            else:
-                t = time.perf_counter()
-                fn()
-                ts.append((time.perf_counter() - t) * 1e3)
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            ts.append(a.elapsed_time(b))
         return float(np.median(ts))
 
     kernels = {}
@@ -230,7 +208,7 @@ def main() -> int:
             in_bytes = words.numel() * 4
         moved = 4 * e_pad + 4 * e_pad + in_bytes
         bytes_ms = moved / HBM_BYTES_PER_S * 1e3
-        ops_ms = OPS_PER_EDGE[name] * e_pad / CORE_OPS_PER_S * 1e3
+        ops_ms = OPS_PER_EDGE[name] * e_pad / INT32_OPS_PER_S * 1e3
         err = int((kfn().to(torch.int64) - pfn().to(torch.int64)).abs().max())
         kernels[name] = {
             "name": name, "route": "cuda",
@@ -284,10 +262,6 @@ def main() -> int:
     for e in parse_schema("friend: [uid] @reverse ."):
         schema.set(e)
     eng.set_query_edge_limit(1 << 31)
-    # the default admission on CUDA tensors at the headline scale; forced on
-    # for a graph below it (--scale < 20) or the CPU rehearsal
-    kernel_min = None if (not rehearsal and len(indices) >=
-                          rec._KERNEL_MIN_TPU) else 0
     q = "{ q(func: uid(%s)) @recurse(depth: 3) { friend } }" % \
         ", ".join(hex(int(u)) for u in seeds)
     req = dql.parse(q)
@@ -309,7 +283,7 @@ def main() -> int:
     t0 = time.perf_counter()
     host_levels = chain(run_block())
     host_s = time.perf_counter() - t0
-    rec.KERNEL_MIN_EDGES = kernel_min
+    rec.KERNEL_MIN_EDGES = None             # the default admission on CUDA
     pb.pull_graph_for(snap.pred("friend").csr)      # prep once, untimed
     sync()
     px.reset_launches()
@@ -321,7 +295,7 @@ def main() -> int:
     for i, (h, k) in enumerate(zip(host_levels, kern_levels)):
         if not np.array_equal(h.dest_uids, k.dest_uids):
             raise SystemExit(f"recurse level {i} dest-set mismatch")
-    if not rehearsal and min(main_launches.values()) == 0:
+    if min(main_launches.values()) == 0:
         raise SystemExit(f"a kernel of the main path never launched: "
                          f"{main_launches}")
     deg = np.diff(indptr)
@@ -339,7 +313,7 @@ def main() -> int:
         samples.append(trav / (time.perf_counter() - t0))
     for name, n in main_launches.items():
         kernels[name]["launches"] = n
-    prof = profile_query(run_block, sync, dev)
+    prof = profile_query(run_block)
     say("dql_recurse3", traversed=trav,
         levels=[int(len(h.dest_uids)) for h in host_levels],
         launches=main_launches, host_mirror_seconds=host_s,
@@ -354,12 +328,12 @@ def main() -> int:
         cap and accepted; returns (query, json bytes)."""
         for c in candidates:
             text = make(c)
-            rec.KERNEL_MIN_EDGES = 1 << 62
-            task.HOST_EXPAND_MAX = 1 << 62
+            expand_max = task.HOST_EXPAND_MAX
+            rec.KERNEL_MIN_EDGES = task.HOST_EXPAND_MAX = 1 << 62
             try:
                 host = execute(text)
             finally:
-                rec.KERNEL_MIN_EDGES, task.HOST_EXPAND_MAX = kernel_min, 1 << 16
+                rec.KERNEL_MIN_EDGES, task.HOST_EXPAND_MAX = None, expand_max
             if 1000 < len(host) <= JSON_MAX_BYTES and accept(c):
                 return text, host
         raise SystemExit(f"no candidate fits {make(candidates[0])[:80]}")
@@ -400,7 +374,7 @@ def main() -> int:
                              f"host-mirror JSON")
         say("request", shape=sname, json_bytes=len(got), query=text[:120])
     req_launches = dict(px.LAUNCHES)
-    if not rehearsal and min(req_launches.values()) == 0:
+    if min(req_launches.values()) == 0:
         raise SystemExit(f"requests did not launch both kernels: "
                          f"{req_launches}")
     say("requests", launches=req_launches)
@@ -409,10 +383,6 @@ def main() -> int:
     kern_line = {"kernels": [
         {k: v for k, v in kernels[n].items() if k not in ("e_pad", "stream")}
         for n in ("active_prefix", "active_prefix_sparse")]}
-    if rehearsal:
-        print("chip_smoke: CPU rehearsal finished; no device result",
-              file=sys.stderr)
-        return 3
     print(card)
     print(json.dumps(kern_line))
     print(json.dumps({"ok": True, "device": {
@@ -421,18 +391,17 @@ def main() -> int:
     return 0
 
 
-def profile_query(run, sync, dev) -> dict:
+def profile_query(run) -> dict:
     """One run under torch.profiler: wall ms, summed device-kernel ms (the
     device's busy time; idle share = 1 - busy / wall) and the top kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    acts = [ProfilerActivity.CPU] + (
-        [ProfilerActivity.CUDA] if dev.type == "cuda" else [])
-    with profile(activities=acts) as prof:
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run()
-        sync()
+        torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = []
     for e in prof.key_averages():
@@ -447,7 +416,7 @@ def profile_query(run, sync, dev) -> dict:
     cp = cProfile.Profile()
     cp.enable()
     run()
-    sync()
+    torch.cuda.synchronize()
     cp.disable()
     host = sorted(((tt * 1e3, f"{Path(fn).name}:{line}({name})", nc)
                    for (fn, line, name), (_cc, nc, tt, _ct, _callers)

@@ -131,9 +131,12 @@ dense_tiles(const unsigned* __restrict__ words, unsigned n_rows,
 // it: row 0 holds each 32-entry bucket's max, rows 1..32 the entries,
 // INT32_MAX pads. Per edge: the same 7-step branchless lower bound over the
 // bucket maxima, then a 32-way equality test in the chosen bucket.
-// Bound: the same 8 B per edge of streaming as K1; the 16.9 KB table lives
-// in shared memory (loaded once per block), so the per-edge work is ~40
-// shared-memory reads and compares and no global gather.
+// Bound: integer operations, not bytes. It streams the same 8 B per edge as
+// K1, but does ~79 integer operations per edge (7 compare + select steps,
+// 32 compares + ors, the scan add): at the H100's INT32 rate (~16.7e12/s)
+// that is ~76 us at scale 20 against ~38 us of streaming. The 16.9 KB
+// table lives in shared memory (loaded once per block), so that work is
+// ~40 shared-memory reads and no global gather.
 struct SparseMember {
   const int* tab;   // shared memory
   __device__ __forceinline__ int operator()(int s) const {

@@ -27,9 +27,10 @@ from dgraph_tpu_torch.utils.types import TypeID, Val
 
 
 # below this edge volume the host-mirror gather beats a device dispatch +
-# sync (reference algo/uidlist.go:147-155 ratio heuristic). TPU-era value,
-# kept by name: it picks a path, never an output; the H100 value awaits
-# measurement.
+# sync (reference algo/uidlist.go:147-155 ratio heuristic). It picks a
+# path, never an output. The TPU-era value holds on an H100
+# (bench_torch_crossover.py): the two gathers tie at ~2^16 edges, the host
+# wins 2.5x at ~2^12 and the device 1.7x at 2^18.
 HOST_EXPAND_MAX = 1 << 16
 
 
