@@ -11,7 +11,12 @@ it:
   2. holds K1 (active_prefix) and K2 (active_prefix_sparse) to their plain
      PyTorch versions on the card at the full-size edge streams (exact int32
      equality; empty, <= 4096, 10% and 60% frontiers; K1 == K2 on the sparse
-     one) and times each with CUDA events beside its bound;
+     one), then on the edge cases of their design (a bitmap too large for
+     shared memory and the sizes around that limit, a table of exactly 4,096
+     entries, INT32_MAX ranks, a stream of one EDGE_BLOCK) and over 50
+     launches each at the main path's shapes; times each with CUDA events
+     over back-to-back calls beside its bound and beside torch.cumsum of the
+     same stream, and one call alone (the host's launch overhead included);
   3. runs the raw 3-hop BFS (k_hop_pull_pallas), equal to a host BFS;
   4. runs DQL `@recurse(depth: 3)` from the 128 seeds through Executor — the
      main path, with the launch counts read around one query — each level's
@@ -41,10 +46,12 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate (data sheet)
 # both kernels do integer work: 64 INT32 operations per clock per SM
 # (4 partitions x 16 lanes) x 132 SMs x 1.98 GHz boost on the H100 SXM
 INT32_OPS_PER_S = 64 * 132 * 1.98e9
-# integer operations per edge as the kernels do them: K1 rank→(row, lane,
-# bit) decode, word test, scan add; K2 a 7-step lower bound (compare +
-# select) and a 32-entry compare + or, then the scan add
-OPS_PER_EDGE = {"active_prefix": 8, "active_prefix_sparse": 79}
+# integer operations per edge of the kernels' design, as counted in the notes
+# of dgraph_tpu_torch/ops/csrc/active_prefix.cu: the membership test (K1 the
+# bitmap word, K2 one hash probe), the mask, the output, and the per-tile
+# scans shared by a thread's 8 edges
+OPS_PER_EDGE = {"active_prefix": 22, "active_prefix_sparse": 19}
+RACE_LAUNCHES = 50
 JSON_MAX_BYTES = 10 << 20
 
 
@@ -119,7 +126,8 @@ def main() -> int:
     lib_path, build_log = px.build(verbose=True)
     build_s = time.perf_counter() - t0
     ptxas = [ln.split("ptxas info    : ")[-1] for ln in
-             build_log.splitlines() if "Used" in ln or "Compiling" in ln]
+             build_log.splitlines()
+             if "Used" in ln or "Compiling" in ln or "spill" in ln]
     say("build", seconds=build_s, library=lib_path.name, ptxas=ptxas,
         torch=torch.__version__, cuda=torch.version.cuda,
         kind=torch.cuda.get_device_name(0))
@@ -139,7 +147,11 @@ def main() -> int:
     # ---- 2. kernel parity + timing at full-size shapes ---------------------
     rng = np.random.default_rng(11)
 
-    def timed(fn, reps=20, warm=3):
+    def timed(fn, calls=20, reps=5, warm=3):
+        """Median over `reps` runs of CUDA-event ms per call, each run
+        `calls` calls back to back, so the device's time and not the host's
+        enqueue is read. calls=1 times one call with the device idle before
+        it: the host's launch overhead included."""
         for _ in range(warm):
             fn()
         sync()
@@ -148,11 +160,44 @@ def main() -> int:
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
             a.record()
-            fn()
+            for _ in range(calls):
+                fn()
             b.record()
             b.synchronize()
-            ts.append(a.elapsed_time(b))
+            ts.append(a.elapsed_time(b) / calls)
         return float(np.median(ts))
+
+    def held(name, kfn, pfn, label):
+        """One kernel call, held to its plain version exactly (int32)."""
+        got, want = kfn(), pfn()
+        sync()
+        if not torch.equal(got, want):
+            bad = int((got != want).sum())
+            raise SystemExit(f"{name} != plain on {label}: {bad} positions "
+                             f"differ")
+        return got
+
+    def k1_pair(words, stream, chunks):
+        return ("active_prefix",
+                lambda: px.active_prefix(words, stream, chunks),
+                lambda: px.active_prefix_ref(words, stream, chunks))
+
+    def k2_pair(ftab, stream):
+        return ("active_prefix_sparse",
+                lambda: px.active_prefix_sparse(ftab, stream),
+                lambda: px.active_prefix_sparse_ref(ftab, stream))
+
+    def exact_mask(n, k):
+        m = np.zeros(n, dtype=bool)
+        m[rng.choice(n, k, replace=False)] = True
+        return torch.from_numpy(m).to(dev)
+
+    def synthetic_stream(n_ranks, n_edges, chunks):
+        """n_edges random ranks padded to EDGE_BLOCK with the pad rank."""
+        e_pad = -(-n_edges // px.EDGE_BLOCK) * px.EDGE_BLOCK
+        src = np.full(e_pad, chunks * px.NODES_PER_CHUNK - 1, dtype=np.int32)
+        src[:n_edges] = rng.integers(0, n_ranks, n_edges)
+        return torch.from_numpy(src).to(dev)
 
     kernels = {}
     streams = {"src": (g.in_src_pad, g.chunks, len(subjects)),
@@ -161,55 +206,42 @@ def main() -> int:
     for sname, (stream, chunks, n) in streams.items():
         for fname, density in (("empty", 0.0), ("sparse", None),
                                ("10pct", 0.10), ("60pct", 0.60)):
-            if density is None:
-                mask_np = np.zeros(n, dtype=bool)
-                mask_np[rng.choice(n, min(4000, n), replace=False)] = True
-            else:
-                mask_np = rng.random(n) < density
-            mask = torch.from_numpy(mask_np).to(dev)
-            words = pb.pack_words(mask, chunks)
-            k1 = px.active_prefix(words, stream, chunks)
-            ref = px.active_prefix_ref(words, stream, chunks)
-            sync()
-            if not torch.equal(k1, ref):
-                bad = int((k1 != ref).sum())
-                raise SystemExit(f"K1 != plain on {sname}/{fname}: {bad} "
-                                 f"positions differ")
+            mask = (exact_mask(n, 4000) if density is None else
+                    torch.from_numpy(rng.random(n) < density).to(dev))
+            label = f"{sname}/{fname}"
+            k1 = held(*k1_pair(pb.pack_words(mask, chunks), stream, chunks),
+                      label)
             line = {"stream": sname, "frontier": fname,
-                    "active": int(ref[-1]), "k1_max_abs_err": 0}
-            if int(mask_np.sum()) <= pb.SPARSE_MAX:
-                ftab = pb._frontier_table(mask)
-                k2 = px.active_prefix_sparse(ftab, stream)
-                ref2 = px.active_prefix_sparse_ref(ftab, stream)
-                sync()
-                if not torch.equal(k2, ref2):
-                    raise SystemExit(f"K2 != plain on {sname}/{fname}")
+                    "active": int(k1[-1]), "k1_max_abs_err": 0}
+            if int(mask.sum()) <= pb.SPARSE_MAX:
+                k2 = held(*k2_pair(pb._frontier_table(mask), stream), label)
                 if not torch.equal(k2, k1):
-                    raise SystemExit(f"K2 != K1 on {sname}/{fname}")
+                    raise SystemExit(f"K2 != K1 on {label}")
                 line["k2_max_abs_err"] = 0
             say("parity", **line)
         # the main path's shapes: K2 on the src-rank stream (hop 1 from 128
         # seeds), K1 on the dst-rank stream (the dense hops)
         e_pad = stream.numel()
         if sname == "src":
-            mask_np = np.zeros(n, dtype=bool)
-            mask_np[rng.choice(n, 128, replace=False)] = True
-            ftab = pb._frontier_table(torch.from_numpy(mask_np).to(dev))
-            name = "active_prefix_sparse"
-            kfn = lambda: px.active_prefix_sparse(ftab, stream)
-            pfn = lambda: px.active_prefix_sparse_ref(ftab, stream)
+            ftab = pb._frontier_table(exact_mask(n, 128))
+            name, kfn, pfn = k2_pair(ftab, stream)
             in_bytes = ftab.numel() * 4
         else:
             mask = torch.from_numpy(rng.random(n) < 0.10).to(dev)
             words = pb.pack_words(mask, chunks)
-            name = "active_prefix"
-            kfn = lambda: px.active_prefix(words, stream, chunks)
-            pfn = lambda: px.active_prefix_ref(words, stream, chunks)
+            name, kfn, pfn = k1_pair(words, stream, chunks)
             in_bytes = words.numel() * 4
         moved = 4 * e_pad + 4 * e_pad + in_bytes
         bytes_ms = moved / HBM_BYTES_PER_S * 1e3
         ops_ms = OPS_PER_EDGE[name] * e_pad / INT32_OPS_PER_S * 1e3
-        err = int((kfn().to(torch.int64) - pfn().to(torch.int64)).abs().max())
+        want = pfn()
+        err = int((kfn().to(torch.int64) - want.to(torch.int64)).abs().max())
+        for i in range(RACE_LAUNCHES):      # run-to-run races in the look-back
+            if not torch.equal(kfn(), want):
+                raise SystemExit(f"{name}: launch {i} of {RACE_LAUNCHES} "
+                                 f"differs from the plain version")
+        cumsum_ms = timed(lambda: torch.cumsum(stream, 0, dtype=torch.int32))
+        call_ms = timed(kfn, calls=1, reps=20)
         kernels[name] = {
             "name": name, "route": "cuda",
             "source": "dgraph_tpu_torch/ops/csrc/active_prefix.cu",
@@ -217,12 +249,64 @@ def main() -> int:
                          if name == "active_prefix"
                          else "dgraph_tpu/ops/pallas_bfs.py:124"),
             "launches": 0, "max_abs_err": err, "ms": timed(kfn),
-            "plain_ms": timed(pfn, reps=10), "bound_ms": max(bytes_ms, ops_ms),
+            "plain_ms": timed(pfn, calls=5, reps=3),
+            "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": None, "e_pad": int(e_pad), "stream": sname}
         if err:
             raise SystemExit(f"{name}: max_abs_err {err}")
-        say("kernel_time", **kernels[name])
+        share = kernels[name]["bound_ms"] / kernels[name]["ms"]
+        if share > 1:
+            raise SystemExit(f"{name}: {kernels[name]['ms']} ms is below its "
+                             f"bound {kernels[name]['bound_ms']} ms")
+        say("kernel_time", share_of_bound=share, race_launches=RACE_LAUNCHES,
+            cumsum_int32_ms=cumsum_ms, one_call_ms=call_ms, **kernels[name])
+
+    # edge cases of the design, each held to the plain version
+    src_stream = g.in_src_pad
+    n_src = len(subjects)
+    # a bitmap past what a block can stage (4M ranks: 123 chunks, 984 rows)
+    # takes the read-only path; 50 chunks (400 rows) is the largest staged
+    for n_ranks, n_edges in ((4_000_000, 3_000_000), (50 * 32768, 200_000),
+                             (51 * 32768, 200_000)):
+        chunks = pb.pack_chunks(n_ranks)
+        stream = synthetic_stream(n_ranks, n_edges, chunks)
+        mask = torch.from_numpy(rng.random(n_ranks) < 0.10).to(dev)
+        words = pb.pack_words(mask, chunks)
+        active = int(held(*k1_pair(words, stream, chunks),
+                          f"{chunks} chunks")[-1])
+        line = {"case": "bitmap", "chunks": chunks, "rows": chunks * 8,
+                "e_pad": int(stream.numel()), "active": active,
+                "k1_max_abs_err": 0}
+        if n_ranks == 4_000_000:
+            ftab = pb._frontier_table(exact_mask(n_ranks, px.FRONTIER_CAP))
+            line["k2_4096_active"] = int(held(*k2_pair(ftab, stream),
+                                              "4,096 entries, 4M ranks")[-1])
+            line["k2_max_abs_err"] = 0
+        say("parity_edge", **line)
+    # INT32_MAX ranks: a table with pads holds INT32_MAX, a full one does not
+    imax = src_stream.clone()
+    imax[::997] = px.INT32_MAX
+    for n_set in (128, px.FRONTIER_CAP):
+        mask = exact_mask(n_src, n_set)
+        ftab = pb._frontier_table(mask)
+        k2_active = int(held(*k2_pair(ftab, imax),
+                             f"INT32_MAX, {n_set} entries")[-1])
+        words = pb.pack_words(mask, g.chunks)
+        k1_active = int(held(*k1_pair(words, imax, g.chunks),
+                             f"INT32_MAX, {n_set} ranks")[-1])
+        say("parity_edge", case="int32_max", entries=n_set,
+            k2_active=k2_active, k1_active=k1_active, k1_max_abs_err=0,
+            k2_max_abs_err=0)
+    # one EDGE_BLOCK: fewer tiles than the persistent grid has blocks
+    one = src_stream[: px.EDGE_BLOCK]
+    for n_set in (128, px.FRONTIER_CAP):
+        mask = exact_mask(n_src, n_set)
+        held(*k2_pair(pb._frontier_table(mask), one), f"one block, {n_set}")
+        held(*k1_pair(pb.pack_words(mask, g.chunks), one, g.chunks),
+             f"one block, {n_set}")
+    say("parity_edge", case="one_edge_block", e_pad=px.EDGE_BLOCK,
+        k1_max_abs_err=0, k2_max_abs_err=0)
 
     # ---- 3. raw 3-hop BFS (bench.py `value`) -------------------------------
     seeds_mask = torch.zeros(num_nodes, dtype=torch.bool, device=dev)

@@ -100,6 +100,7 @@ def _load():
             ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
             lib.dg_tile_edges.argtypes = []
             lib.dg_tile_edges.restype = i32
+            # (words, n_rows | ftab), src, out, scratch, n_edges, stream
             lib.dg_active_prefix.argtypes = [ptr, i32, ptr, ptr, ptr, i64,
                                              ptr]
             lib.dg_active_prefix.restype = i32
@@ -177,12 +178,14 @@ def _check_stream(src_pad: torch.Tensor) -> None:
 def _launch(fn, src_pad: torch.Tensor, *ptrs) -> torch.Tensor:
     n = src_pad.numel()
     out = torch.empty_like(src_pad)
-    totals = torch.empty(n // _load().dg_tile_edges(), dtype=torch.int32,
-                         device=src_pad.device)
     with torch.cuda.device(src_pad.device):
+        # one status word per tile, then the tile counter: zeroed on the
+        # launch stream before every launch (the kernel's look-back needs it)
+        scratch = torch.zeros(n // _load().dg_tile_edges() + 1,
+                              dtype=torch.int64, device=src_pad.device)
         stream = torch.cuda.current_stream(src_pad.device).cuda_stream
         rc = fn(*ptrs, src_pad.data_ptr(), out.data_ptr(),
-                totals.data_ptr(), n, stream)
+                scratch.data_ptr(), n, stream)
     if rc != 0:
         raise RuntimeError(f"{fn.__name__} failed: cudaError {rc}")
     return out
@@ -210,7 +213,13 @@ def active_prefix(words: torch.Tensor, src_pad: torch.Tensor,
 
 def active_prefix_sparse(ftab: torch.Tensor,
                          src_pad: torch.Tensor) -> torch.Tensor:
-    """K2: the same output as K1, frontier as the (33, 128) search table."""
+    """K2: the same output as K1, frontier as the (33, 128) search table.
+
+    The kernel computes "src_pad[e] is an entry of ftab[1:]" (a hash set of
+    those 4,096 entries). For the tables _frontier_table builds (sorted,
+    unique ranks >= 0, INT32_MAX pads) that equals the plain version's
+    bucket search, for every int32 rank in src_pad. A table holding -1 (the
+    kernel's free-slot marker) is outside that domain."""
     _check_stream(src_pad)
     _check("ftab", ftab, src_pad.device)
     if tuple(ftab.shape) != (33, LANES):

@@ -9,6 +9,9 @@ kernels themselves are held to the same plain versions on the card by
 chip_smoke.py.
 """
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import jax.numpy as jnp
@@ -151,3 +154,39 @@ def test_wrappers_reject_bad_inputs():
     tpx.reset_launches()
     tpx.active_prefix(words, src, 1)
     assert tpx.LAUNCHES == {"active_prefix": 0, "active_prefix_sparse": 0}
+
+
+@pytest.mark.parametrize("n_set", [0, 1, 300, tpx.FRONTIER_CAP])
+def test_sparse_ref_is_table_membership(n_set):
+    """The CUDA K2 tests "src[e] is an entry of ftab[1:]" with a hash set.
+    For the tables _frontier_table builds (sorted, unique, INT32_MAX pads)
+    that is exactly the plain version's bucket search, pad ranks and
+    INT32_MAX ranks in the stream included: a table with fewer than 4,096
+    entries holds INT32_MAX, so an INT32_MAX edge counts; a full one does
+    not."""
+    rng = np.random.default_rng(200 + n_set)
+    n, n_edges = 50_000, 20_000
+    src, _ = _stream(rng, n, n_edges)           # pad ranks in the tail
+    mask = np.zeros(n, dtype=bool)
+    mask[rng.choice(n, n_set, replace=False)] = True
+    members = np.flatnonzero(mask)
+    if n_set:                                   # some edges hit the frontier
+        src[:n_edges:7] = rng.choice(members, len(src[:n_edges:7]))
+    n_max = 300
+    src[rng.choice(len(src), n_max, replace=False)] = tpx.INT32_MAX
+    ftab = tpb._frontier_table(torch.from_numpy(mask))
+    src_t = torch.from_numpy(src)
+    want = torch.cumsum(torch.isin(src_t, ftab[1:].reshape(-1)), 0)
+    got = tpx.active_prefix_sparse_ref(ftab, src_t)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    hits = int(np.isin(src, members).sum())
+    assert hits > 0 or n_set == 0
+    assert int(got[-1]) == hits + (n_max if n_set < tpx.FRONTIER_CAP else 0)
+
+
+def test_cuda_tile_divides_edge_block():
+    """The CPU tests build no CUDA kernel, so the tile comes from the
+    source."""
+    cu = (Path(tpx.__file__).parent / "csrc" / "active_prefix.cu").read_text()
+    tile = int(re.search(r"constexpr int kTile = (\d+);", cu).group(1))
+    assert tile > 0 and tpx.EDGE_BLOCK % tile == 0
