@@ -14,9 +14,12 @@ it:
      one), then on the edge cases of their design (a bitmap too large for
      shared memory and the sizes around that limit, a table of exactly 4,096
      entries, INT32_MAX ranks, a stream of one EDGE_BLOCK) and over 50
-     launches each at the main path's shapes; times each with CUDA events
-     over back-to-back calls beside its bound and beside torch.cumsum of the
-     same stream, and one call alone (the host's launch overhead included);
+     launches each at the main path's shapes, on that over-large bitmap and
+     on a full-size stream with a 4,096-entry table; times each with CUDA
+     events, one call alone (`ms`, the host's launch overhead included) and
+     back-to-back calls (`ms_back_to_back`, the device's time per call),
+     beside its bound and beside torch.cumsum of the same stream timed both
+     ways;
   3. runs the raw 3-hop BFS (k_hop_pull_pallas), equal to a host BFS;
   4. runs DQL `@recurse(depth: 3)` from the 128 seeds through Executor — the
      main path, with the launch counts read around one query — each level's
@@ -187,6 +190,15 @@ def main() -> int:
                 lambda: px.active_prefix_sparse(ftab, stream),
                 lambda: px.active_prefix_sparse_ref(ftab, stream))
 
+    def raced(name, kfn, want, label):
+        """RACE_LAUNCHES launches, each bit-identical to the plain version:
+        run-to-run races in the look-back show up only now and then."""
+        for i in range(RACE_LAUNCHES):
+            if not torch.equal(kfn(), want):
+                raise SystemExit(f"{name} on {label}: launch {i} of "
+                                 f"{RACE_LAUNCHES} differs from the plain "
+                                 f"version")
+
     def exact_mask(n, k):
         m = np.zeros(n, dtype=bool)
         m[rng.choice(n, k, replace=False)] = True
@@ -236,31 +248,31 @@ def main() -> int:
         ops_ms = OPS_PER_EDGE[name] * e_pad / INT32_OPS_PER_S * 1e3
         want = pfn()
         err = int((kfn().to(torch.int64) - want.to(torch.int64)).abs().max())
-        for i in range(RACE_LAUNCHES):      # run-to-run races in the look-back
-            if not torch.equal(kfn(), want):
-                raise SystemExit(f"{name}: launch {i} of {RACE_LAUNCHES} "
-                                 f"differs from the plain version")
-        cumsum_ms = timed(lambda: torch.cumsum(stream, 0, dtype=torch.int32))
-        call_ms = timed(kfn, calls=1, reps=20)
+        raced(name, kfn, want, f"the {sname}-rank stream")
+        cumsum = lambda: torch.cumsum(stream, 0, dtype=torch.int32)
+        yardstick = {"cumsum_int32_ms": timed(cumsum, calls=1, reps=20),
+                     "cumsum_int32_ms_back_to_back": timed(cumsum)}
         kernels[name] = {
             "name": name, "route": "cuda",
             "source": "dgraph_tpu_torch/ops/csrc/active_prefix.cu",
             "replaces": ("dgraph_tpu/ops/pallas_bfs.py:78"
                          if name == "active_prefix"
                          else "dgraph_tpu/ops/pallas_bfs.py:124"),
-            "launches": 0, "max_abs_err": err, "ms": timed(kfn),
-            "plain_ms": timed(pfn, calls=5, reps=3),
+            "launches": 0, "max_abs_err": err,
+            "ms": timed(kfn, calls=1, reps=20), "ms_back_to_back": timed(kfn),
+            "plain_ms": timed(pfn, calls=1, reps=10),
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": None, "e_pad": int(e_pad), "stream": sname}
         if err:
             raise SystemExit(f"{name}: max_abs_err {err}")
-        share = kernels[name]["bound_ms"] / kernels[name]["ms"]
-        if share > 1:
-            raise SystemExit(f"{name}: {kernels[name]['ms']} ms is below its "
-                             f"bound {kernels[name]['bound_ms']} ms")
-        say("kernel_time", share_of_bound=share, race_launches=RACE_LAUNCHES,
-            cumsum_int32_ms=cumsum_ms, one_call_ms=call_ms, **kernels[name])
+        shares = {f"share_of_bound{sfx}": kernels[name]["bound_ms"]
+                  / kernels[name][f"ms{sfx}"] for sfx in ("", "_back_to_back")}
+        if max(shares.values()) > 1:
+            raise SystemExit(f"{name}: a time is below its bound: {shares}, "
+                             f"{kernels[name]}")
+        say("kernel_time", race_launches=RACE_LAUNCHES, **shares, **yardstick,
+            **kernels[name])
 
     # edge cases of the design, each held to the plain version
     src_stream = g.in_src_pad
@@ -279,11 +291,22 @@ def main() -> int:
                 "e_pad": int(stream.numel()), "active": active,
                 "k1_max_abs_err": 0}
         if n_ranks == 4_000_000:
+            name, kfn, pfn = k1_pair(words, stream, chunks)
+            raced(name, kfn, pfn(), f"{chunks} chunks")
+            line["race_launches"] = RACE_LAUNCHES
             ftab = pb._frontier_table(exact_mask(n_ranks, px.FRONTIER_CAP))
             line["k2_4096_active"] = int(held(*k2_pair(ftab, stream),
                                               "4,096 entries, 4M ranks")[-1])
             line["k2_max_abs_err"] = 0
         say("parity_edge", **line)
+    # a full table on the full-size stream: longer probe chains
+    ftab = pb._frontier_table(exact_mask(n_src, px.FRONTIER_CAP))
+    name, kfn, pfn = k2_pair(ftab, src_stream)
+    raced(name, kfn, held(name, kfn, pfn, "4,096 entries, src-rank stream"),
+          "4,096 entries, src-rank stream")
+    say("parity_edge", case="full_table", entries=px.FRONTIER_CAP,
+        e_pad=int(src_stream.numel()), race_launches=RACE_LAUNCHES,
+        k2_max_abs_err=0)
     # INT32_MAX ranks: a table with pads holds INT32_MAX, a full one does not
     imax = src_stream.clone()
     imax[::997] = px.INT32_MAX

@@ -31,9 +31,10 @@
 //     prefix) in bits 32-33 and the value in bits 0-31, written with one
 //     st.release.gpu and read with ld.acquire.gpu, so a reader never sees a
 //     flag without its value.
-//   - Scratch comes from the caller, zeroed on the launch stream before
-//     every launch: uint64[n_tiles] (room for the n_tiles / kChunk chunk
-//     status words), then one more uint64 whose low 32 bits are the counter.
+//   - Scratch comes from the caller and the entry point zeroes it with one
+//     memset on the launch stream before every launch: uint64[n_tiles]
+//     (room for the n_tiles / kChunk chunk status words), then one more
+//     uint64 whose low 32 bits are the counter.
 // The shape was chosen on an H100 among timed variants: one tile at a time
 // with a look-back per tile (claimed before or after the look-back) was
 // about 1.5x slower, and so were blocks of 256 threads; chunks of 8 tiles,
@@ -433,40 +434,68 @@ sparse_scan(const int* __restrict__ ftab, const int* __restrict__ src,
               HashSet{slots});
 }
 
-// ---- launch set-up, cached ------------------------------------------------
+// ---- launch set-up, cached per device -------------------------------------
 
+// 0 = not read yet.
+struct DeviceCache {
+  std::atomic<int> sms;                          // SM count
+  std::atomic<int> staged_attr;                  // dynamic smem limit raised
+  std::atomic<int> occ_staged[kMaxStagedRows + 1];   // blocks per SM
+  std::atomic<int> occ_global;
+  std::atomic<int> occ_sparse;
+};
 constexpr int kMaxDevices = 64;
-std::atomic<int> g_sms[kMaxDevices];            // SM count; 0 = not read
-std::atomic<int> g_staged_attr[kMaxDevices];    // dynamic smem limit raised
-std::atomic<int> g_occ_staged[kMaxStagedRows + 1];   // blocks per SM
-std::atomic<int> g_occ_global;
-std::atomic<int> g_occ_sparse;
+DeviceCache g_cache[kMaxDevices];
+
+// The current device's cache; a device past kMaxDevices is refused.
+cudaError_t device_cache(DeviceCache** c) {
+  int dev = 0;
+  const cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  *c = &g_cache[dev];
+  return cudaSuccess;
+}
+
+// Reads slot, or computes it with read(v) and stores it.
+template <class Read>
+cudaError_t cached(std::atomic<int>& slot, int* v, Read read) {
+  *v = slot.load(std::memory_order_relaxed);
+  if (*v) return cudaSuccess;
+  const cudaError_t err = read(v);
+  if (err == cudaSuccess) slot.store(*v, std::memory_order_relaxed);
+  return err;
+}
 
 // The persistent grid: blocks per SM x SMs, at most one block per chunk.
-cudaError_t persistent_grid(const void* kernel, size_t smem,
-                            std::atomic<int>& occ, int dev, int n_tiles,
-                            int* grid) {
-  int sms = dev < kMaxDevices ? g_sms[dev].load(std::memory_order_relaxed)
-                              : 0;
-  if (sms == 0) {
-    const cudaError_t err =
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return err;
-    if (dev < kMaxDevices) g_sms[dev].store(sms, std::memory_order_relaxed);
-  }
-  int per_sm = occ.load(std::memory_order_relaxed);
-  if (per_sm == 0) {
-    const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, kernel, kThreads, smem);
-    if (err != cudaSuccess) return err;
-    occ.store(per_sm, std::memory_order_relaxed);
-  }
+// occ is the kernel's blocks-per-SM slot in c.
+cudaError_t persistent_grid(const void* kernel, size_t smem, DeviceCache& c,
+                            std::atomic<int>& occ, int n_tiles, int* grid) {
+  const int dev = static_cast<int>(&c - g_cache);
+  int sms = 0, per_sm = 0;
+  cudaError_t err = cached(c.sms, &sms, [&](int* v) {
+    return cudaDeviceGetAttribute(v, cudaDevAttrMultiProcessorCount, dev);
+  });
+  if (err != cudaSuccess) return err;
+  err = cached(occ, &per_sm, [&](int* v) {
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(v, kernel, kThreads,
+                                                         smem);
+  });
+  if (err != cudaSuccess) return err;
   // per_sm 0 (the block cannot fit): launch one a SM and let it be refused
   const long long blocks =
       static_cast<long long>(per_sm > 0 ? per_sm : 1) * sms;
   const int n_chunks = (n_tiles + kChunk - 1) / kChunk;
   *grid = static_cast<int>(blocks < n_chunks ? blocks : n_chunks);
   return cudaSuccess;
+}
+
+// Zeroes the status words and the counter on the launch stream.
+cudaError_t clear_scratch(unsigned long long* scratch, int n_tiles,
+                          cudaStream_t st) {
+  return cudaMemsetAsync(scratch, 0,
+                         (static_cast<size_t>(n_tiles) + 1) * sizeof(*scratch),
+                         st);
 }
 
 }  // namespace
@@ -478,35 +507,37 @@ int dg_tile_edges() { return kTile; }
 
 // K1. words: (n_rows, 128) int32; src, out: int32[n_edges], n_edges a
 // positive multiple of kTile; words, src, out 16-byte aligned; scratch:
-// uint64[n_edges / kTile + 1], zeroed.
+// uint64[n_edges / kTile + 1], zeroed here before the launch.
 int dg_active_prefix(const int* words, int n_rows, const int* src, int* out,
                      unsigned long long* scratch, long long n_edges,
                      void* stream) {
   const int n_tiles = static_cast<int>(n_edges / kTile);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const unsigned* w = reinterpret_cast<const unsigned*>(words);
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  DeviceCache* c = nullptr;
+  cudaError_t err = device_cache(&c);
   if (err != cudaSuccess) return static_cast<int>(err);
   int grid = 0;
   if (n_rows <= kMaxStagedRows) {
     const void* kernel = reinterpret_cast<const void*>(&dense_scan<true>);
-    if (dev >= kMaxDevices || !g_staged_attr[dev].load()) {
+    if (!c->staged_attr.load()) {
       err = cudaFuncSetAttribute(kernel,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  kMaxStagedRows * kRowBytes);
       if (err != cudaSuccess) return static_cast<int>(err);
-      if (dev < kMaxDevices) g_staged_attr[dev].store(1);
+      c->staged_attr.store(1);
     }
     const size_t smem = static_cast<size_t>(n_rows) * kRowBytes;
-    err = persistent_grid(kernel, smem, g_occ_staged[n_rows], dev, n_tiles,
+    err = persistent_grid(kernel, smem, *c, c->occ_staged[n_rows], n_tiles,
                           &grid);
+    if (err == cudaSuccess) err = clear_scratch(scratch, n_tiles, st);
     if (err != cudaSuccess) return static_cast<int>(err);
     dense_scan<true><<<grid, kThreads, smem, st>>>(
         w, static_cast<unsigned>(n_rows), src, out, scratch, n_tiles);
   } else {
     const void* kernel = reinterpret_cast<const void*>(&dense_scan<false>);
-    err = persistent_grid(kernel, 0, g_occ_global, dev, n_tiles, &grid);
+    err = persistent_grid(kernel, 0, *c, c->occ_global, n_tiles, &grid);
+    if (err == cudaSuccess) err = clear_scratch(scratch, n_tiles, st);
     if (err != cudaSuccess) return static_cast<int>(err);
     dense_scan<false><<<grid, kThreads, 0, st>>>(
         w, static_cast<unsigned>(n_rows), src, out, scratch, n_tiles);
@@ -520,12 +551,13 @@ int dg_active_prefix_sparse(const int* ftab, const int* src, int* out,
                             void* stream) {
   const int n_tiles = static_cast<int>(n_edges / kTile);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  DeviceCache* c = nullptr;
+  cudaError_t err = device_cache(&c);
   if (err != cudaSuccess) return static_cast<int>(err);
   int grid = 0;
-  err = persistent_grid(reinterpret_cast<const void*>(&sparse_scan), 0,
-                        g_occ_sparse, dev, n_tiles, &grid);
+  err = persistent_grid(reinterpret_cast<const void*>(&sparse_scan), 0, *c,
+                        c->occ_sparse, n_tiles, &grid);
+  if (err == cudaSuccess) err = clear_scratch(scratch, n_tiles, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   sparse_scan<<<grid, kThreads, 0, st>>>(ftab, src, out, scratch, n_tiles);
   return static_cast<int>(cudaGetLastError());

@@ -50,6 +50,7 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _lib = None
 _lib_lock = threading.Lock()
+_tile = 0          # edges per kernel tile (dg_tile_edges), read at load
 
 
 def reset_launches() -> None:
@@ -92,7 +93,7 @@ def build(verbose: bool = False) -> tuple[Path, str]:
 
 
 def _load():
-    global _lib
+    global _lib, _tile
     with _lib_lock:
         if _lib is None:
             path, _ = build()
@@ -107,7 +108,8 @@ def _load():
             lib.dg_active_prefix_sparse.argtypes = [ptr, ptr, ptr, ptr, i64,
                                                     ptr]
             lib.dg_active_prefix_sparse.restype = i32
-            if EDGE_BLOCK % lib.dg_tile_edges():
+            _tile = lib.dg_tile_edges()
+            if EDGE_BLOCK % _tile:
                 raise RuntimeError("kernel tile does not divide EDGE_BLOCK")
             _lib = lib
     return _lib
@@ -179,10 +181,10 @@ def _launch(fn, src_pad: torch.Tensor, *ptrs) -> torch.Tensor:
     n = src_pad.numel()
     out = torch.empty_like(src_pad)
     with torch.cuda.device(src_pad.device):
-        # one status word per tile, then the tile counter: zeroed on the
-        # launch stream before every launch (the kernel's look-back needs it)
-        scratch = torch.zeros(n // _load().dg_tile_edges() + 1,
-                              dtype=torch.int64, device=src_pad.device)
+        # one status word per tile, then the tile counter; the entry point
+        # zeroes them on the launch stream before its launch
+        scratch = torch.empty(n // _tile + 1, dtype=torch.int64,
+                              device=src_pad.device)
         stream = torch.cuda.current_stream(src_pad.device).cuda_stream
         rc = fn(*ptrs, src_pad.data_ptr(), out.data_ptr(),
                 scratch.data_ptr(), n, stream)

@@ -190,3 +190,25 @@ def test_cuda_tile_divides_edge_block():
     cu = (Path(tpx.__file__).parent / "csrc" / "active_prefix.cu").read_text()
     tile = int(re.search(r"constexpr int kTile = (\d+);", cu).group(1))
     assert tile > 0 and tpx.EDGE_BLOCK % tile == 0
+
+
+def test_bench_loads_another_checkouts_kernels():
+    """bench_torch_prefix.py --against DIR loads DIR's prefix module on its
+    own: a separate module whose build goes under DIR, whose wrappers give
+    the same answers on CPU tensors."""
+    import bench_torch_prefix
+
+    root = Path(tpx.__file__).resolve().parents[2]
+    other = bench_torch_prefix.load_prefix(root)
+    assert other is not tpx and other.BUILD_DIR == root / "build" / \
+        "dgraph_tpu_torch"
+    rng = np.random.default_rng(41)
+    src, chunks = _stream(rng, 5_000, 3_000)
+    src = torch.from_numpy(src)
+    mask = torch.from_numpy(rng.random(5_000) < 0.04)
+    words, ftab = tpb.pack_words(mask, chunks), tpb._frontier_table(mask)
+    np.testing.assert_array_equal(
+        other.active_prefix(words, src, chunks).numpy(),
+        tpx.active_prefix(words, src, chunks).numpy())
+    np.testing.assert_array_equal(other.active_prefix_sparse(ftab, src).numpy(),
+                                  tpx.active_prefix_sparse(ftab, src).numpy())
