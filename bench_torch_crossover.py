@@ -3,8 +3,9 @@
 
     python3 bench_torch_crossover.py      # needs one CUDA card
 
-Two path choices in the port are made by edge count. Both pick a path and
-never an answer; this script times each side of them on the card:
+Four path choices in the port are made by edge count. Each picks a path
+and never an answer's value; this script times each side of them on the
+card:
 
   1. recurse._kernel_min: a CSR of at least that many edges runs @recurse
      on the active-prefix kernels, a smaller one on the host mirror. For
@@ -18,6 +19,18 @@ never an answer; this script times each side of them on the card:
      that runs as a host gather, a larger one as a device gather. On the
      scale-20 graph, _expand_csr runs both ways for frontiers whose degree
      sums span 2^8..2^22; the uid matrices must agree.
+  3. shortest.DEVICE_SSSP_MIN_EDGES and shortest.SSSP_KERNEL_MIN: a
+     single-predicate unweighted `shortest` over a CSR of at least the first
+     runs on the device, on the kernel tier (bfs_dist over K1/K2) from the
+     second and on the Bellman-Ford tier (traversal.sssp) below it; a
+     smaller CSR runs on the host tier (level adjacency, then Dijkstra). For
+     the same R-MAT graphs and two smaller ones (scales 6 and 8),
+     `shortest(from: seeds[0], to: dst_far)` (dst_far the lowest uid at the
+     largest host-BFS distance) runs through Executor.execute on each tier,
+     the host tier until the first scale where one run passes
+     HOST_SHORTEST_MAX_S. Every tier's `_weight_` must
+     equal the host-BFS distance (on ties the tiers may pick different
+     paths of that length).
 
 Each line of output is one JSON object; times are host-clock milliseconds
 (torch.cuda.synchronize before each reading), the median and band of REPS
@@ -34,10 +47,12 @@ import time
 import numpy as np
 
 SCALES = (10, 12, 14, 16, 18, 20)
+SHORTEST_SCALES = (6, 8) + SCALES
 JSON_MAX_SCALE = 12          # whole-request JSON above this grows past ~10 MB
 EDGE_FACTOR, SEED = 16, 7
 EXPAND_NEEDS = tuple(1 << k for k in range(8, 23, 2))
 REPS = 5
+HOST_SHORTEST_MAX_S = 20.0   # the host tier stops after a scale past this
 
 
 def band(ms: list[float]) -> dict:
@@ -71,6 +86,7 @@ def main() -> int:
     from dgraph_tpu_torch.query import dql
     from dgraph_tpu_torch.query import engine as eng
     from dgraph_tpu_torch.query import recurse as rec
+    from dgraph_tpu_torch.query import shortest as sh
     from dgraph_tpu_torch.query import task
     from dgraph_tpu_torch.utils.schema import SchemaState, parse_schema
     from dgraph_tpu_torch.utils.types import TypeID
@@ -93,14 +109,23 @@ def main() -> int:
             out.append(node.dest_uids)
         return out
 
-    # ---- 1. @recurse: kernels vs host mirror, by CSR size -------------------
-    for scale in SCALES:
+    def load(scale):
+        """(subjects, indptr, indices, seeds, snapshot) of one R-MAT graph,
+        its pull graph prepared (once, untimed)."""
         subjects, indptr, indices = rmat_csr(scale, EDGE_FACTOR, seed=SEED)
         seeds = np.unique(np.random.default_rng(3).choice(
             subjects, size=min(128, len(subjects)), replace=False))
         snap = carry.snapshot_from_numpy(
             {"friend": (int(TypeID.UID), subjects, indptr, indices)}, 1,
             device=dev)
+        pb.pull_graph_for(snap.pred("friend").csr)
+        return subjects, indptr, indices, seeds, snap
+
+    # ---- 1. @recurse: kernels vs host mirror, by CSR size -------------------
+    graphs = {}
+    for scale in SCALES:
+        graphs[scale] = load(scale)
+        subjects, indptr, indices, seeds, snap = graphs[scale]
         text = "{ q(func: uid(%s)) @recurse(depth: 3) { friend } }" % \
             ", ".join(hex(int(u)) for u in seeds)
         req = dql.parse(text)
@@ -113,7 +138,6 @@ def main() -> int:
         def request():
             return json.dumps(eng.Executor(snap, schema).execute(req))
 
-        pb.pull_graph_for(snap.pred("friend").csr)      # prep once, untimed
         line = {"phase": "recurse3", "scale": scale,
                 "edges": int(len(indices))}
         got = {}
@@ -161,6 +185,54 @@ def main() -> int:
         if got["device"][1] != got["host"][1] or not np.array_equal(
                 got["device"][0], got["host"][0]):
             raise SystemExit(f"need {need}: expand matrices differ")
+        print(json.dumps(line), flush=True)
+
+    # ---- 3. shortest: kernel, Bellman-Ford and host tiers, by CSR size -----
+    from chip_smoke import host_bfs_dist
+
+    host_tier = True
+    for scale in SHORTEST_SCALES:
+        subjects, indptr, indices, seeds, snap = graphs.get(scale) or \
+            load(scale)
+        src = int(seeds[0])
+        hd = host_bfs_dist(subjects, indptr, indices, src,
+                           int(max(subjects.max(), indices.max())) + 1)
+        far = int(np.flatnonzero(hd == hd.max())[0])
+        req = dql.parse("{ shortest(from: %s, to: %s) { friend } }"
+                        % (hex(src), hex(far)))
+        line = {"phase": "shortest", "scale": scale,
+                "edges": int(len(indices)), "hops": int(hd[far])}
+
+        def run():
+            return eng.Executor(snap, schema).execute(req)
+
+        for tier, dmin, kmin in (("kernel", 0, 0), ("sssp", 0, 1 << 62),
+                                 ("host", 1 << 62, None)):
+            if tier == "host" and not host_tier:
+                continue
+            sh.DEVICE_SSSP_MIN_EDGES, sh.SSSP_KERNEL_MIN = dmin, kmin
+            try:
+                if tier != "host":
+                    out, line[f"{tier}_ms"] = timed(run, sync)
+                else:
+                    # the first run is the warm one; then samples while the
+                    # tier's time stays under the limit
+                    ms = []
+                    while len(ms) < REPS + 1 and \
+                            sum(ms) < HOST_SHORTEST_MAX_S * 1e3:
+                        t0 = time.perf_counter()
+                        out = run()
+                        sync()
+                        ms.append((time.perf_counter() - t0) * 1e3)
+                    line["host_ms"] = band(ms[1:] or ms)
+                    line["host_runs"] = len(ms)
+                    host_tier = ms[0] <= HOST_SHORTEST_MAX_S * 1e3
+            finally:
+                sh.DEVICE_SSSP_MIN_EDGES = sh.SSSP_KERNEL_MIN = None
+            weight = out["_path_"][0]["_weight_"]
+            if weight != float(hd[far]):
+                raise SystemExit(f"scale {scale}: {tier} tier _weight_ "
+                                 f"{weight} != host BFS {hd[far]}")
         print(json.dumps(line), flush=True)
     return 0
 

@@ -26,7 +26,19 @@ it:
      dest uids equal to the host-mirror path's;
   5. sends a few requests through Executor.execute to JSON, byte-identical
      between the kernel path and the host-mirror path;
-  6. prints the card line, a {"kernels": [...]} line and the final
+  6. runs DQL `shortest` from seeds[0] through Executor.execute on the
+     kernel tier (bfs_dist over K1/K2, launch counts read around the
+     picks): to the lowest uid at the largest distance, to one at distance
+     2 and to an unreachable one, each path equal to a numpy walk over
+     minimum-uid predecessors and each `_weight_` to the host BFS distance;
+     times the far request and profiles it; runs the Bellman-Ford tier
+     (traversal.sssp) over the whole graph, its distances equal to the host
+     BFS at every node and its parents to the maximum-uid predecessors; and
+     sends a weighted `numpaths: 3` request over a second predicate `road`
+     (R-MAT scale 12, an integer facet `w` per edge), byte-identical across
+     the host, default and device expand paths, its weights non-decreasing
+     and each the sum of the `w` facets along its path;
+  7. prints the card line, a {"kernels": [...]} line and the final
      {"ok": true, "device": {...}} line.
 Any mismatch raises and the script exits non-zero. It never imports jax or
 the JAX package.
@@ -87,6 +99,54 @@ def host_3hop(subjects, indptr, indices, seeds, hops=3):
     return visited, traversed
 
 
+def host_bfs_dist(subjects, indptr, indices, src, n):
+    """Vectorized numpy BFS hop counts from src over uids [0, n); -1 where
+    unreached."""
+    dist = np.full(n, -1, dtype=np.int32)
+    dist[src] = 0
+    frontier, d = np.asarray([src], dtype=np.int64), 0
+    while len(frontier):
+        d += 1
+        pos = np.clip(np.searchsorted(subjects, frontier), 0,
+                      len(subjects) - 1)
+        rows = pos[subjects[pos] == frontier]
+        starts, counts = indptr[rows], indptr[rows + 1] - indptr[rows]
+        total = int(counts.sum())
+        if total == 0:
+            break
+        offs = np.concatenate([[0], np.cumsum(counts)])
+        flat = indices[np.repeat(starts - offs[:-1], counts)
+                       + np.arange(total)]
+        dest = np.unique(flat)
+        frontier = dest[dist[dest] < 0]
+        dist[frontier] = d
+    return dist
+
+
+def min_pred_walk(rsub, rptr, ridx, dist, src, dst):
+    """The path [src..dst] that takes, from dst back, the minimum-uid
+    in-neighbour one hop closer (the kernel tier's and Dijkstra's rule),
+    over the reverse CSR (rows of sorted subjects)."""
+    path, v = [dst], dst
+    for d in range(int(dist[dst]), 0, -1):
+        r = int(np.searchsorted(rsub, v))
+        preds = ridx[rptr[r]: rptr[r + 1]]
+        v = int(preds[dist[preds] == d - 1][0])
+        path.append(v)
+    if path[-1] != src:
+        raise SystemExit(f"min_pred_walk ended at {path[-1]}, not {src}")
+    return path[::-1]
+
+
+def path_uids(node, attr):
+    """uids along one `_path_` object: {"uid": .., attr: [{...}]}."""
+    out = []
+    while node is not None:
+        out.append(int(node["uid"], 16))
+        node = node[attr][0] if attr in node else None
+    return out
+
+
 def band(samples):
     s = sorted(samples)
     return {"min": s[0], "median": s[len(s) // 2], "max": s[-1]}
@@ -116,6 +176,7 @@ def main() -> int:
     from dgraph_tpu_torch.utils.schema import SchemaState, parse_schema
     from dgraph_tpu_torch.utils.types import TypeID
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda")
     sync = torch.cuda.synchronize
 
@@ -486,7 +547,17 @@ def main() -> int:
                          f"{req_launches}")
     say("requests", launches=req_launches)
 
-    # ---- 6. summary lines --------------------------------------------------
+    # ---- 6. DQL shortest: kernel tier, Bellman-Ford, weighted k-shortest ---
+    t0 = time.perf_counter()
+    short_launches = shortest_phase(snap, schema, (subjects, indptr, indices),
+                                    (rsub, rptr, ridx), int(seeds[0]),
+                                    num_nodes, dev)
+    for name, n in short_launches.items():
+        kernels[name]["launches_shortest"] = n
+    say("shortest_phase", seconds=time.perf_counter() - t0,
+        script_seconds=time.perf_counter() - t_start)
+
+    # ---- 7. summary lines --------------------------------------------------
     kern_line = {"kernels": [
         {k: v for k, v in kernels[n].items() if k not in ("e_pad", "stream")}
         for n in ("active_prefix", "active_prefix_sparse")]}
@@ -496,6 +567,175 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def shortest_phase(snap, schema, csr, rev, src, num_nodes, dev) -> dict:
+    """Phase 6 on the headline snapshot (friend, ~friend); adds `road`.
+    Returns the K1/K2 launches of the kernel tier's picks."""
+    import torch
+
+    from dgraph_tpu_torch import carry
+    from dgraph_tpu_torch.models.rmat import rmat_csr
+    from dgraph_tpu_torch.ops import prefix as px
+    from dgraph_tpu_torch.ops import traversal
+    from dgraph_tpu_torch.query import dql
+    from dgraph_tpu_torch.query import engine as eng
+    from dgraph_tpu_torch.query import task
+    from dgraph_tpu_torch.utils.schema import parse_schema
+    from dgraph_tpu_torch.utils.types import TypeID, Val
+
+    subjects, indptr, indices = csr
+    rsub, rptr, ridx = rev
+    sync = torch.cuda.synchronize
+
+    def execute(text):
+        return eng.Executor(snap, schema).execute(dql.parse(text))
+
+    # picks from a host BFS over the whole graph
+    t0 = time.perf_counter()
+    hd = host_bfs_dist(subjects, indptr, indices, src, num_nodes)
+    has_in = np.zeros(num_nodes, dtype=bool)
+    has_in[indices] = True
+    far_d = int(hd.max())
+    unreached = np.flatnonzero((hd < 0) & has_in)
+    picks = {"far": int(np.flatnonzero(hd == far_d)[0]),
+             "d2": int(np.flatnonzero(hd == 2)[0]),
+             "unreached": int(unreached[0]) if len(unreached)
+             else int(np.flatnonzero(~has_in[1:])[0]) + 1}
+    host_bfs_s = time.perf_counter() - t0
+    text = ("{ p as shortest(from: %s, to: %%s) { friend } "
+            "r(func: uid(p)) { uid } }" % hex(src))
+
+    # the kernel tier through Executor.execute, its launches counted
+    px.reset_launches()
+    outs = {k: execute(text % hex(v)) for k, v in picks.items()}
+    sync()
+    launches = dict(px.LAUNCHES)
+    for k, v in picks.items():
+        out = outs[k]
+        if k == "unreached":
+            if "_path_" in out:
+                raise SystemExit(f"shortest to unreachable {v} gave a path")
+            continue
+        got = path_uids(out["_path_"][0], "friend")
+        want = min_pred_walk(rsub, rptr, ridx, hd, src, v)
+        if out["_path_"][0]["_weight_"] != float(hd[v]):
+            raise SystemExit(f"shortest {k}: _weight_ "
+                             f"{out['_path_'][0]['_weight_']} != {hd[v]}")
+        if got != want:
+            raise SystemExit(f"shortest {k}: path {got} != numpy walk {want}")
+        if sorted(int(r["uid"], 16) for r in out["r"]) != sorted(want):
+            raise SystemExit(f"shortest {k}: var p block != the path")
+    if min(launches.values()) == 0:
+        raise SystemExit(f"shortest did not launch both kernels: {launches}")
+
+    far_q = text % hex(picks["far"])
+    px.reset_launches()
+    execute(far_q)
+    sync()
+    far_launches = dict(px.LAUNCHES)
+    samples = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        execute(far_q)
+        sync()
+        samples.append((time.perf_counter() - t0) * 1e3)
+    prof = profile_query(lambda: execute(far_q))
+    say("shortest", picks=picks, hops={k: int(hd[v]) for k, v in
+                                       picks.items()},
+        launches=launches, far_launches=far_launches,
+        syncs_per_query=prof["dtoh_copies"], shortest_ms=band(samples),
+        host_bfs_seconds=host_bfs_s, profile=prof)
+
+    # the Bellman-Ford tier over the whole graph
+    pcsr = snap.pred("friend").csr
+    hi = max(int(subjects[-1]), int(indices.max()))
+    nn = 1 << max(int(np.ceil(np.log2(hi + 2))), 4)     # shortest.py's class
+    run = lambda: traversal.sssp(pcsr.subjects, pcsr.indptr, pcsr.indices,
+                                 None, src, num_nodes=nn)
+    res = run()
+    dist, parent = res.dist.cpu().numpy(), res.parent.cpu().numpy()
+    hdn = np.full(nn, -1, dtype=np.int32)          # uids past hi: unreached
+    hdn[: min(nn, num_nodes)] = hd[: min(nn, num_nodes)]
+    want_d = np.where(hdn >= 0, hdn, np.inf).astype(np.float32)
+    if not np.array_equal(dist, want_d):
+        raise SystemExit(f"sssp dist != host BFS at "
+                         f"{int((dist != want_d).sum())} nodes")
+    src_e = np.repeat(subjects, np.diff(indptr)).astype(np.int64)
+    dst_e = indices.astype(np.int64)
+    tree = (hd[src_e] >= 0) & (hd[dst_e] == hd[src_e] + 1)
+    want_p = np.full(nn, -1, dtype=np.int64)
+    np.maximum.at(want_p, dst_e[tree], src_e[tree])
+    if not np.array_equal(parent, want_p):
+        raise SystemExit(f"sssp parent != maximum-uid predecessor at "
+                         f"{int((parent != want_p).sum())} nodes")
+    ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        run()
+        sync()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    say("sssp", iterations=res.iterations, reached=int((hd >= 0).sum()),
+        sssp_ms=band(ms), ms_per_iteration=float(np.median(ms))
+        / res.iterations)
+
+    # a weighted k-shortest request over `road`, with an integer facet w
+    rs, rp, rx = rmat_csr(12, 16, seed=9)
+    w = np.random.default_rng(9).integers(1, 10, len(rx))
+    road_src = np.repeat(rs, np.diff(rp))
+    wmap = {(int(a), int(b)): int(c) for a, b, c in zip(road_src, rx, w)}
+    road = carry.snapshot_from_numpy(
+        {"road": (int(TypeID.UID), rs, rp, rx)}, 1, device=dev,
+        facets={"road": {k: (("w", Val(TypeID.INT, c)),)
+                         for k, c in wmap.items()}})
+    snap.preds["road"] = road.pred("road")
+    for e in parse_schema("road: [uid] ."):
+        schema.set(e)
+    deg = np.diff(rp)
+    n_road = int(max(rs.max(), rx.max())) + 1
+    wtext = ("{ p as shortest(from: %s, to: %s, numpaths: 3) "
+             "{ road @facets(w) } r(func: uid(p)) { uid road @facets(w) "
+             "{ uid } } }")
+    # pairs two hops apart: best-first enumeration of loopless paths grows
+    # with the hubs within reach of the third path's weight, and at three
+    # hops one pair of this graph needs more than 50,000 heap pops
+    eng.set_query_edge_limit(1 << 18)      # at most 262,144 pops a request
+    for a in rs[(deg >= 3) & (deg <= 16)][:20]:
+        rd = host_bfs_dist(rs, rp, rx, int(a), n_road)
+        if not (rd == 2).any():
+            continue
+        wq = wtext % (hex(int(a)), hex(int(np.flatnonzero(rd == 2)[0])))
+        expand_max = task.HOST_EXPAND_MAX
+        jsons = {}
+        t0 = time.perf_counter()
+        for path, cut in (("host", 1 << 62), ("default", expand_max),
+                          ("device", 0)):
+            task.HOST_EXPAND_MAX = cut
+            try:
+                jsons[path] = json.dumps(execute(wq))
+            finally:
+                task.HOST_EXPAND_MAX = expand_max
+        k_ms = (time.perf_counter() - t0) * 1e3 / 3
+        paths = json.loads(jsons["default"]).get("_path_", [])
+        if 1000 < len(jsons["default"]) <= JSON_MAX_BYTES and len(paths) == 3:
+            break
+    else:
+        raise SystemExit("no road pair gives 3 paths in 1 KB..10 MB of JSON")
+    if len(set(jsons.values())) != 1:
+        raise SystemExit("weighted k-shortest JSON differs between the host, "
+                         "default and device expand paths")
+    weights = [pth["_weight_"] for pth in paths]
+    if weights != sorted(weights):
+        raise SystemExit(f"k-shortest weights decrease: {weights}")
+    for pth in paths:
+        uids = path_uids(pth, "road")
+        cost = sum(wmap[(a, b)] for a, b in zip(uids, uids[1:]))
+        if pth["_weight_"] != float(cost):
+            raise SystemExit(f"_weight_ {pth['_weight_']} != facet sum {cost}")
+    say("k_shortest", query=wq[:120], json_bytes=len(jsons["default"]),
+        weights=weights, hops=[len(path_uids(p, "road")) - 1 for p in paths],
+        ms_per_request=k_ms)
+    return launches
 
 
 def profile_query(run) -> dict:
@@ -510,8 +750,10 @@ def profile_query(run) -> dict:
         run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = []
+    rows, dtoh = [], 0
     for e in prof.key_averages():
+        if "DtoH" in e.key:
+            dtoh += e.count         # device-to-host copies: the host syncs
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = getattr(e, "self_cuda_time_total", 0)
@@ -528,7 +770,7 @@ def profile_query(run) -> dict:
     host = sorted(((tt * 1e3, f"{Path(fn).name}:{line}({name})", nc)
                    for (fn, line, name), (_cc, nc, tt, _ct, _callers)
                    in pstats.Stats(cp).stats.items()), reverse=True)
-    return {"wall_ms": wall_ms, "device_busy_ms": busy,
+    return {"wall_ms": wall_ms, "device_busy_ms": busy, "dtoh_copies": dtoh,
             "device_idle_share": 1 - busy / wall_ms if wall_ms else None,
             "top": [{"name": k[:60], "ms": ms, "calls": n}
                     for ms, k, n in rows[:8]],

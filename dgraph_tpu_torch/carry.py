@@ -16,15 +16,22 @@ import torch
 from dgraph_tpu_torch import resolve_device
 from dgraph_tpu_torch.ops.pull_bfs import DEVICE_FIELDS, PullGraph
 from dgraph_tpu_torch.storage.csr_build import GraphSnapshot, PredCSR, PredData
-from dgraph_tpu_torch.utils.types import TypeID
+from dgraph_tpu_torch.utils.types import TypeID, Val
 
 
 def snapshot_from_numpy(preds: Mapping[str, tuple], read_ts: int,
-                        device: str | torch.device = "cuda") -> GraphSnapshot:
+                        device: str | torch.device = "cuda",
+                        facets: Mapping[str, Mapping] | None = None
+                        ) -> GraphSnapshot:
     """Build a GraphSnapshot from {attr: (type_id, subjects, indptr,
     indices)}, the arrays PredCSR.host_arrays() returns in either package.
     A key "~attr" carries attr's reverse CSR (its rev_csr); a reverse entry
-    without a forward one is refused."""
+    without a forward one is refused.
+
+    facets: {attr: {(subject, object): ((name, value), ...)}}, the JAX
+    package's PredData.facets. Each value is anything with `tid` and
+    `value` (a Val of either package) and becomes this package's Val with
+    the same type id and value; names keep their order."""
     dev = resolve_device(device)
     snap = GraphSnapshot(read_ts, dev)
     for attr in sorted(preds, key=lambda a: a.startswith("~")):
@@ -39,6 +46,15 @@ def snapshot_from_numpy(preds: Mapping[str, tuple], read_ts: int,
             pd.rev_csr = csr
         else:
             snap.preds[attr] = PredData(attr, TypeID(int(type_id)), csr=csr)
+    for attr, edges in (facets or {}).items():
+        pd = snap.preds.get(attr)
+        if pd is None:
+            raise ValueError(f"facets for {attr!r}, which has no CSR")
+        pd.facets = {
+            (int(s), int(o)): tuple((str(name), Val(TypeID(int(v.tid)),
+                                                    v.value))
+                                    for name, v in fs)
+            for (s, o), fs in edges.items()}
     return snap
 
 

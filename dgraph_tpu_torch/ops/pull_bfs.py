@@ -1,4 +1,5 @@
-"""Pull-BFS and edge-dedup @recurse over the active-prefix kernels.
+"""Pull-BFS, edge-dedup @recurse and shortest-path BFS distances over the
+active-prefix kernels.
 
 Port of the orchestration half of dgraph_tpu/ops/pallas_bfs.py; the two
 kernels are in ops/prefix.py (CUDA, csrc/active_prefix.cu). Per hop:
@@ -15,9 +16,10 @@ Where JAX branches on the device (lax.cond on push_ok and on
 fcount <= SPARSE_MAX, lax.scan over recurse levels), the port reads one
 scalar per hop on the host and runs a Python loop: a fused depth-D recurse
 pays D host syncs (the per-level frontier count) plus one fetch of the
-packed level masks. jnp.nonzero(size=, fill_value=) becomes a cumsum +
-scatter into a fixed-size buffer (no extra sync); .at[].set(mode="drop")
-and jnp.take(mode="clip") become explicit masks and clamps.
+packed level masks; bfs_dist reads its loop condition in the same read.
+jnp.nonzero(size=, fill_value=) becomes a cumsum + scatter into a
+fixed-size buffer (no extra sync); .at[].set(mode="drop") and
+jnp.take(mode="clip") become explicit masks and clamps.
 """
 
 from __future__ import annotations
@@ -215,11 +217,12 @@ def _frontier_table(frontier: torch.Tensor) -> torch.Tensor:
 
 
 def _prefix_for(frontier_bits: torch.Tensor, stream: torch.Tensor,
-                n_chunks: int) -> torch.Tensor:
+                n_chunks: int, fcount: int | None = None) -> torch.Tensor:
     """Active-edge inclusive prefix for one frontier: K2 at or below
     SPARSE_MAX set bits, K1 above. The popcount is the hop's one host read
-    (the JAX lax.cond)."""
-    fcount = int(frontier_bits.sum())
+    (the JAX lax.cond), unless the caller read it already (`fcount`)."""
+    if fcount is None:
+        fcount = int(frontier_bits.sum())
     if fcount <= SPARSE_MAX:
         return active_prefix_sparse(_frontier_table(frontier_bits), stream)
     return active_prefix(pack_words(frontier_bits, n_chunks), stream,
@@ -420,3 +423,102 @@ def recurse_fused(in_src_pad, in_src_pad_d, in_iptr_rank, subjects,
         freshes.append(fresh)
     return (pack_words(torch.stack(masks), pack_chunks(nd)),
             torch.stack(travs), torch.stack(freshes))
+
+
+# ---------------------------------------------------------------------------
+# unweighted shortest path (the `shortest` kernel tier)
+# ---------------------------------------------------------------------------
+
+_DIST_BITS = 8          # distance labels fit a byte (max_hops clamped below)
+DIST_UNREACHED = (1 << _DIST_BITS) - 1
+
+
+def bfs_dist(in_src_pad, in_src_pad_d, in_iptr_rank, subjects, in_subjects,
+             seeds_mask, dst_rank: int, max_hops: int, *, chunks: int,
+             chunks_d: int):
+    """Unweighted single-source BFS distances per dst rank, stopping once
+    dst_rank is reached (pallas_bfs.bfs_dist). Hop 1 reads the seed bits in
+    src-rank space; later hops the fresh dst-rank mask against the dst-rank
+    stream, as recurse_fused does.
+
+    JAX's lax.while_loop becomes a host loop whose condition, ~found &
+    (h < max_hops) & (h == 0 | fresh.any()), is read once per hop together
+    with the popcount that picks K2 or K1: a path of d hops costs d + 1
+    reads. Returns (dist uint8[Nd] on the device, DIST_UNREACHED where
+    never reached; found, a 0-d bool tensor; h, the hops run)."""
+    nd = in_subjects.shape[0]
+    dev = seeds_mask.device
+    visited = seeds_mask[in_subjects.to(torch.int64)]        # [Nd]
+    dist = torch.where(visited, 0, DIST_UNREACHED).to(torch.uint8)
+    found = visited[dst_rank]
+    fresh = torch.zeros((nd,), dtype=torch.bool, device=dev)
+    h = 0
+    while h < max_hops:
+        if h == 0:
+            frontier, stream, n_chunks = (
+                seeds_mask[subjects.to(torch.int64)], in_src_pad, chunks)
+        else:
+            frontier, stream, n_chunks = fresh, in_src_pad_d, chunks_d
+        fcount, hit = torch.stack(
+            [frontier.sum(), found.to(torch.int64)]).tolist()
+        if hit or (h > 0 and fcount == 0):
+            break
+        prefix = _prefix_for(frontier, stream, n_chunks, fcount)
+        fresh = _bounds_reached(prefix, in_iptr_rank) & ~visited
+        visited = visited | fresh
+        dist = torch.where(fresh, h + 1, dist)
+        found = visited[dst_rank]
+        h += 1
+    return dist, found, h
+
+
+def shortest_bfs(g: PullGraph, src: int, dst: int, max_hops: int):
+    """Run bfs_dist, fetch the byte distances once, and walk the predecessor
+    chain on the host in-adjacency: at each step the lowest src rank (so
+    the lowest uid) among the in-edges at distance d-1, and at d == 1 the
+    seed itself. Returns the uid path [src..dst], or None when dst is not
+    reached within max_hops. g needs its host arrays (pull_graph_for)."""
+    nd = len(g.host_in_subjects)
+    if nd == 0:
+        return None
+    dr = int(np.searchsorted(g.host_in_subjects, dst))
+    if dr >= nd or g.host_in_subjects[dr] != dst:
+        return None              # dst has no in-edges: unreachable
+    max_hops = min(int(max_hops), DIST_UNREACHED - 1)
+    if src >= g.num_nodes:
+        return None
+    seeds_mask = torch.zeros((g.num_nodes,), dtype=torch.bool,
+                             device=g.device)
+    seeds_mask[src] = True
+    dist_d, _found, _h = bfs_dist(
+        g.in_src_pad, g.in_src_pad_d, g.in_iptr_rank, g.subjects,
+        g.in_subjects, seeds_mask, dr, max_hops, chunks=g.chunks,
+        chunks_d=g.chunks_d)
+    dist = dist_d.cpu().numpy()                        # the one fetch
+    if dist[dr] == DIST_UNREACHED:
+        return None
+
+    iptr, in_src = g.host_in_iptr, g.host_in_src
+    map_s2d = g.host_map_s2d
+    sub_uids = g.host_subjects   # uid of a src rank
+
+    path = [dst]
+    v_rank = dr
+    for d in range(int(dist[dr]), 0, -1):
+        srcs = in_src[iptr[v_rank]: iptr[v_rank + 1]]     # src RANKS
+        if d == 1:
+            # the predecessor must be the seed itself
+            if not (sub_uids[srcs] == src).any():
+                return None      # inconsistent labels (cannot happen)
+            path.append(src)
+            break
+        m = map_s2d[srcs]
+        ok = m < nd
+        ok[ok] = dist[m[ok]] == d - 1
+        cand = srcs[ok]
+        if len(cand) == 0:
+            return None          # inconsistent labels (cannot happen)
+        u_rank = int(cand[0])
+        path.append(int(sub_uids[u_rank]))
+        v_rank = int(map_s2d[u_rank])
+    return path[::-1]

@@ -9,13 +9,14 @@ DestUIDs (:2081). ProcessQuery runs blocks in dependency waves
 (:2431-2586).
 
 Ported: uid(...) roots and uid variables, uid children (expand, count,
-uid selections, reverse edges), uid(...) filters under and/or/not, child
-row pagination, @cascade, @recurse. The mesh, batcher, caches, dispatch
+uid selections, reverse edges, @facets(keys) on uid edges), uid(...)
+filters under and/or/not, child row pagination, @cascade, @recurse,
+shortest paths (query/shortest.py). The mesh, batcher, caches, dispatch
 gate, planner and vector seams of the JAX engine are not carried over.
 Each unported branch raises NotImplementedError naming its slice: root
 functions and value filters (index slice), value children, val/math/
-aggregates and ordering (value slice), shortest (shortest slice),
-@groupby (groupby slice), facets (value slice).
+aggregates, ordering, facet filters and facet variables (value slice),
+@groupby (groupby slice).
 """
 
 from __future__ import annotations
@@ -133,7 +134,10 @@ class Executor:
     def _process_block(self, sg: SubGraph) -> None:
         gq = sg.gq
         if gq.shortest is not None:
-            raise _unported("shortest", "shortest")
+            from dgraph_tpu_torch.query.shortest import shortest_path
+
+            shortest_path(self, sg)
+            return
         sg.src_uids = self._root_uids(gq)
         if gq.recurse is not None:
             from dgraph_tpu_torch.query.recurse import recurse
@@ -224,18 +228,25 @@ class Executor:
                         frontier: np.ndarray) -> SubGraph:
         """One child level through the dispatch seam: expand, per-row
         filter + pagination, var recording."""
-        if cgq.facets is not None:
-            raise _unported("@facets", "value")
+        if cgq.facets is not None and cgq.facets.filter is not None:
+            raise _unported("facet filters", "value")
+        if cgq.facets is not None and cgq.facets.var_map:
+            raise _unported("facet variables", "value")
         if cgq.checkpwd:
             raise _unported("checkpwd", "value")
         child = SubGraph(gq=cgq, attr=cgq.attr, src_uids=frontier)
         if cgq.lang:
             raise _unported("language tags", "value")
-        res = self._dispatch(TaskQuery(cgq.attr, frontier=frontier))
+        tq = TaskQuery(cgq.attr, frontier=frontier)
+        if cgq.facets is not None:
+            # every facet comes back; the encoder keeps the asked keys
+            tq.facet_keys = [k for _, k in cgq.facets.keys] or ["__all__"]
+        res = self._dispatch(tq)
         self.traversed_edges += res.traversed_edges
         if self.traversed_edges > self.edge_budget():
             raise QueryError("query exceeded edge budget (ErrTooBig)")
         child.uid_matrix = res.uid_matrix
+        child.facet_matrix = res.facet_matrix
         child.counts = res.counts
         child.dest_uids = res.dest_uids
         child.traversed = res.traversed_edges
@@ -253,7 +264,7 @@ class Executor:
         first = int(cgq.args.get("first", 0))
         offset = int(cgq.args.get("offset", 0))
         new_matrix = []
-        for row in child.uid_matrix:
+        for i, row in enumerate(child.uid_matrix):
             row = np.asarray(row, dtype=np.int64)
             sel = np.flatnonzero(us.host_rank_of(dest, row, -1) >= 0)
             if offset:
@@ -263,6 +274,10 @@ class Executor:
             elif first < 0:
                 sel = sel[first:]
             new_matrix.append(row[sel])
+            if child.facet_matrix and i < len(child.facet_matrix):
+                frow = child.facet_matrix[i]
+                child.facet_matrix[i] = [frow[j] for j in sel.tolist()
+                                         if j < len(frow)]
         child.uid_matrix = new_matrix
         child.counts = [len(m) for m in new_matrix]
         child.dest_uids = (np.unique(np.concatenate(new_matrix))

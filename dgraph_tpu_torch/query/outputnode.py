@@ -1,7 +1,7 @@
 """Result encoding: SubGraph tree → JSON-able dict.
 
 Port of dgraph_tpu/query/outputnode.py (pure host code, copied): the
-shortest-path and @groupby branches wait for their slices and raise.
+@groupby branch waits for its slice and raises.
 Reference semantics: query/outputnode.go — preTraverse walks the SubGraph per
 root uid building the response tree (query/query.go:370), fastJsonNode writes
 it (:81-271), @normalize flattens aliased leaves (:296), ToJson (:43).
@@ -46,10 +46,15 @@ def encode_result(ex, sg, out: dict) -> None:
     """Encode one query block into the response dict (ToJson per block)."""
     gq = sg.gq
     alias = gq.alias or gq.attr
-    if gq.shortest is not None or sg.group_result is not None:
+    if gq.shortest is not None:
+        from dgraph_tpu_torch.query.shortest import encode_paths
+
+        encode_paths(ex, sg, out)
+        return
+    if sg.group_result is not None:
         raise NotImplementedError(
-            "shortest-path and @groupby results are not ported yet: they "
-            "wait for the shortest and groupby slices of dgraph_tpu_torch")
+            "@groupby results are not ported yet: they wait for the groupby "
+            "slice of dgraph_tpu_torch")
     nodes: list[dict] = []
     frontier = np.sort(sg.dest_uids)
     # @ignorereflex: a node never appears in its own subtree — an ancestor

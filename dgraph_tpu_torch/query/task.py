@@ -8,6 +8,7 @@ CSR gather (ops/csr.expand) over the predicate's device adjacency, or a
 host-mirror gather below HOST_EXPAND_MAX edges. The uidMatrix stays CSR
 shaped until the host splits it per source.
 
+Uid edges carry their facets when the task asks for them (facet_keys).
 Not ported yet (each raises NotImplementedError naming its slice): root
 functions (index probes, has(), similar_to) and value predicates.
 """
@@ -42,6 +43,7 @@ class TaskQuery:
     frontier: np.ndarray | None = None      # subject uids; None = root function
     func: tuple[str, list] | None = None    # (name, args) root/filter function
     reverse: bool = False                   # traverse ReverseKey space (~attr)
+    facet_keys: list[str] = field(default_factory=list)  # non-empty: attach facets
 
 
 @dataclass
@@ -118,7 +120,7 @@ def process_task(snap: GraphSnapshot, q: TaskQuery,
     attr = q.attr
     if attr.startswith("~"):
         attr = attr[1:]
-        q = TaskQuery(attr, q.frontier, q.func, True)
+        q = TaskQuery(attr, q.frontier, q.func, True, q.facet_keys)
     pd = snap.pred(attr) or PredData(attr, schema.type_of(attr))
 
     if q.frontier is None:
@@ -132,22 +134,28 @@ def process_task(snap: GraphSnapshot, q: TaskQuery,
         matrix, traversed = _expand_csr(csr, frontier) \
             if csr is not None else (
             [np.zeros(0, np.int64) for _ in frontier], 0)
-        return finish_uid_expand(q, frontier, matrix, traversed)
+        return finish_uid_expand(pd, q, frontier, matrix, traversed)
     raise NotImplementedError(
         f"value predicate {attr!r}: value predicates are not ported yet; "
         f"they wait for the value slice of dgraph_tpu_torch")
 
 
-def finish_uid_expand(q: TaskQuery, frontier: np.ndarray,
+def finish_uid_expand(pd: PredData, q: TaskQuery, frontier: np.ndarray,
                       matrix: list[np.ndarray], traversed: int) -> TaskResult:
-    """Host tail of a uid-predicate frontier task: the uid_in filter
-    function and the dest merge."""
+    """Host tail of a uid-predicate frontier task: the edge facets, the
+    uid_in filter function and the dest merge. q is reverse-resolved (attr
+    without "~", q.reverse set) as process_task rewrites it."""
     res = TaskResult()
     fname = q.func[0].lower() if q.func else None
     args = q.func[1] if q.func else []
     res.uid_matrix = matrix
     res.counts = [len(m) for m in matrix]
     res.traversed_edges = traversed
+    if q.facet_keys:
+        # every facet of each edge; the encoder keeps the asked keys
+        res.facet_matrix = [
+            [pd.facets.get((int(s), int(o)), ()) for o in m]
+            for s, m in zip(frontier, matrix)]
     if fname == "uid_in":
         # uid_in(pred, u1, u2, ...) keeps subjects with ANY listed object
         want = {int(str(a), 0) for a in args}

@@ -2,8 +2,8 @@
 columns.
 
 Port of the snapshot types of dgraph_tpu/storage/csr_build.py for the uid
-traversal slice: MAX_DEVICE_UID, PredCSR, PredData (its uid parts) and
-GraphSnapshot. A snapshot at read_ts is a set of immutable per-predicate
+traversal slice: MAX_DEVICE_UID, PredCSR, PredData (its uid parts and uid-edge facets)
+and GraphSnapshot. A snapshot at read_ts is a set of immutable per-predicate
 arrays; the host numpy columns are the authoritative fold (frontier→row
 mapping, degree counting and recurse edge dedup run on them), and the
 device columns are a cache uploaded on first kernel access. Folding a
@@ -14,7 +14,7 @@ arrays here (carry.snapshot_from_numpy).
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -89,13 +89,17 @@ def transpose_csr(subjects, indptr, indices) -> tuple:
 
 @dataclass
 class PredData:
-    """The uid parts of one predicate's snapshot. Value columns, token
-    indexes, facets and vectors wait for later slices of the port."""
+    """The uid parts of one predicate's snapshot and the facets of its uid
+    edges. Value columns, token indexes and vectors wait for later slices
+    of the port."""
 
     attr: str
     type_id: TypeID
     csr: PredCSR | None = None
     rev_csr: PredCSR | None = None
+    # (subject, object) -> ((name, Val), ...) sorted by name, as a posting
+    # carries them (JAX package storage/postings.py Posting.facets)
+    facets: dict[tuple[int, int], tuple] = field(default_factory=dict)
 
     def has_subjects(self) -> np.ndarray:
         """uids for has(attr): subjects with any edge."""

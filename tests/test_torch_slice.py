@@ -347,7 +347,7 @@ def test_unported_branches_raise():
     _, ts = _schemas()
     for q in ('{ q(func: has(follow)) { uid } }',
               '{ q(func: uid(0x1)) { name } }',
-              '{ p as shortest(from: 0x1, to: 0x2) { follow } }',
+              '{ q(func: uid(0x1)) { follow @facets(eq(w, 1)) { uid } } }',
               '{ q(func: uid(0x1)) @groupby(follow) { count(uid) } }'):
         with pytest.raises(NotImplementedError, match="slice"):
             teng.Executor(tsnap, ts).execute(tdql.parse(q))
@@ -374,7 +374,8 @@ import json, sys
 before = set(sys.modules)
 from dgraph_tpu_torch import carry
 from dgraph_tpu_torch.models.rmat import rmat_csr
-from dgraph_tpu_torch.query import dql, recurse
+from dgraph_tpu_torch.ops import traversal
+from dgraph_tpu_torch.query import dql, recurse, shortest
 from dgraph_tpu_torch.query.engine import Executor
 from dgraph_tpu_torch.utils.schema import SchemaState, parse_schema
 s, p, x = rmat_csr(8, 4, seed=1)
@@ -384,6 +385,10 @@ schema.set(parse_schema("friend: [uid] .")[0])
 recurse.KERNEL_MIN_EDGES = 0
 q = "{ q(func: uid(%s)) @recurse(depth: 3) { friend } }" % hex(int(s[0]))
 out = Executor(snap, schema).execute(dql.parse(q))
+shortest.DEVICE_SSSP_MIN_EDGES = shortest.SSSP_KERNEL_MIN = 0
+q = "{ shortest(from: %s, to: %s) { friend } }" % (hex(int(s[0])),
+                                                   hex(int(x[-1])))
+out["path"] = Executor(snap, schema).execute(dql.parse(q))
 new = set(sys.modules) - before
 bad = sorted(m for m in new if m.split(".")[0] in ("jax", "jaxlib")
              or m == "dgraph_tpu" or m.startswith("dgraph_tpu."))
@@ -403,7 +408,8 @@ def test_port_never_imports_jax():
 
 def test_port_sources_import_no_jax():
     bad = []
-    for path in sorted((REPO / "dgraph_tpu_torch").rglob("*.py")):
+    scripts = [REPO / "chip_smoke.py", *REPO.glob("bench_torch_*.py")]
+    for path in sorted((REPO / "dgraph_tpu_torch").rglob("*.py")) + scripts:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
             names = []
             if isinstance(node, ast.Import):
