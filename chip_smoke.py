@@ -38,7 +38,18 @@ it:
      (R-MAT scale 12, an integer facet `w` per edge), byte-identical across
      the host, default and device expand paths, its weights non-decreasing
      and each the sum of the `w` facets along its path;
-  7. prints the card line, a {"kernels": [...]} line and the final
+  7. folds three value predicates on every node id with build_value_pred
+     (age int, score float, name string with exact and term indexes; data
+     from default_rng(11)) and sends six value requests through
+     Executor.execute: an index range root, BASELINE config 2's one-hop
+     expand with a value filter, an anyofterms root ordered by score, an
+     exact-match root, @recurse with value children and a value filter,
+     and val/math/aggregates over value variables. Each one's JSON is
+     byte-identical between the default path and the host path, and held to
+     numpy over the same data; the device union (ops/csr.expand_dest) must
+     run for the two index roots and K1 or K2 for the recurse; each request
+     is timed (p50, min..max of 5 runs) and two are profiled;
+  8. prints the card line, a {"kernels": [...]} line and the final
      {"ok": true, "device": {...}} line.
 Any mismatch raises and the script exits non-zero. It never imports jax or
 the JAX package.
@@ -68,6 +79,14 @@ INT32_OPS_PER_S = 64 * 132 * 1.98e9
 OPS_PER_EDGE = {"active_prefix": 22, "active_prefix_sparse": 19}
 RACE_LAUNCHES = 50
 JSON_MAX_BYTES = 10 << 20
+# phase 7: value predicates on every node id, names from a 64-word
+# vocabulary (three words each: one word's term row holds ~47k uids)
+VALUES_SCHEMA = """
+age: int @index(int) .
+score: float @index(float) .
+name: string @index(exact, term) .
+"""
+VOCAB = tuple(f"w{chr(97 + i // 8)}{chr(97 + i % 8)}" for i in range(64))
 
 
 def host_3hop(subjects, indptr, indices, seeds, hops=3):
@@ -557,7 +576,16 @@ def main() -> int:
     say("shortest_phase", seconds=time.perf_counter() - t0,
         script_seconds=time.perf_counter() - t_start)
 
-    # ---- 7. summary lines --------------------------------------------------
+    # ---- 7. value predicates, index roots, filters, order, aggregates ------
+    t0 = time.perf_counter()
+    value_launches = values_phase(snap, schema, (subjects, indptr, indices),
+                                  seeds, dev)
+    for name, n in value_launches.items():
+        kernels[name]["launches_values"] = n
+    say("values_phase", seconds=time.perf_counter() - t0,
+        script_seconds=time.perf_counter() - t_start)
+
+    # ---- 8. summary lines --------------------------------------------------
     kern_line = {"kernels": [
         {k: v for k, v in kernels[n].items() if k not in ("e_pad", "stream")}
         for n in ("active_prefix", "active_prefix_sparse")]}
@@ -735,6 +763,216 @@ def shortest_phase(snap, schema, csr, rev, src, num_nodes, dev) -> dict:
     say("k_shortest", query=wq[:120], json_bytes=len(jsons["default"]),
         weights=weights, hops=[len(path_uids(p, "road")) - 1 for p in paths],
         ms_per_request=k_ms)
+    return launches
+
+
+def values_phase(snap, schema, csr, seeds, dev) -> dict:
+    """Phase 7 on the headline snapshot: adds age, score and name on every
+    node id and runs the six value requests. Returns the K1/K2 launches of
+    the requests' default-path runs."""
+    import torch
+
+    from dgraph_tpu_torch.ops import csr as csrops
+    from dgraph_tpu_torch.ops import prefix as px
+    from dgraph_tpu_torch.query import dql
+    from dgraph_tpu_torch.query import engine as eng
+    from dgraph_tpu_torch.query import recurse as rec
+    from dgraph_tpu_torch.query import task
+    from dgraph_tpu_torch.storage.csr_build import build_value_pred
+    from dgraph_tpu_torch.utils.schema import parse_schema
+    from dgraph_tpu_torch.utils.types import TypeID, Val
+
+    subjects, indptr, indices = csr
+    sync = torch.cuda.synchronize
+    eng.set_query_edge_limit(1 << 31)      # phase 6 left it at 1 << 18
+    n = 1 << SCALE
+    ids = np.arange(1, n + 1, dtype=np.int64)
+    rng = np.random.default_rng(11)
+    age = rng.integers(0, 100, n)
+    cents = rng.integers(0, 10000, n)       # score: [0, 100), 2 decimals
+    words = rng.integers(0, len(VOCAB), (n, 3))
+    name_of = lambda u: "p%d %s %s %s" % (u, *(VOCAB[w] for w in
+                                                 words[u - 1]))
+    for e in parse_schema(VALUES_SCHEMA):
+        schema.set(e)
+    ulist = ids.tolist()
+    rows = {
+        "age": ((u, Val(TypeID.INT, a), "", ())
+                for u, a in zip(ulist, age.tolist())),
+        "score": ((u, Val(TypeID.FLOAT, c / 100), "", ())
+                  for u, c in zip(ulist, cents.tolist())),
+        "name": ((u, Val(TypeID.STRING, name_of(u)), "", ())
+                 for u in ulist)}
+    fold_s = {}
+    for attr, r in rows.items():
+        t0 = time.perf_counter()
+        snap.preds[attr] = build_value_pred(attr, schema.get(attr), r,
+                                            device=dev)
+        fold_s[attr] = time.perf_counter() - t0
+    say("values_fold", seconds=sum(fold_s.values()), per_predicate=fold_s,
+        ids=n, index_terms={a: {k: len(ti.terms) for k, ti in
+                                snap.preds[a].indexes.items()}
+                            for a in rows})
+
+    # numpy truth over the same data (index uid - 1)
+    score = cents / 100
+    row_of = lambda u: indices[indptr[int(np.searchsorted(subjects, u))]:
+                               indptr[int(np.searchsorted(subjects, u)) + 1]
+                               ].astype(np.int64)
+
+    def execute(text):
+        return json.dumps(eng.Executor(snap, schema).execute(dql.parse(text)))
+
+    def host_json(text):
+        """The same request with every expand, union and recurse level on
+        the host mirrors (as phase 5's pick does)."""
+        expand_max = task.HOST_EXPAND_MAX
+        rec.KERNEL_MIN_EDGES = task.HOST_EXPAND_MAX = 1 << 62
+        try:
+            return execute(text)
+        finally:
+            rec.KERNEL_MIN_EDGES, task.HOST_EXPAND_MAX = None, expand_max
+
+    def root_set(text):
+        ex = eng.Executor(snap, schema)
+        return ex._root_uids(dql.parse(text).queries[0])
+
+    def fail(what, msg):
+        raise SystemExit(f"values {what}: {msg}")
+
+    seed_list = ", ".join(hex(int(u)) for u in seeds)
+    w3 = " ".join(VOCAB[:3])
+    picked = np.isin(words, [0, 1, 2]).any(axis=1)
+    texts = {
+        "index_range": "{ q(func: ge(age, 90), first: 1000) { uid age } }",
+        "expand_filter": "{ q(func: uid(%s)) { uid friend @filter(ge(age, "
+                         "50) AND has(name)) { uid age } } }" % seed_list,
+        "terms_order": '{ q(func: anyofterms(name, "%s"), orderasc: score, '
+                       'first: 20) { uid name score } }' % w3,
+        "eq_exact": '{ q(func: eq(name, "%s")) { uid name age friend '
+                    '(first: 10) { uid name score } } }'
+                    % name_of(int(seeds[0])),
+        "val_agg": "{ var(func: uid(%s)) { friend { a as age s as score "
+                   "m as math(a * 2 + s) } } stats() { mn: min(val(a)) "
+                   "mx: max(val(a)) sm: sum(val(a)) } q(func: uid(m), "
+                   "orderdesc: val(m), first: 10) { uid val(m) } }"
+                   % seed_list,
+    }
+    rtext = ("{ q(func: uid(%s)) @recurse(depth: 3) { age friend "
+             "@filter(lt(age, %%d)) } }" % seed_list)
+    hosts = {}
+    for k in (8, 4, 2, 1):                  # phase 5's pick: largest that fits
+        h = host_json(rtext % k)
+        if 1000 < len(h) <= JSON_MAX_BYTES:
+            texts["recurse_values"], hosts["recurse_values"] = rtext % k, h
+            break
+    else:
+        fail("recurse_values", "no k gives 1 KB..10 MB of JSON")
+    order = ["index_range", "expand_filter", "terms_order", "eq_exact",
+             "recurse_values", "val_agg"]
+    for name in order:
+        if name not in hosts:
+            hosts[name] = host_json(texts[name])
+
+    # the default path: one checked run of each, its launches and unions
+    outs, stats = {}, {}
+    px.reset_launches()
+    for name in order:
+        before = (dict(px.LAUNCHES), csrops.UNIONS["cuda"])
+        t0 = time.perf_counter()
+        got = execute(texts[name])
+        sync()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        if got != hosts[name]:
+            fail(name, "default-path JSON differs from the host path")
+        outs[name] = json.loads(got)
+        stats[name] = {
+            "first_ms": first_ms, "json_bytes": len(got),
+            "launches": {k: v - before[0][k] for k, v in px.LAUNCHES.items()},
+            "device_unions": csrops.UNIONS["cuda"] - before[1]}
+    launches = dict(px.LAUNCHES)
+
+    # held to numpy
+    want = ids[age >= 90]
+    got = root_set(texts["index_range"])
+    if not np.array_equal(got, want):
+        fail("index_range", f"root set {len(got)} uids != numpy {len(want)}")
+    q = outs["index_range"]["q"]
+    if [int(o["uid"], 16) for o in q] != want[:1000].tolist() or \
+            any(o["age"] != int(age[int(o["uid"], 16) - 1]) for o in q):
+        fail("index_range", "first 1000 rows differ from numpy")
+    stats["index_range"]["root_uids"] = int(len(want))
+
+    rows_seen = 0
+    for obj in outs["expand_filter"]["q"]:
+        u = int(obj["uid"], 16)
+        t = row_of(u)
+        t = t[age[t - 1] >= 50]
+        got = [(int(o["uid"], 16), o["age"]) for o in obj.get("friend", [])]
+        if got != [(int(x), int(age[x - 1])) for x in t]:
+            fail("expand_filter", f"row of {hex(u)} differs from numpy")
+        rows_seen += 1
+    if rows_seen != len(seeds):
+        fail("expand_filter", f"{rows_seen} rows for {len(seeds)} seeds")
+    stats["expand_filter"]["edges"] = int(sum(len(row_of(u)) for u in seeds))
+
+    want = ids[picked]
+    got = root_set(texts["terms_order"])
+    if not np.array_equal(got, want):
+        fail("terms_order", f"root set {len(got)} uids != numpy {len(want)}")
+    top = want[np.lexsort((want, score[want - 1]))][:20]
+    q = outs["terms_order"]["q"]
+    if [int(o["uid"], 16) for o in q] != top.tolist():
+        fail("terms_order", "first 20 by score differ from numpy")
+    sc = [o["score"] for o in q]
+    if sc != sorted(sc) or any(
+            o["name"] != name_of(int(o["uid"], 16))
+            or not set(o["name"].split()[1:]) & set(VOCAB[:3]) for o in q):
+        fail("terms_order", "scores decrease or a name lacks the words")
+    stats["terms_order"]["root_uids"] = int(len(want))
+
+    q = outs["eq_exact"]["q"]
+    s0 = int(seeds[0])
+    t = row_of(s0)[:10]
+    if len(q) != 1 or int(q[0]["uid"], 16) != s0 or \
+            q[0]["age"] != int(age[s0 - 1]) or \
+            [(int(o["uid"], 16), o["name"], o["score"]) for o in
+             q[0].get("friend", [])] != \
+            [(int(x), name_of(int(x)), float(score[x - 1])) for x in t]:
+        fail("eq_exact", "not exactly the one seed with its values")
+
+    if not any(stats["recurse_values"]["launches"].values()):
+        fail("recurse_values", "launched neither K1 nor K2")
+    stats["recurse_values"]["k"] = k
+
+    targets = np.unique(np.concatenate([row_of(u) for u in seeds]))
+    a = age[targets - 1]
+    agg = {k: v for d in outs["val_agg"]["stats"] for k, v in d.items()}
+    if agg != {"mn": int(a.min()), "mx": int(a.max()), "sm": int(a.sum())}:
+        fail("val_agg", f"{agg} != numpy over {len(targets)} targets")
+    m = 2.0 * a + score[targets - 1]
+    top = np.lexsort((targets, -m))[:10]
+    if [(int(o["uid"], 16), o["val(m)"]) for o in outs["val_agg"]["q"]] != \
+            [(int(targets[i]), float(m[i])) for i in top]:
+        fail("val_agg", "first 10 by val(m) differ from numpy")
+    stats["val_agg"]["targets"] = int(len(targets))
+
+    for name in ("index_range", "terms_order"):
+        if stats[name]["device_unions"] == 0:
+            fail(name, "the device union did not run")
+
+    # timing: 5 runs after the checked one; profiles of two requests
+    for name in order:
+        ms = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            execute(texts[name])
+            sync()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        line = dict(stats[name], ms=band(ms), query=texts[name][:120])
+        if name in ("expand_filter", "terms_order"):
+            line["profile"] = profile_query(lambda: execute(texts[name]))
+        say("value_request", request=name, **line)
     return launches
 
 

@@ -14,6 +14,11 @@ the host can detect overflow and re-issue with a larger capacity class
 (x/init.go:53 QueryEdgeLimit). Targets past `total` hold the sentinel.
 Out-of-range indices are clamped and masked explicitly (torch raises where
 jnp.take clips).
+
+expand_dest is the union of many rows (index root functions union the uid
+rows of their tokens): expand, sort, dedup. UNIONS counts its calls by the
+device type of the tensors it was given, so a caller can show which side
+ran a union.
 """
 
 from __future__ import annotations
@@ -22,7 +27,9 @@ from typing import NamedTuple
 
 import torch
 
-from dgraph_tpu_torch.ops.uidset import sentinel
+from dgraph_tpu_torch.ops.uidset import _dedup_sorted, sentinel
+
+UNIONS = {"cuda": 0, "cpu": 0}
 
 
 class ExpandResult(NamedTuple):
@@ -84,3 +91,15 @@ def expand(indptr: torch.Tensor, indices: torch.Tensor, rows: torch.Tensor,
     out = torch.where(ok, gathered, int(sentinel(indices.dtype)))
     seg_out = torch.where(ok, seg_c.to(torch.int32), -1)
     return ExpandResult(out, seg_out, counts, total)
+
+
+def expand_dest(indptr: torch.Tensor, indices: torch.Tensor,
+                rows: torch.Tensor, out_cap: int
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Frontier expand returning (deduped sorted union of the rows' uids,
+    sentinel tail, capacity out_cap; true total). If total > out_cap the
+    union is incomplete and the caller re-issues at a larger capacity
+    (query/query.go:1928 DestUIDs = MergeSorted(uidMatrix))."""
+    UNIONS[rows.device.type] = UNIONS.get(rows.device.type, 0) + 1
+    res = expand(indptr, indices, rows, out_cap)
+    return _dedup_sorted(torch.sort(res.targets).values), res.total

@@ -1,22 +1,22 @@
 """Query engine: SubGraph plan execution (ProcessGraph) over a snapshot.
 
-Port of dgraph_tpu/query/engine.py for the uid-traversal slice. Reference
-semantics: query/query.go — SubGraph is both plan node and result holder
-(:165-192); ProcessGraph (:1831): frontier task → DestUIDs = MergeSorted
-(uidMatrix) → filters combined and/or/not (:1955-2013) → pagination
+Port of dgraph_tpu/query/engine.py. Reference semantics: query/query.go —
+SubGraph is both plan node and result holder (:165-192); ProcessGraph
+(:1831): root function / frontier task → DestUIDs = MergeSorted(uidMatrix)
+→ filters combined and/or/not (:1955-2013) → ordering and pagination
 (:2016-2031) → variable recording (:2035) → children with SrcUIDs =
 DestUIDs (:2081). ProcessQuery runs blocks in dependency waves
-(:2431-2586).
+(:2431-2586). Value, uid and facet variables: varValue / populateVarMap;
+aggregation and math: query/aggregator.go, query/math.go.
 
-Ported: uid(...) roots and uid variables, uid children (expand, count,
-uid selections, reverse edges, @facets(keys) on uid edges), uid(...)
-filters under and/or/not, child row pagination, @cascade, @recurse,
-shortest paths (query/shortest.py). The mesh, batcher, caches, dispatch
-gate, planner and vector seams of the JAX engine are not carried over.
-Each unported branch raises NotImplementedError naming its slice: root
-functions and value filters (index slice), value children, val/math/
-aggregates, ordering, facet filters and facet variables (value slice),
-@groupby (groupby slice).
+Ported: uid(...) and index root functions, uid and value children (lang
+chains, checkpwd, @facets reads, facet filters and facet variables), value,
+count and uid(...) filters under and/or/not, val()/math()/min/max/sum/avg,
+orderasc/orderdesc (index-ordered for a bounded single key), pagination,
+@cascade, @recurse, shortest paths (query/shortest.py). The mesh, batcher,
+caches, dispatch gate and planner of the JAX engine are not carried over.
+@groupby raises NotImplementedError naming its slice, and similar_to (in
+query/task.py) names the vector slice.
 """
 
 from __future__ import annotations
@@ -31,7 +31,8 @@ from dgraph_tpu_torch.query import dql
 from dgraph_tpu_torch.query.task import TaskQuery, process_task
 from dgraph_tpu_torch.storage.csr_build import GraphSnapshot
 from dgraph_tpu_torch.utils.schema import SchemaState
-from dgraph_tpu_torch.utils.types import TypeID, Val
+from dgraph_tpu_torch.utils.types import (TypeID, Val, compare_vals,
+                                          convert, sort_key, verify_password)
 
 MAX_QUERY_EDGES = 1_000_000  # reference x/init.go:53 QueryEdgeLimit
 
@@ -163,7 +164,7 @@ class Executor:
             elif vv is not None and not vv.is_uid:
                 uids.append(np.asarray(sorted(vv.vals.keys()), dtype=np.int64))
         if gq.func is not None:
-            raise _unported(f"root function {gq.func.name}()", "index")
+            uids.append(self._run_root_func(gq.func))
         if not uids:
             return np.zeros(0, np.int64)
         out = uids[0]
@@ -171,11 +172,33 @@ class Executor:
             out = us.union_host(out, u)
         return out
 
+    def _run_root_func(self, fn: dql.Function) -> np.ndarray:
+        args = list(fn.args)
+        if fn.is_count:
+            # eq(count(pred), n) — compare-scalar form; eq matches ANY listed n
+            outs = [self._dispatch(
+                TaskQuery(fn.attr, func=(fn.name, ["__count__", int(n)]))
+                ).dest_uids
+                for n in (args if fn.name == "eq" else args[:1])]
+            return (np.unique(np.concatenate(outs)) if outs
+                    else np.zeros(0, np.int64))
+        if fn.is_valvar and args and isinstance(fn.args[0], dql.VarRef):
+            # eq(val(x), v): select uids whose var value compares true
+            vv = self.vars.get(fn.args[0].name)
+            if vv is None:
+                return np.zeros(0, np.int64)
+            out = [u for u, val in sorted(vv.vals.items())
+                   if _match_any_rhs(fn.name, val, args)]
+            return np.asarray(out, dtype=np.int64)
+        q = TaskQuery(fn.attr, func=(fn.name, args), lang=fn.lang)
+        return self._dispatch(q).dest_uids
+
     # ---------------------------------------------------------------- levels
 
     def _finish_level(self, sg: SubGraph, is_root: bool) -> None:
-        """Filter → paginate → record vars → children (ProcessGraph tail).
-        Child levels already applied filter + pagination per uidMatrix row."""
+        """Filter → order/paginate → record vars → children (ProcessGraph
+        tail). Child levels already applied filter + pagination per
+        uidMatrix row (the reference's applyPagination works per row)."""
         gq = sg.gq
         if is_root:
             sg.dest_uids = self._apply_filter(gq.filter, sg.dest_uids)
@@ -183,7 +206,7 @@ class Executor:
             raise _unported("@groupby", "groupby")
         if is_root:
             if gq.order:
-                raise _unported("orderasc/orderdesc", "value")
+                sg.dest_uids = self._apply_order(gq, sg.dest_uids)
             self._paginate_ordered(sg)
         self._record_uid_var(gq, sg)
         self._process_children(sg)
@@ -197,7 +220,7 @@ class Executor:
         after = int(gq.args.get("after", 0))
         u = sg.dest_uids
         if after:
-            u = u[u > after]
+            u = u[u > after]        # a mask keeps an ordered list's order
         if offset:
             u = u[offset:]
         if first > 0:
@@ -211,14 +234,12 @@ class Executor:
         gq = sg.gq
         frontier = np.sort(sg.dest_uids)
         for cgq in self._effective_children(gq, frontier):
-            if cgq.is_uid_node:
+            if cgq.is_uid_node or cgq.attr in ("val", "math") or \
+               cgq.attr.startswith("__agg_"):
                 child = SubGraph(gq=cgq, attr=cgq.attr, src_uids=frontier)
-                child.dest_uids = frontier
-                self._record_child_vars(cgq, child, frontier)
+                self._compute_virtual_child(sg, child, frontier)
                 sg.children.append(child)
                 continue
-            if cgq.attr in ("val", "math") or cgq.attr.startswith("__agg_"):
-                raise _unported(f"{cgq.attr} children", "value")
             child = self._run_child_task(cgq, frontier)
             sg.children.append(child)
             if cgq.children or cgq.cascade:
@@ -226,18 +247,11 @@ class Executor:
 
     def _run_child_task(self, cgq: dql.GraphQuery,
                         frontier: np.ndarray) -> SubGraph:
-        """One child level through the dispatch seam: expand, per-row
-        filter + pagination, var recording."""
-        if cgq.facets is not None and cgq.facets.filter is not None:
-            raise _unported("facet filters", "value")
-        if cgq.facets is not None and cgq.facets.var_map:
-            raise _unported("facet variables", "value")
-        if cgq.checkpwd:
-            raise _unported("checkpwd", "value")
+        """One non-virtual child level through the dispatch seam: expand /
+        value fetch, facet filter, per-row filter + pagination, var
+        recording."""
         child = SubGraph(gq=cgq, attr=cgq.attr, src_uids=frontier)
-        if cgq.lang:
-            raise _unported("language tags", "value")
-        tq = TaskQuery(cgq.attr, frontier=frontier)
+        tq = TaskQuery(cgq.attr, frontier=frontier, lang=cgq.lang)
         if cgq.facets is not None:
             # every facet comes back; the encoder keeps the asked keys
             tq.facet_keys = [k for _, k in cgq.facets.keys] or ["__all__"]
@@ -245,11 +259,22 @@ class Executor:
         self.traversed_edges += res.traversed_edges
         if self.traversed_edges > self.edge_budget():
             raise QueryError("query exceeded edge budget (ErrTooBig)")
+        if cgq.checkpwd:
+            # checkpwd(pwd, "cand"): stored password -> bool per uid
+            # (query/outputnode.go checkPwd)
+            res.value_matrix = [
+                [Val(TypeID.BOOL,
+                     bool(vs) and verify_password(cgq.checkpwd,
+                                                  str(vs[0].value)))]
+                for vs in res.value_matrix]
         child.uid_matrix = res.uid_matrix
+        child.value_matrix = res.value_matrix
         child.facet_matrix = res.facet_matrix
         child.counts = res.counts
         child.dest_uids = res.dest_uids
         child.traversed = res.traversed_edges
+        if cgq.facets is not None and cgq.facets.filter is not None:
+            self._apply_facet_filter(child)
         if child.uid_matrix and (cgq.filter is not None or
                                  cgq.args.get("first") or cgq.args.get("offset")):
             self._apply_child_row_mods(child)
@@ -307,6 +332,40 @@ class Executor:
                 out.append(c)
         return out
 
+    def _compute_virtual_child(self, sg: SubGraph, child: SubGraph,
+                               frontier: np.ndarray) -> None:
+        """uid / val(x) / math / min-max-sum-avg pseudo-attributes."""
+        cgq = child.gq
+        child.dest_uids = frontier
+        if cgq.is_uid_node:
+            self._record_child_vars(cgq, child, frontier)
+            return
+        if cgq.attr == "val":
+            vv = self.vars.get(cgq.val_ref)
+            if vv is not None:
+                child.value_matrix = [
+                    [vv.vals[int(u)]] if int(u) in vv.vals else [] for u in frontier]
+            return
+        if cgq.attr == "math":
+            from dgraph_tpu_torch.query.math import eval_math
+
+            vals = eval_math(cgq.math, self.vars, frontier)
+            child.math_vals = vals
+            child.value_matrix = [
+                [vals[int(u)]] if int(u) in vals else [] for u in frontier]
+            if cgq.var_name:
+                self.vars[cgq.var_name] = VarValue(vals=vals, is_uid=False)
+            return
+        if cgq.attr.startswith("__agg_"):
+            from dgraph_tpu_torch.query.aggregator import aggregate
+
+            op = cgq.attr[len("__agg_"):]
+            vv = self.vars.get(cgq.val_ref)
+            vals = vv.vals if vv else {}
+            # aggregate over the enclosing block's uid space when non-empty
+            keys = [int(u) for u in frontier if int(u) in vals] or list(vals)
+            child.agg_value = aggregate(op, [vals[k] for k in keys])
+
     # ---------------------------------------------------------------- filters
 
     def _apply_filter(self, ft: dql.FilterTree | None,
@@ -347,11 +406,48 @@ class Executor:
                 elif vv is not None:
                     sel = us.union_host(sel, np.asarray(sorted(vv.vals), dtype=np.int64))
             return us.intersect_host(frontier, sel)
-        if name == "uid_in":
+        if fn.is_valvar and fn.args and isinstance(fn.args[0], dql.VarRef):
+            vv = self.vars.get(fn.args[0].name)
+            if vv is None:
+                return np.zeros(0, np.int64)
+            keep = [int(u) for u in frontier if int(u) in vv.vals
+                    and _match_any_rhs(name, vv.vals[int(u)], fn.args)]
+            return np.asarray(keep, dtype=np.int64)
+        if fn.is_count:
+            # filter-level eq(count(pred), n): degree check over frontier;
+            # eq matches ANY listed n
+            res = self._dispatch(TaskQuery(fn.attr, frontier=frontier))
+            ns = [int(a) for a in (fn.args if name == "eq" else fn.args[:1])]
+            keep = [u for u, c in zip(frontier, res.counts)
+                    if any(_int_cmp(name, c, n) for n in ns)]
+            return np.asarray(keep, dtype=np.int64)
+        tid = self.schema.type_of(fn.attr)
+        if name == "has" and tid == TypeID.UID:
+            root = self._dispatch(TaskQuery(fn.attr, func=("has", []))).dest_uids
+            return us.intersect_host(frontier, root)
+        if name in ("has", "uid_in", "checkpwd") or (
+                name in ("eq", "le", "lt", "ge", "gt") and tid != TypeID.UID):
+            # pointwise over the frontier: value presence, a value compare
+            # (float64 host mirror or stored values), uid_in, checkpwd
             q = TaskQuery(fn.attr, frontier=frontier,
-                          func=(name, list(fn.args)))
+                          func=(name, list(fn.args)), lang=fn.lang)
             return self._dispatch(q).dest_uids
-        raise _unported(f"filter function {fn.name}()", "index")
+        # index-backed functions: run at root, intersect with frontier
+        root = self._run_root_func(fn)
+        return us.intersect_host(frontier, root)
+
+    def _apply_facet_filter(self, child: SubGraph) -> None:
+        ft = child.gq.facets.filter
+        new_matrix = []
+        for i, (uids, facets) in enumerate(zip(child.uid_matrix, child.facet_matrix)):
+            keep_idx = [j for j, f in enumerate(facets)
+                        if _facet_filter_match(ft, dict(f))]
+            new_matrix.append(np.asarray([uids[j] for j in keep_idx], dtype=np.int64))
+            child.facet_matrix[i] = [facets[j] for j in keep_idx]
+        child.uid_matrix = new_matrix
+        child.counts = [len(m) for m in new_matrix]
+        child.dest_uids = (np.unique(np.concatenate(new_matrix))
+                           if any(len(m) for m in new_matrix) else np.zeros(0, np.int64))
 
     # ---------------------------------------------------------------- vars
 
@@ -366,8 +462,123 @@ class Executor:
                 vals = {int(u): Val(TypeID.INT, c)
                         for u, c in zip(frontier, child.counts)}
                 self.vars[cgq.var_name] = VarValue(vals=vals, is_uid=False)
+            elif child.value_matrix:
+                vals = {int(u): vs[0]
+                        for u, vs in zip(frontier, child.value_matrix) if vs}
+                self.vars[cgq.var_name] = VarValue(vals=vals, is_uid=False)
             else:
                 self.vars[cgq.var_name] = VarValue(uids=child.dest_uids)
+        # facet variables: var per facet key mapped over target uids
+        if cgq.facets is not None and cgq.facets.var_map:
+            for key, vname in cgq.facets.var_map.items():
+                vals: dict[int, Val] = {}
+                for uids, facets in zip(child.uid_matrix, child.facet_matrix):
+                    for u, f in zip(uids, facets):
+                        fv = dict(f).get(key)
+                        if fv is not None:
+                            vals[int(u)] = fv
+                self.vars[vname] = VarValue(vals=vals, is_uid=False)
+
+    # ---------------------------------------------------------------- order
+
+    def _apply_order(self, gq: dql.GraphQuery, uids: np.ndarray) -> np.ndarray:
+        """Multi-key order (reference worker/sort.go).
+
+        Single-key sorts over an indexed sortable predicate walk the token
+        buckets in key order (sortWithIndex, worker/sort.go:144-259),
+        intersecting each bucket with the candidate set and stopping once
+        offset+first is satisfied; everything else takes the value sort.
+        Stable sorts applied from the last key to the first give multi-key
+        semantics; uids with a missing sort value sink to the end, in either
+        direction."""
+        if (len(gq.order) == 1 and not gq.order[0].is_val
+                and not gq.order[0].lang
+                and int(gq.args.get("after", 0)) == 0
+                and int(gq.args.get("first", 0)) > 0):
+            # bounded sorts only: an unbounded walk of every bucket loses to
+            # the single value-sort pass (worker/sort.go:379)
+            need = int(gq.args.get("offset", 0)) + int(gq.args["first"])
+            got = self._sort_with_index(gq.order[0], uids, need)
+            if got is not None:
+                return got
+        ordered = [int(u) for u in uids]
+        for o in reversed(gq.order):
+            present = [(self._order_key(o, u), u) for u in ordered]
+            have = [(k, u) for k, u in present if k is not None]
+            missing = [u for k, u in present if k is None]
+            have.sort(key=lambda t: t[0], reverse=o.desc)
+            ordered = [u for _, u in have] + missing
+        return np.asarray(ordered, dtype=np.int64)
+
+    def _sort_with_index(self, o: dql.Order, uids: np.ndarray,
+                         need: int) -> np.ndarray | None:
+        """Index-ordered sort: walk sortable token buckets in term order
+        (reversed for desc), intersect each with the candidate set
+        (intersectBucket, worker/sort.go:480), sort lossy buckets by value,
+        stop at `need` results. Returns None when no sortable non-list index
+        is available (value-sort fallback). Token encodings are
+        order-preserving (utils/tok.py), so bucket term order is value
+        order."""
+        from dgraph_tpu_torch.utils import tok as tokmod
+
+        pd = self.snap.pred(o.attr)
+        entry = self.schema.get(o.attr)
+        if pd is None or entry is None or entry.is_list or \
+                getattr(entry, "lang", False):
+            # @lang predicates: tagged-only values are indexed but invisible
+            # to the untagged value sort — keep one code path (value sort)
+            return None
+        ti = tz = None
+        for name in self.schema.tokenizer_names(o.attr):
+            t = tokmod.get(name)
+            if t.sortable and name in pd.indexes:
+                ti, tz = pd.indexes[name], t
+                break
+        if ti is None or not ti.terms:
+            return None
+        cand = np.asarray(uids, dtype=np.int64)
+        indptr, tuids = ti.host_arrays()
+        ordered: list[int] = []
+        rows = range(len(ti.terms) - 1, -1, -1) if o.desc \
+            else range(len(ti.terms))
+        satisfied = False
+        for r in rows:
+            bucket = tuids[indptr[r]:indptr[r + 1]]
+            inb = us.intersect_host(bucket, cand)
+            if len(inb) == 0:
+                continue
+            if tz.lossy and len(inb) > 1:
+                # lossy tokenizer: one bucket spans many values — order
+                # within the bucket by actual value
+                keyed = sorted(
+                    ((self._order_key(o, int(u)), int(u)) for u in inb),
+                    key=lambda t: (t[0] is None, t[0]), reverse=o.desc)
+                inb = [u for _, u in keyed]
+            ordered.extend(int(u) for u in inb)
+            if need and len(ordered) >= need:
+                satisfied = True
+                break
+        if not satisfied:
+            # uids with no index entry (no value) sink to the end, ascending
+            # — identical to the value sort's missing tail
+            missing = np.setdiff1d(cand, np.asarray(ordered, dtype=np.int64))
+            ordered.extend(int(u) for u in missing)
+        return np.asarray(ordered, dtype=np.int64)
+
+    def _order_key(self, o: dql.Order, uid: int):
+        if o.is_val:
+            vv = self.vars.get(o.attr)
+            if vv is None or uid not in vv.vals:
+                return None
+            return sort_key(vv.vals[uid])
+        pd = self.snap.pred(o.attr)
+        if pd is None:
+            return None
+        if o.lang:
+            v = pd.lang_values.get(uid, {}).get(o.lang)
+        else:
+            v = pd.host_values.get(uid)
+        return sort_key(v) if v is not None else None
 
     # ---------------------------------------------------------------- cascade
 
@@ -376,7 +587,8 @@ class Executor:
         keep = set(int(u) for u in sg.dest_uids)
         frontier = np.sort(sg.dest_uids)
         for child in sg.children:
-            if child.gq.is_uid_node or child.gq.is_count:
+            if child.gq.is_uid_node or child.gq.attr in ("val", "math") or \
+               child.gq.attr.startswith("__agg_") or child.gq.is_count:
                 continue
             for i, u in enumerate(frontier):
                 hit = (i < len(child.uid_matrix) and len(child.uid_matrix[i])) or \
@@ -438,3 +650,60 @@ def _known_uids(snap: GraphSnapshot) -> np.ndarray:
     out = np.unique(np.concatenate(parts)) if parts else np.zeros(0, np.int64)
     snap._known_uids_cache = out
     return out
+
+
+def _match_any_rhs(op: str, val: Val, args: list) -> bool:
+    """val-var compare: args[0] is the VarRef; eq matches ANY of args[1:],
+    other ops take exactly one rhs."""
+    rhss = args[1:] if op == "eq" else args[1:2]
+    return any(_compare_any(op, val, r) for r in rhss)
+
+
+def _compare_any(op: str, a: Val, b) -> bool:
+    rhs = b if isinstance(b, Val) else _val_from_literal(b, a.tid)
+    try:
+        return compare_vals(op, a, rhs)
+    except ValueError:
+        return False
+
+
+def _val_from_literal(x, tid: TypeID) -> Val:
+    if isinstance(x, bool):
+        return Val(TypeID.BOOL, x)
+    if isinstance(x, int):
+        v = Val(TypeID.INT, x)
+    elif isinstance(x, float):
+        v = Val(TypeID.FLOAT, x)
+    else:
+        v = Val(TypeID.STRING, str(x))
+    try:
+        return convert(v, tid) if tid not in (TypeID.DEFAULT,) else v
+    except ValueError:
+        return v
+
+
+def _facet_filter_match(ft: dql.FilterTree, facets: dict) -> bool:
+    """Evaluate a facet filter tree against one edge's facets
+    (reference: facets filter application in query/query.go facetsFilter)."""
+    if ft.func is not None:
+        fn = ft.func
+        fv = facets.get(fn.attr)
+        if fv is None:
+            return False
+        if fn.name.lower() == "has":
+            return True
+        op = fn.name.lower()
+        rhss = fn.args if op == "eq" else fn.args[:1]
+        return any(_compare_any(op, fv, r) for r in rhss)
+    parts = (_facet_filter_match(c, facets) for c in ft.children)
+    if ft.op == "and":
+        return all(parts)
+    if ft.op == "or":
+        return any(parts)
+    if ft.op == "not":
+        return not _facet_filter_match(ft.children[0], facets)
+    return False
+
+
+def _int_cmp(op: str, a: int, b: int) -> bool:
+    return {"eq": a == b, "le": a <= b, "lt": a < b, "ge": a >= b, "gt": a > b}[op]

@@ -19,7 +19,7 @@ from typing import Any
 
 import numpy as np
 
-from dgraph_tpu_torch.utils.types import TypeID, Val, geo_unported
+from dgraph_tpu_torch.utils.types import TypeID, Val
 
 NORMALIZE_NODE_LIMIT = 10_000  # reference x/config.go NormalizeNodeLimit
 
@@ -32,7 +32,11 @@ def _val_json(v: Val) -> Any:
     if v.tid == TypeID.DATETIME:
         return v.value.isoformat()
     if v.tid == TypeID.GEO:
-        raise geo_unported()
+        import json as _json
+
+        from dgraph_tpu_torch.utils import geo as geomod
+
+        return _json.loads(geomod.to_geojson(v.value))
     if v.tid == TypeID.BINARY:
         import base64
 

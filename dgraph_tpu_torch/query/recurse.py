@@ -11,8 +11,10 @@ edges (:129-141) unless `loop: true`; bounded by the edge budget (:167).
     against the frontier; the fused per-edge prefix yields active flags and
     edge dedup is two masks on the device (fresh = active & ~seen,
     seen |= active) plus a node-sized bounds diff for the next frontier.
-    The single-child no-filter shape runs every level in one recurse_fused
-    call; uidMatrix rows stay deferred (LazyRecurseMatrix).
+    A single uid child with no filter and no value children runs every
+    level in one recurse_fused call; other shapes take one recurse_step per
+    level and fetch their value children at every level. uidMatrix rows
+    stay deferred (LazyRecurseMatrix).
   * Small CSRs keep the vectorized host-mirror gather. (Tablet-routed
     predicates, which expand over the wire with (attr, from, to) edge-key
     dedup, wait for the cluster slice.)
@@ -25,6 +27,7 @@ import torch
 
 from dgraph_tpu_torch.ops import pull_bfs as pb
 from dgraph_tpu_torch.query.engine import QueryError, SubGraph
+from dgraph_tpu_torch.query.task import TaskQuery
 from dgraph_tpu_torch.utils.types import TypeID
 
 # kernel-path admission by edge count: a path choice, never an output.
@@ -187,10 +190,7 @@ def recurse(ex, sg: SubGraph) -> None:
                     or (ex.snap.pred(c.attr) is not None
                         and ex.snap.pred(c.attr).csr is not None)
                     or c.attr.startswith("~")]
-    if any(c not in uid_children for c in gq.children):
-        raise NotImplementedError(
-            "@recurse with value children is not ported yet: it waits for "
-            "the value slice of dgraph_tpu_torch")
+    val_children = [c for c in gq.children if c not in uid_children]
     seen_masks: dict[str, np.ndarray] = {}     # host path: attr -> bool[E]
     kstates: dict[str, dict] = {}              # kernel path: attr -> g, seen
     edges = 0
@@ -216,8 +216,9 @@ def recurse(ex, sg: SubGraph) -> None:
                                     dtype=torch.bool, device=g.device)}
         return st
 
-    # ---- fused path: single uid child, no filter ---------------------------
-    if (len(uid_children) == 1 and uid_children[0].filter is None
+    # ---- fused path: single uid child, no filter, no value children --------
+    if (len(uid_children) == 1 and not val_children
+            and uid_children[0].filter is None
             and depth <= FUSED_MAX_DEPTH and len(sg.dest_uids)):
         cgq = uid_children[0]
         csr = _csr_for(cgq)
@@ -230,6 +231,16 @@ def recurse(ex, sg: SubGraph) -> None:
         nonlocal edges
         out: list[SubGraph] = []
         frontier = np.sort(frontier)
+        # value/scalar children appear at every level
+        for cgq in val_children:
+            child = SubGraph(gq=cgq, attr=cgq.attr, src_uids=frontier)
+            res = ex._dispatch(TaskQuery(cgq.attr, frontier=frontier,
+                                         lang=cgq.lang))
+            child.value_matrix = res.value_matrix
+            child.uid_matrix = res.uid_matrix
+            child.counts = res.counts
+            child.dest_uids = res.dest_uids
+            out.append(child)
         if remaining <= 0:
             return out
         for cgq in uid_children:

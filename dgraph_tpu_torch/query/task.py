@@ -1,20 +1,31 @@
 """process_task: execute one (predicate, frontier, function) task on a
 snapshot.
 
-Port of the uid-expand path of dgraph_tpu/query/task.py. Reference
-semantics: worker/task.go processTask (:605) → handleUidPostings (:476):
-per-uid posting iteration intersected with the frontier, here one batched
-CSR gather (ops/csr.expand) over the predicate's device adjacency, or a
-host-mirror gather below HOST_EXPAND_MAX edges. The uidMatrix stays CSR
-shaped until the host splits it per source.
+Port of dgraph_tpu/query/task.py. Reference semantics: worker/task.go
+processTask (:605) dispatches on posting-list kind: handleValuePostings
+(:319, value predicates: fetch/convert/compare) or handleUidPostings (:476,
+uid/index/reverse/count lists). Function taxonomy at :211-271: eq/le/lt/
+ge/gt (indexed, via worker/tokens.go:124 getInequalityTokens), has, uid_in,
+regexp (trigram index + automaton :768), term (anyofterms/allofterms),
+full-text, geo (:921), compare-scalar over the count index (:1498),
+password. Lossy tokenizers re-check candidates against stored values
+(:837-919).
 
-Uid edges carry their facets when the task asks for them (facet_keys).
-Not ported yet (each raises NotImplementedError naming its slice): root
-functions (index probes, has(), similar_to) and value predicates.
+The per-uid pointer walk is one batched CSR gather (ops/csr.expand) over the
+predicate's device adjacency, or a host-mirror gather below HOST_EXPAND_MAX
+edges. Index functions pick token rows on the host (the term table is
+small) and union the rows' uid lists on the host below HOST_EXPAND_MAX
+uids, on the snapshot's device above it (ops/csr.expand_dest). Numeric
+compares read the float64 host mirror (num_values_host), as the JAX package
+does: exact for INT below 2^53, DATETIME, FLOAT and BOOL.
+
+similar_to (the vector index) raises NotImplementedError naming its slice.
 """
 
 from __future__ import annotations
 
+import bisect
+import re as remod
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -22,16 +33,26 @@ import torch
 
 from dgraph_tpu_torch.ops import csr as csrops
 from dgraph_tpu_torch.ops import uidset as us
-from dgraph_tpu_torch.storage.csr_build import GraphSnapshot, PredCSR, PredData
+from dgraph_tpu_torch.storage.csr_build import (GraphSnapshot, PredCSR,
+                                                PredData, TokenIndex)
+from dgraph_tpu_torch.storage.delta import (csr_subjects_degrees,
+                                            csr_subjects_host)
+from dgraph_tpu_torch.utils import geo as geomod
+from dgraph_tpu_torch.utils import tok as tokmod
 from dgraph_tpu_torch.utils.schema import SchemaState
-from dgraph_tpu_torch.utils.types import TypeID, Val
+from dgraph_tpu_torch.utils.types import (TypeID, Val, compare_vals, convert,
+                                          to_device_scalar, verify_password)
 
 
-# below this edge volume the host-mirror gather beats a device dispatch +
-# sync (reference algo/uidlist.go:147-155 ratio heuristic). It picks a
-# path, never an output. The TPU-era value holds on an H100
-# (bench_torch_crossover.py): the two gathers tie at ~2^16 edges, the host
-# wins 2.5x at ~2^12 and the device 1.7x at 2^18.
+class TaskError(ValueError):
+    pass
+
+
+# below this edge (or index uid) volume the host-mirror gather beats a
+# device dispatch + sync (reference algo/uidlist.go:147-155 ratio
+# heuristic). It picks a path, never an output. The TPU-era value holds on
+# an H100 (bench_torch_crossover.py): the two gathers tie at ~2^16 edges,
+# the host wins 2.5x at ~2^12 and the device 1.7x at 2^18.
 HOST_EXPAND_MAX = 1 << 16
 
 
@@ -43,7 +64,9 @@ class TaskQuery:
     frontier: np.ndarray | None = None      # subject uids; None = root function
     func: tuple[str, list] | None = None    # (name, args) root/filter function
     reverse: bool = False                   # traverse ReverseKey space (~attr)
+    lang: str = ""
     facet_keys: list[str] = field(default_factory=list)  # non-empty: attach facets
+    first: int = 0                          # per-uid result truncation
 
 
 @dataclass
@@ -76,8 +99,8 @@ def _gather_rows_host(indptr_h: np.ndarray, indices_h: np.ndarray,
     return indices_h[pos].astype(np.int64)
 
 
-def _expand_csr(csr: PredCSR,
-                uids: np.ndarray) -> tuple[list[np.ndarray], int]:
+def _expand_csr(csr: PredCSR, uids: np.ndarray,
+                first: int = 0) -> tuple[list[np.ndarray], int]:
     """uidMatrix for a frontier over one adjacency: exact degree sum counted
     on the host indptr mirror, then the host gather (small) or one device
     gather at a pow2 capacity class (large); both give the same matrix."""
@@ -105,7 +128,16 @@ def _expand_csr(csr: PredCSR,
         offs = np.zeros(len(uids) + 1, dtype=np.int64)
         np.cumsum(counts, out=offs[1:])
         matrix = [targets[offs[i]: offs[i + 1]] for i in range(len(uids))]
-    return matrix, total
+    return apply_first(matrix, first), total
+
+
+def apply_first(matrix: list[np.ndarray], first: int) -> list[np.ndarray]:
+    """Per-uid result truncation (intern.Query.first)."""
+    if first > 0:
+        return [m[:first] for m in matrix]
+    if first < 0:
+        return [m[first:] for m in matrix]
+    return matrix
 
 
 def _merge_matrix(matrix: list[np.ndarray]) -> np.ndarray:
@@ -114,37 +146,277 @@ def _merge_matrix(matrix: list[np.ndarray]) -> np.ndarray:
     return np.unique(np.concatenate(matrix)) if any(len(m) for m in matrix) else np.zeros(0, np.int64)
 
 
+# ---------------------------------------------------------------------------
+# index helpers
+# ---------------------------------------------------------------------------
+
+def _index_uids_for_rows(ti: TokenIndex, rows: list[int]) -> np.ndarray:
+    """Union of the uid lists of the chosen token rows: a host merge at or
+    below HOST_EXPAND_MAX uids, one expand_dest on the index's device
+    above it."""
+    if not rows:
+        return np.zeros(0, np.int64)
+    indptr_h, uids_h = ti.host_arrays()
+    total = int(sum(indptr_h[r + 1] - indptr_h[r] for r in rows))
+    if total <= HOST_EXPAND_MAX:
+        parts = [uids_h[indptr_h[r]: indptr_h[r + 1]] for r in rows]
+        return np.unique(np.concatenate(parts))
+    rows_arr = us.make_set(np.asarray(rows, dtype=np.int32),
+                           capacity=len(rows), device=ti.device)
+    cap = int(indptr_h[-1]) or 1
+    dest, _total = csrops.expand_dest(ti.indptr, ti.uids, rows_arr,
+                                      out_cap=cap)
+    # the union is at most the whole index (cap), so it is complete; the
+    # sentinel tail stays on the device
+    n = int(us.size(dest))
+    return dest[:n].cpu().numpy().astype(np.int64)
+
+
+def _index_uids_intersect_rows(ti: TokenIndex, rows: list[int]) -> np.ndarray:
+    """Intersection of the uid lists of the chosen token rows (allofterms),
+    on the host mirrors."""
+    if not rows:
+        return np.zeros(0, np.int64)
+    indptr, uids_h = ti.host_arrays()
+    out = None
+    for r in rows:
+        u = uids_h[indptr[r]: indptr[r + 1]]
+        out = u if out is None else us.intersect_host(out, u)
+        if len(out) == 0:
+            break
+    return out
+
+
+def _tokens_for(pd: PredData, schema: SchemaState, v: Val,
+                prefer: tuple[str, ...]) -> tuple[str, list[bytes]]:
+    """Pick a tokenizer (preference order) and produce query tokens.
+
+    A predicate indexed per schema but with no index rows yet (no data at
+    this read_ts) matches zero uids instead of erroring."""
+    names = schema.tokenizer_names(pd.attr)
+    for p in prefer:
+        if p in names:
+            if p not in pd.indexes:
+                return p, []  # indexed, but empty at this snapshot
+            tz = tokmod.get(p)
+            sv = convert(v, tz.type_id) if v.tid != tz.type_id else v
+            return p, [t[1:] for t in tz.tokens(sv)]  # strip ident byte: index rows store it stripped
+    raise TaskError(f"predicate {pd.attr} needs @index({'|'.join(prefer)})")
+
+
+def _ineq_rows(ti: TokenIndex, op: str, token: bytes) -> list[int]:
+    """Token rows satisfying an inequality against a *sortable* tokenizer
+    (reference: worker/tokens.go:124 getInequalityTokens — walks the sorted
+    index bucket space). Terms are byte-ordered == value-ordered."""
+    i = bisect.bisect_left(ti.terms, token)
+    if op == "eq":
+        return [i] if i < len(ti.terms) and ti.terms[i] == token else []
+    if op in ("lt", "le"):
+        hi = bisect.bisect_right(ti.terms, token)
+        if op == "lt" and i < len(ti.terms) and ti.terms[i] == token:
+            return list(range(0, i))
+        return list(range(0, hi))
+    if op in ("gt", "ge"):
+        if op == "ge":
+            return list(range(i, len(ti.terms)))
+        hi = bisect.bisect_right(ti.terms, token)
+        return list(range(hi, len(ti.terms)))
+    raise TaskError(f"bad inequality {op}")
+
+
+def _stored_values(pd: PredData, u: int) -> list[Val]:
+    """Every stored value of subject u: the full [type] list when present
+    (host_values holds only the first-by-sort representative — a match on
+    ANY element counts), else the scalar, else lang-tagged values. Shared by
+    all lossy-tokenizer post-filters (eq/ineq, regexp, geo)."""
+    vals = list(pd.list_values.get(u, ()))
+    if not vals:
+        sv = pd.host_values.get(u)
+        vals = [sv] if sv is not None else []
+    if not vals and u in pd.lang_values:
+        vals = list(pd.lang_values[u].values())
+    return [v for v in vals if v is not None]
+
+
+def _post_filter_compare(pd: PredData, uids: np.ndarray, op: str, v: Val) -> np.ndarray:
+    """Exact re-check for lossy tokenizers (reference worker/task.go:837-919)."""
+    keep = []
+    for u in uids.tolist():
+        if any(compare_vals(op, x, v) for x in _stored_values(pd, int(u))):
+            keep.append(u)
+    return np.asarray(keep, dtype=np.int64)
+
+
+def _eq_candidates(pd: PredData, schema, v: Val) -> np.ndarray:
+    name, toks = _tokens_for(
+        pd, schema, v, ("int", "float", "bool", "exact", "hash", "term",
+                        "year", "month", "day", "hour"))
+    ti = pd.indexes.get(name)
+    if ti is None:
+        return np.zeros(0, np.int64)
+    rows = [r for t in toks if (r := ti.term_row(t)) >= 0]
+    uids = _index_uids_for_rows(ti, rows)
+    if tokmod.get(name).lossy:
+        uids = _post_filter_compare(pd, uids, "eq", v)
+    return uids
+
+
+# ---------------------------------------------------------------------------
+# main dispatch
+# ---------------------------------------------------------------------------
+
 def process_task(snap: GraphSnapshot, q: TaskQuery,
                  schema: SchemaState) -> TaskResult:
     """Execute one task against a snapshot (reference worker/task.go:605)."""
     attr = q.attr
     if attr.startswith("~"):
         attr = attr[1:]
-        q = TaskQuery(attr, q.frontier, q.func, True, q.facet_keys)
+        q = TaskQuery(attr, q.frontier, q.func, True, q.lang, q.facet_keys,
+                      q.first)
     pd = snap.pred(attr) or PredData(attr, schema.type_of(attr))
+    res = TaskResult()
 
-    if q.frontier is None:
+    fname = q.func[0].lower() if q.func else None
+    args = q.func[1] if q.func else []
+    if fname == "similar_to":
         raise NotImplementedError(
-            "root functions (index probes, has, similar_to) are not ported "
-            "yet: they wait for the index slice of dgraph_tpu_torch")
+            "similar_to is not ported yet: it waits for the vector slice of "
+            "dgraph_tpu_torch")
+
+    # ---- root functions (no frontier): produce dest_uids ------------------
+    if q.frontier is None:
+        res.dest_uids = _root_func(snap, pd, schema, fname, args, q)
+        return res
 
     frontier = np.asarray(q.frontier, dtype=np.int64)
+
+    # ---- frontier + uid-edge predicate: expand ----------------------------
     if pd.type_id == TypeID.UID or pd.csr is not None or q.reverse:
         csr = pd.rev_csr if q.reverse else pd.csr
-        matrix, traversed = _expand_csr(csr, frontier) \
+        matrix, traversed = _expand_csr(csr, frontier, q.first) \
             if csr is not None else (
             [np.zeros(0, np.int64) for _ in frontier], 0)
         return finish_uid_expand(pd, q, frontier, matrix, traversed)
-    raise NotImplementedError(
-        f"value predicate {attr!r}: value predicates are not ported yet; "
-        f"they wait for the value slice of dgraph_tpu_torch")
+
+    # ---- frontier + value predicate: fetch values / compare filter --------
+    # vectorized presence over the value subjects: one searchsorted instead
+    # of a dict probe per frontier uid (handleValuePostings' per-uid posting
+    # fetch, worker/task.go:319)
+    if pd.value_subjects_host is not None:
+        vsub = pd.value_subjects_host
+        pos = np.searchsorted(vsub, frontier)
+        posc = np.clip(pos, 0, max(len(vsub) - 1, 0))
+        present = (len(vsub) > 0) & (vsub[posc] == frontier)
+    else:
+        present = np.zeros(len(frontier), dtype=bool)
+
+    if fname == "has" and not q.lang:
+        # value_subjects includes lang-only nodes, so presence alone
+        # decides has()
+        res.dest_uids = frontier[present]
+        res.value_matrix = [[] for _ in frontier]
+        return res
+
+    if (fname in ("eq", "le", "lt", "ge", "gt") and not q.lang
+            and pd.num_values_host is not None
+            and not schema.is_list(attr)
+            and pd.type_id in (TypeID.INT, TypeID.FLOAT, TypeID.BOOL,
+                               TypeID.DATETIME)):
+        # numeric compare on the exact float64 host mirror, one vector op
+        # over the frontier. num_values_host holds ONE representative value
+        # per subject, so [type] list predicates (a match on any element
+        # counts) take the all-values loop below.
+        vs = [_parse_arg_val(pd, schema, a)
+              for a in (args if fname == "eq" else args[:1])]
+        rhs = [to_device_scalar(v) for v in vs]
+        nv = pd.num_values_host
+        x = np.where(present, nv[posc], np.nan)
+        keep = np.zeros(len(frontier), dtype=bool)
+        for r in (r for r in rhs if r is not None):
+            if fname == "eq":
+                keep |= x == r
+            elif fname == "le":
+                keep |= x <= r
+            elif fname == "lt":
+                keep |= x < r
+            elif fname == "ge":
+                keep |= x >= r
+            elif fname == "gt":
+                keep |= x > r
+        res.dest_uids = frontier[keep]
+        res.value_matrix = [
+            [pd.host_values[int(u)]] if k and int(u) in pd.host_values else []
+            for u, k in zip(frontier, keep)]
+        return res
+
+    res.value_matrix = []
+    lang_chain = q.lang.split(":") if q.lang else ()
+    for u, pres in zip(frontier.tolist(), present):
+        vals: list[Val] = []
+        if q.lang:
+            # language preference chain "fr:es:." — first hit wins; "."
+            # means untagged-first-then-any (reference: @lang fallback,
+            # query/outputnode.go valToBytes language handling)
+            lv = pd.lang_values.get(int(u), {})
+            for lg in lang_chain:
+                if lg == ".":
+                    sv = pd.host_values.get(int(u))
+                    if sv is not None:
+                        vals = [sv]
+                    elif lv:
+                        vals = [next(iter(lv.values()))]
+                    break
+                if lg in lv:
+                    vals = [lv[lg]]
+                    break
+        elif pres:
+            lv = pd.list_values.get(int(u))
+            if lv is not None:
+                vals = list(lv)        # [type] predicate: every value
+            else:
+                sv = pd.host_values.get(int(u))
+                if sv is not None:
+                    vals = [sv]
+        res.value_matrix.append(vals)
+    if q.facet_keys:
+        # facets on VALUE edges live at the untagged slot (subj, 0); lang
+        # slots carry their own (reference: facets on scalar postings)
+        from dgraph_tpu_torch.storage.postings import lang_uid
+        slot = lang_uid(q.lang.split(":")[0]) if q.lang else 0
+        res.facet_matrix = [[pd.facets.get((int(u), slot), ())]
+                            for u in frontier]
+    if fname in ("eq", "le", "lt", "ge", "gt"):
+        # eq(pred, v1, v2, ...) matches ANY listed value
+        vs = [_parse_arg_val(pd, schema, a) for a in (args if fname == "eq" else args[:1])]
+        keep = np.asarray(
+            [any(compare_vals(fname, x, v) for x in vals for v in vs)
+             for vals in res.value_matrix],
+            dtype=bool)
+        res.dest_uids = frontier[keep]
+    elif fname == "has":
+        # has(attr) matches lang-only nodes too (the data key exists)
+        keep = np.asarray(
+            [len(vals) > 0 or int(u) in pd.lang_values
+             for u, vals in zip(frontier.tolist(), res.value_matrix)], dtype=bool)
+        res.dest_uids = frontier[keep]
+    elif fname == "checkpwd":
+        keep = []
+        for u, vals in zip(frontier.tolist(), res.value_matrix):
+            ok = bool(vals) and verify_password(str(args[0]), str(vals[0].value))
+            keep.append(ok)
+        res.dest_uids = frontier[np.asarray(keep, dtype=bool)]
+        res.value_matrix = [[Val(TypeID.BOOL, k)] for k in keep]
+    else:
+        res.dest_uids = frontier[
+            np.asarray([len(v) > 0 for v in res.value_matrix], dtype=bool)]
+    return res
 
 
 def finish_uid_expand(pd: PredData, q: TaskQuery, frontier: np.ndarray,
                       matrix: list[np.ndarray], traversed: int) -> TaskResult:
     """Host tail of a uid-predicate frontier task: the edge facets, the
-    uid_in filter function and the dest merge. q is reverse-resolved (attr
-    without "~", q.reverse set) as process_task rewrites it."""
+    uid_in / has filter functions and the dest merge. q is reverse-resolved
+    (attr without "~", q.reverse set) as process_task rewrites it."""
     res = TaskResult()
     fname = q.func[0].lower() if q.func else None
     args = q.func[1] if q.func else []
@@ -162,6 +434,336 @@ def finish_uid_expand(pd: PredData, q: TaskQuery, frontier: np.ndarray,
         keep = np.asarray([bool(want.intersection(m)) for m in matrix],
                           dtype=bool)
         res.dest_uids = frontier[keep]
+    elif fname == "has":
+        # has(attr) over a frontier: subjects with >= 1 edge (or a value,
+        # for mixed untyped predicates)
+        keep = np.asarray([len(m) > 0 for m in matrix], dtype=bool)
+        if pd.value_subjects_host is not None:
+            vsub = pd.value_subjects_host
+            posv = np.clip(np.searchsorted(vsub, frontier), 0,
+                           max(len(vsub) - 1, 0))
+            keep |= (len(vsub) > 0) & (vsub[posv] == frontier)
+        res.dest_uids = frontier[keep]
     else:
         res.dest_uids = _merge_matrix(matrix)
     return res
+
+
+def _parse_arg_val(pd: PredData, schema, arg) -> Val:
+    if isinstance(arg, Val):
+        return arg
+    tid = pd.type_id if pd.type_id != TypeID.DEFAULT else TypeID.STRING
+    if tid == TypeID.UID:
+        tid = TypeID.STRING
+    return convert(Val(TypeID.STRING, str(arg)), tid)
+
+
+def _root_func(snap: GraphSnapshot, pd: PredData, schema, fname: str | None,
+               args: list, q: TaskQuery) -> np.ndarray:
+    if fname is None:
+        raise TaskError("root query needs a function or explicit uids")
+    if fname == "uid":
+        return np.unique(np.asarray([int(a) for a in args], dtype=np.int64))
+    if fname == "has":
+        if q.reverse:
+            # has(~pred): nodes with at least one INCOMING edge
+            if pd.rev_csr is None:
+                return np.zeros(0, np.int64)
+            return csr_subjects_host(pd.rev_csr)
+        return pd.has_subjects().astype(np.int64)
+
+    if fname in ("le", "lt", "ge", "gt", "eq"):
+        # compare-scalar over count index: eq(count(pred), N); the reverse
+        # form eq(count(~pred), N) compares in-degrees over the reverse CSR
+        if args and isinstance(args[0], str) and args[0] == "__count__":
+            return _count_func(pd, fname, int(args[1]), reverse=q.reverse)
+        if not args:
+            if fname == "eq":
+                # eq(pred, []) — degenerate but parseable; matches nothing
+                return np.zeros(0, np.int64)
+            raise TaskError(f"{fname}({pd.attr}) needs a value to compare")
+        v = _parse_arg_val(pd, schema, args[0])
+        if fname == "eq":
+            out = [_eq_candidates(pd, schema, vv) for vv in
+                   [v] + [_parse_arg_val(pd, schema, a) for a in args[1:]]]
+            return np.unique(np.concatenate(out)) if out else np.zeros(0, np.int64)
+        name, toks = _tokens_for(pd, schema, v, ("int", "float", "exact",
+                                                 "year", "month", "day", "hour"))
+        ti = pd.indexes.get(name)
+        if ti is None or not toks:
+            return np.zeros(0, np.int64)
+        rows = _ineq_rows(ti, fname, toks[0])
+        uids = _index_uids_for_rows(ti, rows)
+        if tokmod.get(name).lossy:
+            uids = _post_filter_compare(pd, uids, fname, v)
+        return uids
+
+    if fname in ("anyofterms", "allofterms"):
+        return _terms_func(pd, schema, fname, str(args[0]), "term")
+    if fname in ("anyoftext", "alloftext"):
+        # the attr's lang tag picks the full-text analyzer (tok/fts.go):
+        # alloftext(desc@ru, ...) stems the query the way @ru values were
+        # indexed
+        return _terms_func(pd, schema,
+                           "anyofterms" if fname == "anyoftext" else "allofterms",
+                           str(args[0]), "fulltext", lang=q.lang)
+    if fname == "regexp":
+        return _regexp_func(pd, schema, str(args[0]),
+                            str(args[1]) if len(args) > 1 else "")
+    if fname in ("near", "within", "contains", "intersects"):
+        return _geo_func(pd, schema, fname, args)
+    if fname == "uid_in":
+        raise TaskError("uid_in is not a root function")
+    raise TaskError(f"unknown function {fname!r}")
+
+
+def _count_func(pd: PredData, op: str, n: int,
+                reverse: bool = False) -> np.ndarray:
+    """Compare-scalar on degree (reference countParams.evaluate :1498; the
+    count index becomes a degree compare over the host indptr mirror)."""
+    csr = pd.rev_csr if reverse else pd.csr
+    if csr is None:
+        return np.zeros(0, np.int64)
+    subjects, deg = csr_subjects_degrees(csr)
+    mask = {"eq": deg == n, "le": deg <= n, "lt": deg < n,
+            "ge": deg >= n, "gt": deg > n}[op]
+    return subjects[mask]
+
+
+def _empty_or_missing_index(pd: PredData, schema, tokname: str) -> np.ndarray | None:
+    """Indexed per schema but no rows at this snapshot → zero matches;
+    not indexed at all → None (caller raises TaskError)."""
+    if tokname in schema.tokenizer_names(pd.attr):
+        return np.zeros(0, np.int64)
+    return None
+
+
+def _terms_func(pd: PredData, schema, fname: str, text: str, tokname: str,
+                lang: str = "") -> np.ndarray:
+    ti = pd.indexes.get(tokname)
+    if ti is None:
+        empty = _empty_or_missing_index(pd, schema, tokname)
+        if empty is not None:
+            return empty
+        raise TaskError(f"predicate {pd.attr} needs @index({tokname})")
+    tz = tokmod.get(tokname)
+    if tokname == "fulltext" and lang:
+        toks = tokmod.fulltext_tokens(text, lang.split(":")[0])
+    else:
+        toks = [t[1:] for t in tz.tokens(Val(TypeID.STRING, text))]
+    rows = [r for t in toks if (r := ti.term_row(t)) >= 0]
+    if fname == "allofterms":
+        if len(rows) != len(toks):
+            return np.zeros(0, np.int64)
+        return _index_uids_intersect_rows(ti, rows)
+    return _index_uids_for_rows(ti, rows)
+
+
+def _regexp_func(pd: PredData, schema, pattern: str, flags: str) -> np.ndarray:
+    """Trigram-index candidates + exact automaton post-filter
+    (reference worker/task.go:768-835, worker/trigram.go:36)."""
+    ti = pd.indexes.get("trigram")
+    if ti is None:
+        empty = _empty_or_missing_index(pd, schema, "trigram")
+        if empty is not None:
+            return empty
+        raise TaskError(f"predicate {pd.attr} needs @index(trigram)")
+    rx = remod.compile(pattern, remod.IGNORECASE if "i" in flags else 0)
+    # candidate trigrams: any literal 3-gram required by the pattern; fall
+    # back to scanning every indexed uid when the pattern has no required
+    # per-branch OR-of-AND trigram query (worker/trigram.go:36 + codesearch
+    # index/regexp): candidates = union over alternation branches of the
+    # intersection of each required trigram's uid list. Case-insensitive
+    # patterns probe each trigram's 2^3 case variants (the index stores
+    # raw-case trigrams) — case-folded query expansion, not a full scan.
+    plan = _trigram_plan(pattern)
+    # inline ignorecase ((?i) / (?i:...)) is invisible to the literal
+    # analysis — the trigrams come out exact-case, so the probe must
+    # case-expand exactly as for /re/i. Substring detection over-matches
+    # (e.g. an escaped paren) only toward a WIDER probe — always sound.
+    ci = "i" in flags or "(?i" in pattern
+    if plan is not None:
+        cands = None
+        for tris in plan:
+            branch = None
+            for t in tris:
+                if ci:
+                    rows = [r for v in _case_variants(t)
+                            if (r := ti.term_row(v.encode())) >= 0]
+                else:
+                    r0 = ti.term_row(t.encode())
+                    rows = [r0] if r0 >= 0 else []
+                uids = _index_uids_for_rows(ti, rows)
+                branch = uids if branch is None \
+                    else us.intersect_host(branch, uids)
+                if not len(branch):
+                    break
+            if branch is not None and len(branch):
+                cands = branch if cands is None \
+                    else np.union1d(cands, branch)
+        if cands is None:
+            cands = np.zeros(0, np.int64)
+    else:
+        nrows = max(len(ti.terms), 0)
+        cands = _index_uids_for_rows(ti, list(range(nrows)))
+    keep = []
+    for u in cands.tolist():
+        if any(rx.search(str(v.value)) for v in _stored_values(pd, int(u))):
+            keep.append(u)
+    return np.asarray(keep, dtype=np.int64)
+
+
+def _case_variants(tri: str) -> list[str]:
+    """All case spellings of one trigram (8 for pure-alpha)."""
+    out = [""]
+    for c in tri:
+        if c.lower() != c.upper():
+            out = [p + v for p in out for v in (c.lower(), c.upper())]
+        else:
+            out = [p + c for p in out]
+    return out
+
+
+_MAX_PLAN_ALTS = 16     # alternation product cap (planner bail-out)
+
+
+def _sre_parser():
+    """The stdlib regex parser module: re._parser on 3.11+, sre_parse
+    before (same API — the 3.11 rename left the parse() surface intact)."""
+    try:
+        import re._parser as sre
+    except ImportError:
+        import sre_parse as sre
+    return sre
+
+
+def _lit_alternatives(seq) -> list[list[str]] | None:
+    """Required-literal analysis of a parsed regex sequence (simplified
+    codesearch index/regexp, the planner behind worker/trigram.go:36).
+
+    Returns a list of alternatives — ANY match satisfies at least one — and
+    for each alternative the list of literal runs EVERY match of it must
+    contain. Soundness rules: constructs we don't model (classes, anchors,
+    backrefs, min==0 repeats) contribute nothing and break the current run;
+    group/repeat boundaries also break runs (never concatenate across them,
+    "ab+c" must not claim "abc"). None = give up (caller scans)."""
+    alts: list[list[str]] = [[""]]      # per alternative: runs; last is open
+
+    def brk(a):
+        if a[-1] != "":
+            a.append("")
+
+    def product(sub_alts):
+        nonlocal alts
+        if sub_alts is None:
+            return False
+        if len(alts) * len(sub_alts) > _MAX_PLAN_ALTS:
+            return False
+        out = []
+        for a in alts:
+            base = a if a[-1] == "" else a + [""]
+            for s in sub_alts:
+                out.append(base + [r for r in s if r] + [""])
+            # the empty-run padding keeps sub-runs from concatenating
+        alts = out
+        return True
+
+    for op, av in seq:
+        name = str(op)
+        if name == "LITERAL":
+            ch = chr(av)
+            for a in alts:
+                a[-1] += ch
+        elif name == "SUBPATTERN":
+            sub = av[3]
+            if not product(_lit_alternatives(sub)):
+                return None
+        elif name == "BRANCH":
+            branches = av[1]
+            sub_alts: list[list[str]] = []
+            for b in branches:
+                r = _lit_alternatives(b)
+                if r is None:
+                    return None
+                sub_alts.extend(r)
+            if not product(sub_alts):
+                return None
+        elif name in ("MAX_REPEAT", "MIN_REPEAT"):
+            mn, _mx, sub = av
+            if mn >= 1:
+                # at least one occurrence is required
+                if not product(_lit_alternatives(sub)):
+                    return None
+            else:
+                for a in alts:
+                    brk(a)
+        else:
+            # IN / ANY / AT / CATEGORY / GROUPREF / ...: matches something
+            # we don't track — requireds on either side still hold
+            for a in alts:
+                brk(a)
+    return [[r for r in a if r] for a in alts]
+
+
+def _trigram_plan(pattern: str) -> list[list[str]] | None:
+    """OR-of-AND trigram query for a pattern: one AND-list per alternation
+    branch (candidates = union over branches of the intersection of each
+    trigram's uid list). None = no branch has a literal >= 3 chars, or the
+    pattern is beyond the planner — caller falls back to the full scan."""
+    try:
+        parsed = list(_sre_parser().parse(pattern))
+    except Exception:
+        return None
+    alts = _lit_alternatives(parsed)
+    if alts is None:
+        return None
+    plan = []
+    for runs in alts:
+        tris = sorted({run[i: i + 3] for run in runs if len(run) >= 3
+                       for i in range(len(run) - 2)})
+        if not tris:
+            return None     # one unbounded branch poisons the whole query
+        plan.append(tris)
+    return plan
+
+
+def _geo_func(pd: PredData, schema, fname: str, args: list) -> np.ndarray:
+    ti = pd.indexes.get("geo")
+    if ti is None:
+        empty = _empty_or_missing_index(pd, schema, "geo")
+        if empty is not None:
+            return empty
+        raise TaskError(f"predicate {pd.attr} needs @index(geo)")
+    a0 = args[0]
+    if isinstance(a0, (list, tuple)) and len(a0) == 2 and \
+            all(isinstance(x, (int, float)) for x in a0):
+        # DQL coordinate form: near(loc, [lon, lat], dist)
+        a0 = {"type": "Point", "coordinates": [float(a0[0]), float(a0[1])]}
+    g = a0 if isinstance(a0, geomod.Geom) else geomod.parse_geojson(a0)
+    radius = float(args[1]) if fname == "near" and len(args) > 1 else None
+    qtoks = geomod.query_tokens(g, radius)
+    # probe covers and all their indexed ancestors/descendants
+    rows = set()
+    for t in qtoks:
+        for p in range(geomod.MIN_PRECISION, len(t) + 1):
+            r = ti.term_row(t[:p].encode())
+            if r >= 0:
+                rows.add(r)
+        # descendants: terms with prefix t
+        i = bisect.bisect_left(ti.terms, t.encode())
+        while i < len(ti.terms) and ti.terms[i].startswith(t.encode()):
+            rows.add(i)
+            i += 1
+    cands = _index_uids_for_rows(ti, sorted(rows))
+    keep = []
+    for u in cands.tolist():
+        for sv in _stored_values(pd, int(u)):
+            stored = sv.value
+            ok = {"near": lambda: geomod.near(stored, g.coords if g.kind == "Point" else next(iter(g.points())), radius or 0.0),
+                  "within": lambda: geomod.within(stored, g),
+                  "contains": lambda: geomod.contains(stored, g),
+                  "intersects": lambda: geomod.intersects(stored, g)}[fname]()
+            if ok:
+                keep.append(u)
+                break
+    return np.asarray(keep, dtype=np.int64)

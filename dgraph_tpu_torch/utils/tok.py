@@ -1,7 +1,6 @@
 """Tokenizers: value → index terms.
 
-Copy of dgraph_tpu/utils/tok.py for the PyTorch port (schema parsing needs
-the registry); the geo tokenizer raises until the geo slice.
+Copy of dgraph_tpu/utils/tok.py for the PyTorch port.
 
 Reference semantics: tok/tok.go — registry keyed by a 1-byte identifier that
 prefixes every index term (so one index posting space can hold many tokenizer
@@ -25,7 +24,7 @@ import struct
 from dataclasses import dataclass
 from typing import Callable
 
-from dgraph_tpu_torch.utils.types import TypeID, Val, convert, geo_unported
+from dgraph_tpu_torch.utils.types import TypeID, Val, convert
 
 
 @dataclass(frozen=True)
@@ -315,7 +314,10 @@ def _fulltext_tokens(v: Val) -> list[bytes]:
 
 
 def _geo_tokens(v: Val) -> list[bytes]:
-    raise geo_unported()
+    from dgraph_tpu_torch.utils import geo as geomod
+
+    g = v.value if not isinstance(v.value, (str, bytes, dict)) else geomod.parse_geojson(v.value)
+    return [t.encode("ascii") for t in geomod.index_tokens(g)]
 
 
 # ---------------------------------------------------------------------------

@@ -1,14 +1,19 @@
 """Value type system: scalar types, conversion matrix, comparison.
 
-Copy of dgraph_tpu/utils/types.py for the PyTorch port, cut to what the
-uid-traversal slice reads (TypeID, Val, convert, compare_vals, sort_key).
+Copy of dgraph_tpu/utils/types.py for the PyTorch port, without the
+unmarshal half of the binary codec (the storage slice brings it).
 Reference semantics: types/ — 10 scalar types (types/scalar_types.go:35-44),
 the conversion matrix (types/conversion.go), ordering (types/compare.go,
-types/sort.go). Geo values raise NotImplementedError until the geo slice.
+types/sort.go). Geo is lat/lng points + geohash cells (utils/geo.py).
+
+Numeric compares read a float64 host mirror (to_device_scalar): exact for
+INT below 2^53, DATETIME as epoch seconds, FLOAT and BOOL. They stay on the
+host in float64; a float32 compare on the card would be another answer.
 """
 
 from __future__ import annotations
 
+import struct
 from dataclasses import dataclass
 from datetime import datetime, timezone
 from enum import IntEnum
@@ -166,7 +171,9 @@ def convert(src: Val, to: TypeID) -> Val:
             if to == TypeID.PASSWORD:
                 return Val(to, hash_password(s))
             if to == TypeID.GEO:
-                raise geo_unported()
+                from dgraph_tpu_torch.utils import geo as geomod
+
+                return Val(to, geomod.parse_geojson(s))
             if to == TypeID.VECTOR:
                 return Val(to, parse_vector(s))
         elif src.tid == TypeID.INT:
@@ -205,7 +212,10 @@ def convert(src: Val, to: TypeID) -> Val:
             if to in (TypeID.STRING, TypeID.DEFAULT):
                 return Val(to, v.decode("utf-8"))
         elif src.tid == TypeID.GEO:
-            raise geo_unported()
+            if to in (TypeID.STRING, TypeID.DEFAULT):
+                from dgraph_tpu_torch.utils import geo as geomod
+
+                return Val(to, geomod.to_geojson(v))
         elif src.tid == TypeID.VECTOR:
             if to in (TypeID.STRING, TypeID.DEFAULT):
                 return Val(to, vector_str(v))
@@ -246,6 +256,25 @@ def sort_key(v: Val):
 
 
 # ---------------------------------------------------------------------------
+# Float64 mirror: numeric encode (storage/csr_build.py value columns)
+# ---------------------------------------------------------------------------
+
+def to_device_scalar(v: Val) -> float | int | None:
+    """Encode a value for the numeric value mirror (int64/float64 lattice),
+    or None if the type only exists behind host-side indexes
+    (string/geo/password)."""
+    if v.tid == TypeID.INT:
+        return int(v.value)
+    if v.tid == TypeID.FLOAT:
+        return float(v.value)
+    if v.tid == TypeID.BOOL:
+        return int(bool(v.value))
+    if v.tid == TypeID.DATETIME:
+        return float(v.value.timestamp())
+    return None
+
+
+# ---------------------------------------------------------------------------
 # Passwords (reference: types/password.go, bcrypt)
 # ---------------------------------------------------------------------------
 
@@ -261,7 +290,46 @@ def hash_password(pw: str) -> str:
     return "pbkdf2$" + salt.hex() + "$" + dk.hex()
 
 
-def geo_unported() -> NotImplementedError:
-    return NotImplementedError(
-        "geo values are not ported yet: they wait for the geo slice of "
-        "dgraph_tpu_torch")
+def verify_password(pw: str, stored: str) -> bool:
+    import hashlib
+    import hmac
+
+    try:
+        scheme, salt_hex, dk_hex = stored.split("$")
+        if scheme != "pbkdf2":
+            return False
+        dk = hashlib.pbkdf2_hmac("sha256", pw.encode("utf-8"), bytes.fromhex(salt_hex), 100_000)
+        return hmac.compare_digest(dk.hex(), dk_hex)
+    except ValueError:
+        return False
+
+
+# ---------------------------------------------------------------------------
+# Binary marshaling (reference: types binary Marshal); list-value postings
+# are keyed by a fingerprint of it (storage/postings.py)
+# ---------------------------------------------------------------------------
+
+def marshal(v: Val) -> bytes:
+    tid = v.tid
+    if tid in (TypeID.STRING, TypeID.DEFAULT, TypeID.PASSWORD):
+        return str(v.value).encode("utf-8")
+    if tid == TypeID.BINARY:
+        return bytes(v.value)
+    if tid == TypeID.INT:
+        return struct.pack("<q", int(v.value))
+    if tid == TypeID.FLOAT:
+        return struct.pack("<d", float(v.value))
+    if tid == TypeID.BOOL:
+        return b"\x01" if v.value else b"\x00"
+    if tid == TypeID.DATETIME:
+        return struct.pack("<d", v.value.timestamp())
+    if tid == TypeID.GEO:
+        from dgraph_tpu_torch.utils import geo as geomod
+
+        return geomod.to_geojson(v.value).encode("utf-8")
+    if tid == TypeID.UID:
+        return struct.pack("<Q", int(v.value))
+    if tid == TypeID.VECTOR:
+        xs = v.value
+        return struct.pack(f"<{len(xs)}f", *xs)
+    raise ValueError(f"cannot marshal {v!r}")

@@ -343,13 +343,20 @@ def test_fused_path_one_call(kernels_on, monkeypatch):
 
 
 def test_unported_branches_raise():
+    """What is still unported: @groupby (groupby slice) and similar_to, at
+    the root or in a filter (vector slice)."""
     _, tsnap = _both(_graph())
     _, ts = _schemas()
-    for q in ('{ q(func: has(follow)) { uid } }',
-              '{ q(func: uid(0x1)) { name } }',
-              '{ q(func: uid(0x1)) { follow @facets(eq(w, 1)) { uid } } }',
-              '{ q(func: uid(0x1)) @groupby(follow) { count(uid) } }'):
-        with pytest.raises(NotImplementedError, match="slice"):
+    for q, slice_name in (
+            ('{ q(func: uid(0x1)) @groupby(follow) { count(uid) } }',
+             "groupby"),
+            ('{ q(func: uid(0x1)) { follow @groupby(knows) { count(uid) } } }',
+             "groupby"),
+            ('{ q(func: similar_to(follow, "[1, 2]", 2)) { uid } }',
+             "vector"),
+            ('{ q(func: uid(0x1, 0x2)) @filter(similar_to(follow, "[1, 2]", 2)) '
+             '{ uid } }', "vector")):
+        with pytest.raises(NotImplementedError, match=f"{slice_name} slice"):
             teng.Executor(tsnap, ts).execute(tdql.parse(q))
 
 
@@ -389,6 +396,16 @@ shortest.DEVICE_SSSP_MIN_EDGES = shortest.SSSP_KERNEL_MIN = 0
 q = "{ shortest(from: %s, to: %s) { friend } }" % (hex(int(s[0])),
                                                    hex(int(x[-1])))
 out["path"] = Executor(snap, schema).execute(dql.parse(q))
+from dgraph_tpu_torch.storage.csr_build import build_value_pred
+from dgraph_tpu_torch.utils.types import TypeID, Val
+schema.set(parse_schema("age: int @index(int) .")[0])
+snap.preds["age"] = build_value_pred(
+    "age", schema.get("age"),
+    [(int(u), Val(TypeID.INT, int(u) % 7), "", ()) for u in s], device="cpu")
+q = ("{ var(func: ge(age, 3)) { a as age m as math(a * 2) } "
+     "q(func: uid(m), orderdesc: val(m), first: 3) { uid age val(m) "
+     "friend @filter(lt(age, 4)) { uid } } s() { n: sum(val(a)) } }")
+out["values"] = Executor(snap, schema).execute(dql.parse(q))
 new = set(sys.modules) - before
 bad = sorted(m for m in new if m.split(".")[0] in ("jax", "jaxlib")
              or m == "dgraph_tpu" or m.startswith("dgraph_tpu."))
