@@ -49,7 +49,23 @@ it:
      numpy over the same data; the device union (ops/csr.expand_dest) must
      run for the two index roots and K1 or K2 for the recurse; each request
      is timed (p50, min..max of 5 runs) and two are profiled;
-  8. prints the card line, a {"kernels": [...]} line and the final
+  8. loads the headline graph (with its REVERSE keys) and `age` on every
+     node id into the port's Store (posting lists packed by the native
+     codec, Store.bulk_install), folds it eagerly (held to the input
+     arrays), runs phase 4's @recurse over a SnapshotAssembler's lazy
+     folds (levels equal to phase 4's, K1 and K2 launched), commits a
+     seeded write program of 64 transactions (one more aborted) through
+     rdf -> mutation -> Store.commit with a one-uid probe after each
+     (commit-to-visible ms; every commit stamped as a delta overlay over
+     base tensors that keep their device pointers), then over the last
+     overlay snapshot the one-hop expand (ops/csr.expand_masked on the
+     card), the @recurse (K1/K2 over the merged CSR) and an index root
+     (the device union over the merged index), each equal to the host path
+     or to numpy after the same edits, and finally compacts the overlays
+     (a from-scratch fold of each predicate at the last commit): the
+     stamped CSRs and values equal the fold's and every request gives the
+     same JSON over it;
+  9. prints the card line, a {"kernels": [...]} line and the final
      {"ok": true, "device": {...}} line.
 Any mismatch raises and the script exits non-zero. It never imports jax or
 the JAX package.
@@ -87,6 +103,13 @@ score: float @index(float) .
 name: string @index(exact, term) .
 """
 VOCAB = tuple(f"w{chr(97 + i // 8)}{chr(97 + i % 8)}" for i in range(64))
+# phase 8: the headline graph and age in the port's Store, then a seeded
+# program of COMMITS transactions over a pool of COMMIT_POOL subjects
+STORE_SCHEMA = "friend: [uid] @reverse .\nage: int @index(int) ."
+COMMITS, COMMIT_POOL = 64, 32
+# the overlay expand adds the largest rows to the seeds until the base side
+# alone passes this many edges (past task.HOST_EXPAND_MAX: the device gather)
+EXPAND_EDGES = 300_000
 
 
 def host_3hop(subjects, indptr, indices, seeds, hops=3):
@@ -171,6 +194,20 @@ def band(samples):
     return {"min": s[0], "median": s[len(s) // 2], "max": s[-1]}
 
 
+def on_host(fn):
+    """fn() with every expand, union and recurse level on the host
+    mirrors (the reference each request's default path is held to)."""
+    from dgraph_tpu_torch.query import recurse as rec
+    from dgraph_tpu_torch.query import task
+
+    kept = rec.KERNEL_MIN_EDGES, task.HOST_EXPAND_MAX
+    rec.KERNEL_MIN_EDGES = task.HOST_EXPAND_MAX = 1 << 62
+    try:
+        return fn()
+    finally:
+        rec.KERNEL_MIN_EDGES, task.HOST_EXPAND_MAX = kept
+
+
 def say(tag: str, **kw) -> None:
     print(json.dumps({"phase": tag, **kw}), flush=True)
 
@@ -190,7 +227,6 @@ def main() -> int:
     from dgraph_tpu_torch.query import dql
     from dgraph_tpu_torch.query import engine as eng
     from dgraph_tpu_torch.query import recurse as rec
-    from dgraph_tpu_torch.query import task as task
     from dgraph_tpu_torch.storage.csr_build import transpose_csr
     from dgraph_tpu_torch.utils.schema import SchemaState, parse_schema
     from dgraph_tpu_torch.utils.types import TypeID
@@ -515,12 +551,7 @@ def main() -> int:
         cap and accepted; returns (query, json bytes)."""
         for c in candidates:
             text = make(c)
-            expand_max = task.HOST_EXPAND_MAX
-            rec.KERNEL_MIN_EDGES = task.HOST_EXPAND_MAX = 1 << 62
-            try:
-                host = execute(text)
-            finally:
-                rec.KERNEL_MIN_EDGES, task.HOST_EXPAND_MAX = None, expand_max
+            host = on_host(lambda: execute(text))
             if 1000 < len(host) <= JSON_MAX_BYTES and accept(c):
                 return text, host
         raise SystemExit(f"no candidate fits {make(candidates[0])[:80]}")
@@ -585,7 +616,18 @@ def main() -> int:
     say("values_phase", seconds=time.perf_counter() - t0,
         script_seconds=time.perf_counter() - t_start)
 
-    # ---- 8. summary lines --------------------------------------------------
+    # ---- 8. the Store, commits and overlays ---------------------------------
+    t0 = time.perf_counter()
+    storage_launches = storage_phase(
+        snap, schema, (subjects, indptr, indices), (rsub, rptr, ridx), seeds,
+        expand_seeds, shapes["loop_recurse"][0].replace(", loop: true", ""),
+        1 << SCALE, dev)
+    for name, n in storage_launches.items():
+        kernels[name]["launches_storage"] = n
+    say("storage_phase", seconds=time.perf_counter() - t0,
+        script_seconds=time.perf_counter() - t_start)
+
+    # ---- 9. summary lines --------------------------------------------------
     kern_line = {"kernels": [
         {k: v for k, v in kernels[n].items() if k not in ("e_pad", "stream")}
         for n in ("active_prefix", "active_prefix_sparse")]}
@@ -776,8 +818,6 @@ def values_phase(snap, schema, csr, seeds, dev) -> dict:
     from dgraph_tpu_torch.ops import prefix as px
     from dgraph_tpu_torch.query import dql
     from dgraph_tpu_torch.query import engine as eng
-    from dgraph_tpu_torch.query import recurse as rec
-    from dgraph_tpu_torch.query import task
     from dgraph_tpu_torch.storage.csr_build import build_value_pred
     from dgraph_tpu_torch.utils.schema import parse_schema
     from dgraph_tpu_torch.utils.types import TypeID, Val
@@ -824,14 +864,7 @@ def values_phase(snap, schema, csr, seeds, dev) -> dict:
         return json.dumps(eng.Executor(snap, schema).execute(dql.parse(text)))
 
     def host_json(text):
-        """The same request with every expand, union and recurse level on
-        the host mirrors (as phase 5's pick does)."""
-        expand_max = task.HOST_EXPAND_MAX
-        rec.KERNEL_MIN_EDGES = task.HOST_EXPAND_MAX = 1 << 62
-        try:
-            return execute(text)
-        finally:
-            rec.KERNEL_MIN_EDGES, task.HOST_EXPAND_MAX = None, expand_max
+        return on_host(lambda: execute(text))
 
     def root_set(text):
         ex = eng.Executor(snap, schema)
@@ -974,6 +1007,397 @@ def values_phase(snap, schema, csr, seeds, dev) -> dict:
             line["profile"] = profile_query(lambda: execute(texts[name]))
         say("value_request", request=name, **line)
     return launches
+
+
+
+def storage_phase(snap4, schema4, csr, rev, seeds, expand_seeds, json_recurse,
+                  n_ids, dev) -> dict:
+    """Phase 8: the headline graph (with its REVERSE keys) and `age` on
+    every node id loaded into the port's Store through bulk_install, folded,
+    read through a SnapshotAssembler, written to by a seeded program of
+    COMMITS transactions (one more aborted) and read again through the
+    delta overlays, then compacted. snap4/schema4 are phase 4's carried
+    snapshot (with phase 7's `age`, the same data); json_recurse is a
+    one-uid @recurse(depth: 3) whose JSON fits JSON_MAX_BYTES. Returns the
+    K1/K2 launches of the two counted 128-seed @recurse runs."""
+    import threading
+
+    import torch
+
+    from dgraph_tpu_torch.ops import csr as csrops
+    from dgraph_tpu_torch.ops import prefix as px
+    from dgraph_tpu_torch.ops import pull_bfs as pb
+    from dgraph_tpu_torch.query import dql, mutation, rdf
+    from dgraph_tpu_torch.query import engine as eng
+    from dgraph_tpu_torch.storage import keys as K
+    from dgraph_tpu_torch.storage import native
+    from dgraph_tpu_torch.storage.csr_build import (
+        PredCSR, SnapshotAssembler, build_snapshot)
+    from dgraph_tpu_torch.storage.delta import LazyTokenIndex, OverlayCSR
+    from dgraph_tpu_torch.storage.index import index_tokens
+    from dgraph_tpu_torch.storage.postings import (
+        VALUE_UID, Op, Posting, PostingList)
+    from dgraph_tpu_torch.storage.store import Store
+    from dgraph_tpu_torch.utils.schema import parse_schema
+    from dgraph_tpu_torch.utils.types import TypeID, Val
+
+    subjects, indptr, indices = csr
+    rsub, rptr, ridx = rev
+    sync = torch.cuda.synchronize
+    t_phase = time.perf_counter()
+
+    def fail(what, msg):
+        raise SystemExit(f"storage {what}: {msg}")
+
+    # ---- load: bulk_install of packed lists, as loader/bulk.py's reduce ---
+    if not native.available():
+        fail("load", "the native codec did not build")
+    store = Store()
+    for e in parse_schema(STORE_SCHEMA):
+        store.set_schema(e)
+    schema = store.schema
+
+    def keys_of(make, attr, uids):
+        """Encoded keys of one kind for many uids: the key's head once and
+        the uid as 8 big-endian bytes (checked against keys.py)."""
+        head = make(attr, 0).encode()[:-8]
+        raw = np.asarray(uids, dtype=">u8").tobytes()
+        out = [head + raw[i: i + 8] for i in range(0, len(raw), 8)]
+        if out and out[-1] != make(attr, int(uids[-1])).encode():
+            fail("load", "key layout differs from storage/keys.py")
+        return out
+
+    load = {}
+    t0 = time.perf_counter()
+    keys = keys_of(K.data_key, "friend", subjects)
+    rows = np.split(indices.astype(np.uint64), indptr[1:-1])
+    keys += keys_of(K.reverse_key, "friend", rsub)
+    rows += np.split(ridx.astype(np.uint64), rptr[1:-1])
+    load["friend_rows"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ids = np.arange(1, n_ids + 1, dtype=np.int64)
+    age = np.random.default_rng(11).integers(0, 100, n_ids)   # phase 7's
+    akeys = keys_of(K.data_key, "age", ids)
+    posts = {kb: {VALUE_UID: Posting(VALUE_UID, Op.SET, Val(TypeID.INT, a))}
+             for kb, a in zip(akeys, age.tolist())}
+    keys += akeys
+    rows += [np.asarray([VALUE_UID], np.uint64)] * n_ids
+    order = np.argsort(age, kind="stable")
+    cuts = np.searchsorted(age[order], np.arange(101))
+    entry = schema.get("age")
+    for a in range(100):
+        members = ids[order[cuts[a]: cuts[a + 1]]].astype(np.uint64)
+        if len(members):
+            for tk in index_tokens(entry, Val(TypeID.INT, a)):
+                keys.append(K.index_key("age", tk).encode())
+                rows.append(members)
+    load["age_rows"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lists = {}
+    for kb, pu in zip(keys, native.pack_many(rows)):
+        pl = PostingList()
+        pl.base_ts = 1
+        pl.base_packed = pu
+        pl.base_postings = posts.get(kb, {})
+        lists[kb] = pl
+    load["pack"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    store.bulk_install(lists, 1)
+    load["install"] = time.perf_counter() - t0
+    del keys, rows, posts, lists
+    say("storage_load", seconds=load, native=native.available(),
+        keys=len(store.lists), ids=n_ids)
+
+    # ---- fold: the eager build_snapshot, held to the input arrays ---------
+    t0 = time.perf_counter()
+    full = build_snapshot(store, 1, device=dev)
+    fold_s = time.perf_counter() - t0
+    fr, ag = full.pred("friend"), full.pred("age")
+    for what, got, want in (("friend", fr.csr, csr), ("~friend", fr.rev_csr,
+                                                      rev)):
+        if not all(np.array_equal(g, w)
+                   for g, w in zip(got.host_arrays(), want)):
+            fail("fold", f"{what} CSR differs from the input arrays")
+    if not (np.array_equal(ag.value_subjects_host, ids) and np.array_equal(
+            ag.num_values_host, age.astype(np.float64))):
+        fail("fold", "age's value table differs from numpy")
+    del full, fr, ag
+
+    # ---- the assembler's lazy folds and phase 4's @recurse over them -----
+    asm = SnapshotAssembler(store, device=dev)
+    s1 = asm.snapshot(1)
+    per_pred = {}
+    for attr in ("friend", "age"):
+        t0 = time.perf_counter()
+        s1.pred(attr)
+        per_pred[attr] = time.perf_counter() - t0
+    say("storage_fold", build_snapshot_seconds=fold_s,
+        lazy_fold_seconds=per_pred, native=native.available())
+
+    req = dql.parse("{ q(func: uid(%s)) @recurse(depth: 3) { friend } }"
+                    % ", ".join(hex(int(u)) for u in seeds))
+
+    def levels(snap, sch):
+        """The 128-seed @recurse through the engine (phase 4's run_block):
+        each level's dest uids."""
+        sg = eng.SubGraph(gq=req.queries[0], attr=req.queries[0].attr)
+        eng.Executor(snap, sch)._process_block(sg)
+        out = []
+        while sg.children:
+            sg = sg.children[0]
+            out.append(sg.dest_uids)
+        return out
+
+    def execute(snap, text, sch=schema):
+        return json.dumps(eng.Executor(snap, sch).execute(dql.parse(text)))
+
+    def counted(fn):
+        px.reset_launches()
+        out = fn()
+        sync()
+        return out, dict(px.LAUNCHES)
+
+    def p50(fn, runs=5):
+        ms = []
+        for _ in range(runs):
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return band(ms)
+
+    def same_levels(a, b, what):
+        if len(a) != len(b) or not all(np.array_equal(x, y)
+                                       for x, y in zip(a, b)):
+            fail(what, "@recurse levels differ from the reference")
+
+    def launched(what, launches):
+        if min(launches.values()) == 0:
+            fail(what, f"a kernel never launched: {launches}")
+
+    t_step = time.perf_counter()
+    ref_levels = levels(snap4, schema4)
+    ref_json = execute(snap4, json_recurse, schema4)
+    t0 = time.perf_counter()
+    pb.pull_graph_for(s1.pred("friend").csr)
+    sync()
+    prep_store = time.perf_counter() - t0
+    got, l_store = counted(lambda: levels(s1, schema))
+    same_levels(got, ref_levels, "recurse_store")
+    if execute(s1, json_recurse) != ref_json:
+        fail("recurse_store", "JSON differs from phase 4's snapshot")
+    launched("recurse_store", l_store)
+    # the same request over phase 4's carried snapshot, timed and profiled
+    # beside it: what the store-built snapshot adds
+    say("storage_request", request="recurse_store", launches=l_store,
+        levels=[int(len(x)) for x in got], prep_pull_seconds=prep_store,
+        json_bytes=len(ref_json), json_query=json_recurse[:120],
+        ms=p50(lambda: levels(s1, schema)),
+        ms_phase4_snapshot=p50(lambda: levels(snap4, schema4)),
+        profile=profile_query(lambda: levels(s1, schema)),
+        profile_phase4_snapshot=profile_query(
+            lambda: levels(snap4, schema4)),
+        step_seconds=time.perf_counter() - t_step)
+
+    # ---- commits: the seeded write program, each made visible ------------
+    base = s1.pred("friend").csr
+    base_rev = s1.pred("friend").rev_csr
+    ptrs = [t.data_ptr() for c in (base, base_rev) for t in c.device_arrays()]
+    rng = np.random.default_rng(13)
+    pool = np.sort(rng.choice(expand_seeds, min(COMMIT_POOL,
+                                                len(expand_seeds)),
+                              replace=False))
+    at = np.searchsorted(subjects, pool)
+    model = {int(u): set(indices[indptr[p]: indptr[p + 1]].tolist())
+             for u, p in zip(pool, at)}
+    ages = age.copy()
+    probe_q = "{ q(func: uid(%s)) { age friend { uid } } }"
+
+    def write(start, set_nq, del_nq):
+        edges = (mutation.to_edges(rdf.parse(set_nq), {}, Op.SET)
+                 + mutation.to_edges(rdf.parse(del_nq), {}, Op.DEL))
+        return mutation.apply_mutations(store, edges, start)[0]
+
+    def probe(snap, u):
+        q = eng.Executor(snap, schema).execute(dql.parse(probe_q % hex(u)))
+        return q["q"][0] if q.get("q") else {}
+
+    def held_probe(obj, u, what):
+        if sorted(int(o["uid"], 16) for o in obj.get("friend", [])) != \
+                sorted(model.get(u, ())) or obj.get("age") != int(ages[u - 1]):
+            fail(what, f"probe of {hex(u)} differs from the write program")
+
+    t_step = time.perf_counter()
+    parts = {"write": [], "commit": [], "snapshot": [], "probe": [],
+             "visible": []}
+    aborted = None
+    for k in range(COMMITS):
+        cts = k + 2
+        sets, dels = [], []
+        for _ in range(4):
+            u, o = int(rng.choice(pool)), int(rng.integers(1, n_ids + 1))
+            model[u].add(o)
+            sets.append(f"<{hex(u)}> <friend> <{hex(o)}> .")
+        who = int(sets[0].split()[0][1:-1], 16)    # the probed subject
+        for _ in range(2):
+            u = int(rng.choice(pool))
+            if model[u]:
+                o = int(rng.choice(sorted(model[u])))
+                model[u].discard(o)
+                dels.append(f"<{hex(u)}> <friend> <{hex(o)}> .")
+        for _ in range(2):
+            u, a = int(rng.integers(1, n_ids + 1)), int(rng.integers(0, 100))
+            ages[u - 1] = a
+            sets.append(f'<{hex(u)}> <age> "{a}"^^<xs:int> .')
+        if k == COMMITS // 2:
+            # a write that is aborted: never visible
+            aborted = (int(pool[0]), n_ids)
+            touched = write(cts - 1, f"<{hex(aborted[0])}> <friend> "
+                            f"<{hex(aborted[1])}> .\n<{hex(aborted[0])}> "
+                            f'<age> "999"^^<xs:int> .', "")
+            store.abort(cts - 1, touched)
+        t0 = time.perf_counter()
+        touched = write(cts - 1, "\n".join(sets), "\n".join(dels))
+        t1 = time.perf_counter()
+        store.commit(cts - 1, cts, touched)
+        t2 = time.perf_counter()
+        snap = asm.snapshot(cts)
+        t3 = time.perf_counter()
+        obj = probe(snap, who)
+        sync()
+        t4 = time.perf_counter()
+        for name, dt in (("write", t1 - t0), ("commit", t2 - t1),
+                         ("snapshot", t3 - t2), ("probe", t4 - t3),
+                         ("visible", t4 - t1)):
+            parts[name].append(dt * 1e3)
+        held_probe(obj, who, f"commit {cts}")
+        fr = snap.pred("friend")
+        if not (isinstance(fr.csr, OverlayCSR)
+                and isinstance(fr.rev_csr, OverlayCSR)
+                and isinstance(snap.pred("age").indexes["int"],
+                               LazyTokenIndex)):
+            fail("commits", f"commit {cts} was folded, not stamped")
+        if fr.csr.base is not base or fr.rev_csr.base is not base_rev or \
+                [t.data_ptr() for c in (base, base_rev)
+                 for t in c.device_arrays()] != ptrs:
+            fail("commits", f"commit {cts} replaced the base's tensors")
+        if aborted is not None and k == COMMITS // 2:
+            held_probe(probe(snap, aborted[0]), aborted[0], "aborted write")
+    last_ts = COMMITS + 1
+    depth = {a: len(store.delta_since(a, 1) or ()) for a in ("friend", "age")}
+    say("storage_commits", commits=COMMITS, aborted=1, pool=len(pool),
+        overlay_keys=depth, overlay_stats=asm.overlay_stats(),
+        ms={k: band(v) for k, v in parts.items()},
+        step_seconds=time.perf_counter() - t_step)
+    if max(depth.values()) >= asm.OVERLAY_MAX_KEYS:
+        fail("commits", f"touched keys {depth} reach OVERLAY_MAX_KEYS")
+
+    # ---- requests over the last overlay snapshot --------------------------
+    # each is held here to the host path and to numpy, and below to the same
+    # request over a from-scratch fold of the store at last_ts: compaction
+    # folds each predicate again with build_snapshot's _build_pred
+    last = asm.snapshot(last_ts)
+    t_step = time.perf_counter()
+    # phase 5's expand from the seeds, widened by the largest rows until the
+    # base side alone passes EXPAND_EDGES, with the overlay's rows spliced in
+    deg = np.diff(indptr)
+    big = np.argsort(-deg, kind="stable")
+    big = big[: int(np.searchsorted(np.cumsum(deg[big]), EXPAND_EDGES)) + 1]
+    frontier = np.union1d(expand_seeds, subjects[big])
+    ex_q = "{ q(func: uid(%s)) { uid friend { uid } } }" % ", ".join(
+        hex(int(u)) for u in frontier)
+    m0 = csrops.MASKED[dev.type]
+    ex_json = execute(last, ex_q)
+    masked = csrops.MASKED[dev.type] - m0
+    if masked == 0:
+        fail("overlay_expand", f"expand_masked did not run on {dev.type}")
+    if on_host(lambda: execute(last, ex_q)) != ex_json:
+        fail("overlay_expand", "JSON differs from the host path")
+    got = {int(o["uid"], 16): [int(x["uid"], 16) for x in o["friend"]]
+           for o in json.loads(ex_json)["q"] if "friend" in o}
+    want = {}
+    for u in frontier.tolist():
+        p = int(np.searchsorted(subjects, u))
+        row = sorted(model[u]) if u in model else \
+            indices[indptr[p]: indptr[p + 1]].tolist()
+        if row:
+            want[u] = row
+    if got != want:
+        fail("overlay_expand", "rows differ from numpy after the edits")
+    say("storage_request", request="overlay_expand", expand_masked=masked,
+        frontier=int(len(frontier)),
+        edges=int(sum(len(r) for r in want.values())),
+        json_bytes=len(ex_json), ms=p50(lambda: execute(last, ex_q)),
+        step_seconds=time.perf_counter() - t_step)
+
+    # the merged host CSR is built already: the first uid(...) root over
+    # each new snapshot merges it (engine._known_uids, in every probe)
+    t_step = time.perf_counter()
+    ov = last.pred("friend").csr
+    t0 = time.perf_counter()
+    pb.pull_graph_for(ov)
+    sync()
+    prep_s = time.perf_counter() - t0
+    got_levels, l_ov = counted(lambda: levels(last, schema))
+    rec_json = execute(last, json_recurse)
+    launched("overlay_recurse", l_ov)
+    say("storage_request", request="overlay_recurse", launches=l_ov,
+        levels=[int(len(x)) for x in got_levels], prep_pull_seconds=prep_s,
+        json_bytes=len(rec_json), ms=p50(lambda: levels(last, schema)),
+        step_seconds=time.perf_counter() - t_step)
+
+    t_step = time.perf_counter()
+    ix_q = "{ q(func: ge(age, 90), orderasc: age, first: 100) { uid age } }"
+    u0 = csrops.UNIONS[dev.type]
+    ix_json = execute(last, ix_q)
+    unions = csrops.UNIONS[dev.type] - u0
+    if unions == 0:
+        fail("overlay_index", f"no union ran on {dev.type}")
+    root = eng.Executor(last, schema)._root_uids(dql.parse(ix_q).queries[0])
+    want = ids[ages >= 90]
+    if not np.array_equal(root, want):
+        fail("overlay_index", f"root set {len(root)} != numpy {len(want)}")
+    top = want[np.lexsort((want, ages[want - 1]))][:100]
+    if [(int(o["uid"], 16), o["age"]) for o in json.loads(ix_json)["q"]] \
+            != [(int(u), int(ages[u - 1])) for u in top]:
+        fail("overlay_index", "first 100 by age differ from numpy")
+    say("storage_request", request="overlay_index", device_unions=unions,
+        root_uids=int(len(want)), ms=p50(lambda: execute(last, ix_q)),
+        profile=profile_query(lambda: execute(last, ix_q)),
+        step_seconds=time.perf_counter() - t_step)
+
+    # ---- compaction: a from-scratch fold at last_ts, the same answers -----
+    t_step = time.perf_counter()
+    done = asm.compact(threading.Lock(), force=True)
+    compact_s = time.perf_counter() - t_step
+    post = asm.snapshot(last_ts)
+    fr, fr_last = post.pred("friend"), last.pred("friend")
+    if isinstance(fr.csr, OverlayCSR) or not isinstance(fr.csr, PredCSR) \
+            or fr.csr is base or store.pred_commit_ts.get("friend") != last_ts:
+        fail("compact", f"friend is {type(fr.csr).__name__} after "
+                        f"compaction, not a fold at ts {last_ts}")
+    # the byte-identity contract: the stamped views equal the fold
+    for what, a, b in (("friend", fr_last.csr, fr.csr),
+                       ("~friend", fr_last.rev_csr, fr.rev_csr)):
+        if not all(np.array_equal(x, y)
+                   for x, y in zip(a.host_arrays(), b.host_arrays())):
+            fail("compact", f"{what}'s overlay differs from the fold")
+    ag, ag_last = post.pred("age"), last.pred("age")
+    if not (np.array_equal(ag.value_subjects_host, ag_last.value_subjects_host)
+            and np.array_equal(ag.num_values_host, ag_last.num_values_host)
+            and np.array_equal(ag.value_subjects_host, ids)
+            and np.array_equal(ag.num_values_host, ages.astype(np.float64))):
+        fail("compact", "age's value table differs from the overlay or numpy")
+    same_levels(levels(post, schema), got_levels, "overlay_recurse")
+    for what, text, want_json in (("overlay_expand", ex_q, ex_json),
+                                  ("overlay_recurse", json_recurse, rec_json),
+                                  ("overlay_index", ix_q, ix_json)):
+        if execute(post, text) != want_json:
+            fail(what, "JSON differs from a from-scratch fold")
+    say("storage_compact", compacted=done, seconds=compact_s,
+        step_seconds=time.perf_counter() - t_step,
+        phase_seconds=time.perf_counter() - t_phase)
+    return {k: l_store[k] + l_ov[k] for k in l_store}
 
 
 def profile_query(run) -> dict:

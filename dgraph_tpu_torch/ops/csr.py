@@ -16,9 +16,12 @@ Out-of-range indices are clamped and masked explicitly (torch raises where
 jnp.take clips).
 
 expand_dest is the union of many rows (index root functions union the uid
-rows of their tokens): expand, sort, dedup. UNIONS counts its calls by the
-device type of the tensors it was given, so a caller can show which side
-ran a union.
+rows of their tokens): expand, sort, dedup. expand_masked is the base-side
+half of a delta-overlay merge-on-read (storage/delta.OverlayCSR): the
+frontier expands over the unchanged base with the patched slots masked to
+the sentinel. UNIONS and MASKED count the calls of expand_dest and
+expand_masked by the device type of the tensors they were given, so a
+caller can show which side ran.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ import torch
 from dgraph_tpu_torch.ops.uidset import _dedup_sorted, sentinel
 
 UNIONS = {"cuda": 0, "cpu": 0}
+MASKED = {"cuda": 0, "cpu": 0}
 
 
 class ExpandResult(NamedTuple):
@@ -91,6 +95,20 @@ def expand(indptr: torch.Tensor, indices: torch.Tensor, rows: torch.Tensor,
     out = torch.where(ok, gathered, int(sentinel(indices.dtype)))
     seg_out = torch.where(ok, seg_c.to(torch.int32), -1)
     return ExpandResult(out, seg_out, counts, total)
+
+
+def expand_masked(indptr: torch.Tensor, indices: torch.Tensor,
+                  rows: torch.Tensor, patched: torch.Tensor,
+                  out_cap: int) -> ExpandResult:
+    """Base-side half of a delta-overlay merge-on-read: expand the frontier
+    over the unchanged base tensors with the overlay-patched slots
+    (patched: bool per slot) masked to the sentinel — their rows come from
+    the overlay's host replacement rows, which the caller splices into the
+    uidMatrix. The base tensors are never rebuilt or re-uploaded."""
+    MASKED[rows.device.type] = MASKED.get(rows.device.type, 0) + 1
+    snt = int(sentinel(rows.dtype))
+    rows = torch.where(patched.to(rows.device), snt, rows)
+    return expand(indptr, indices, rows, out_cap)
 
 
 def expand_dest(indptr: torch.Tensor, indices: torch.Tensor,

@@ -13,7 +13,9 @@ password. Lossy tokenizers re-check candidates against stored values
 
 The per-uid pointer walk is one batched CSR gather (ops/csr.expand) over the
 predicate's device adjacency, or a host-mirror gather below HOST_EXPAND_MAX
-edges. Index functions pick token rows on the host (the term table is
+edges; over a delta overlay (storage/delta.OverlayCSR) the base's rows
+come from the same two paths (ops/csr.expand_masked on the device) and the
+overlay's replacement rows are spliced in. Index functions pick token rows on the host (the term table is
 small) and union the rows' uid lists on the host below HOST_EXPAND_MAX
 uids, on the snapshot's device above it (ops/csr.expand_dest). Numeric
 compares read the float64 host mirror (num_values_host), as the JAX package
@@ -35,7 +37,7 @@ from dgraph_tpu_torch.ops import csr as csrops
 from dgraph_tpu_torch.ops import uidset as us
 from dgraph_tpu_torch.storage.csr_build import (GraphSnapshot, PredCSR,
                                                 PredData, TokenIndex)
-from dgraph_tpu_torch.storage.delta import (csr_subjects_degrees,
+from dgraph_tpu_torch.storage.delta import (OverlayCSR, csr_subjects_degrees,
                                             csr_subjects_host)
 from dgraph_tpu_torch.utils import geo as geomod
 from dgraph_tpu_torch.utils import tok as tokmod
@@ -99,13 +101,50 @@ def _gather_rows_host(indptr_h: np.ndarray, indices_h: np.ndarray,
     return indices_h[pos].astype(np.int64)
 
 
+def _expand_overlay(ov, uids: np.ndarray) -> tuple[list[np.ndarray], int]:
+    """Merge-on-read expand over an OverlayCSR (storage/delta.py): gather
+    the untouched rows from the unchanged base (host mirror at or below
+    HOST_EXPAND_MAX edges, ops/csr.expand_masked on the base's device
+    tensors above it) and splice the overlay's replacement rows per
+    frontier slot — O(frontier + Δ), never a merge of the tablet. The base
+    tensors keep identity: a commit costs its delta, not a re-upload."""
+    rb, ro, deg_b, deg_o = ov.frontier_plan(uids)
+    need_base = int(deg_b.sum())
+    total = need_base + int(deg_o.sum())
+    offs = np.zeros(len(uids) + 1, dtype=np.int64)
+    np.cumsum(deg_b, out=offs[1:])
+    base = ov.base
+    if base is None or need_base == 0:
+        base_targets = np.zeros(0, np.int64)
+    elif need_base <= HOST_EXPAND_MAX:
+        _, indptr_h, indices_h = base.host_arrays()
+        base_targets = _gather_rows_host(indptr_h, indices_h, rb, deg_b,
+                                         offs)
+    else:
+        cap = 1 << max(int(np.ceil(np.log2(need_base + 1))), 4)
+        res = csrops.expand_masked(
+            base.indptr, base.indices,
+            torch.from_numpy(rb).to(base.device),
+            torch.from_numpy(ro >= 0).to(base.device), out_cap=cap)
+        base_targets = res.targets[:need_base].cpu().numpy().astype(
+            np.int64)
+    matrix = [base_targets[offs[i]: offs[i + 1]] for i in range(len(uids))]
+    for i in np.flatnonzero(ro >= 0).tolist():
+        matrix[i] = ov.delta.rows[ro[i]]
+    return matrix, total
+
+
 def _expand_csr(csr: PredCSR, uids: np.ndarray,
                 first: int = 0) -> tuple[list[np.ndarray], int]:
     """uidMatrix for a frontier over one adjacency: exact degree sum counted
     on the host indptr mirror, then the host gather (small) or one device
-    gather at a pow2 capacity class (large); both give the same matrix."""
+    gather at a pow2 capacity class (large); both give the same matrix. An
+    overlaid adjacency (OverlayCSR) merges on read (_expand_overlay)."""
     if len(uids) == 0 or csr is None:
         return [np.zeros(0, np.int64) for _ in range(len(uids))], 0
+    if isinstance(csr, OverlayCSR):
+        matrix, total = _expand_overlay(csr, uids)
+        return apply_first(matrix, first), total
     rows = rows_for_uids(csr, uids)
     _, indptr_h, indices_h = csr.host_arrays()
     rc = np.clip(rows, 0, max(len(indptr_h) - 2, 0))

@@ -1,7 +1,7 @@
 """Value type system: scalar types, conversion matrix, comparison.
 
-Copy of dgraph_tpu/utils/types.py for the PyTorch port, without the
-unmarshal half of the binary codec (the storage slice brings it).
+Copy of dgraph_tpu/utils/types.py for the PyTorch port.
+
 Reference semantics: types/ — 10 scalar types (types/scalar_types.go:35-44),
 the conversion matrix (types/conversion.go), ordering (types/compare.go,
 types/sort.go). Geo is lat/lng points + geohash cells (utils/geo.py).
@@ -305,8 +305,9 @@ def verify_password(pw: str, stored: str) -> bool:
 
 
 # ---------------------------------------------------------------------------
-# Binary marshaling (reference: types binary Marshal); list-value postings
-# are keyed by a fingerprint of it (storage/postings.py)
+# Binary marshaling for the persistent store (reference: types binary
+# Marshal); list-value postings are keyed by a fingerprint of it
+# (storage/postings.py), and the WAL and checkpoint carry it
 # ---------------------------------------------------------------------------
 
 def marshal(v: Val) -> bytes:
@@ -333,3 +334,28 @@ def marshal(v: Val) -> bytes:
         xs = v.value
         return struct.pack(f"<{len(xs)}f", *xs)
     raise ValueError(f"cannot marshal {v!r}")
+
+
+def unmarshal(tid: TypeID, b: bytes) -> Val:
+    if tid in (TypeID.STRING, TypeID.DEFAULT, TypeID.PASSWORD):
+        return Val(tid, b.decode("utf-8"))
+    if tid == TypeID.BINARY:
+        return Val(tid, b)
+    if tid == TypeID.INT:
+        return Val(tid, struct.unpack("<q", b)[0])
+    if tid == TypeID.FLOAT:
+        return Val(tid, struct.unpack("<d", b)[0])
+    if tid == TypeID.BOOL:
+        return Val(tid, b == b"\x01")
+    if tid == TypeID.DATETIME:
+        return Val(tid, datetime.fromtimestamp(struct.unpack("<d", b)[0], tz=timezone.utc))
+    if tid == TypeID.GEO:
+        from dgraph_tpu_torch.utils import geo as geomod
+
+        return Val(tid, geomod.parse_geojson(b.decode("utf-8")))
+    if tid == TypeID.UID:
+        return Val(tid, struct.unpack("<Q", b)[0])
+    if tid == TypeID.VECTOR:
+        n = len(b) // 4
+        return Val(tid, tuple(float(x) for x in struct.unpack(f"<{n}f", b)))
+    raise ValueError(f"cannot unmarshal type {tid}")

@@ -406,10 +406,32 @@ q = ("{ var(func: ge(age, 3)) { a as age m as math(a * 2) } "
      "q(func: uid(m), orderdesc: val(m), first: 3) { uid age val(m) "
      "friend @filter(lt(age, 4)) { uid } } s() { n: sum(val(a)) } }")
 out["values"] = Executor(snap, schema).execute(dql.parse(q))
+from dgraph_tpu_torch.query import mutation, rdf
+from dgraph_tpu_torch.storage import delta, native
+from dgraph_tpu_torch.storage.csr_build import SnapshotAssembler
+from dgraph_tpu_torch.storage.postings import Op
+from dgraph_tpu_torch.storage.store import Store
+store = Store()
+for e in parse_schema("friend: [uid] @reverse .\nage: int @index(int) ."):
+    store.set_schema(e)
+asm = SnapshotAssembler(store, device="cpu")
+for ts, nq in ((2, '<0x1> <friend> <0x2> .\n<0x1> <age> "5"^^<xs:int> .'),
+               (4, '<0x1> <friend> <0x3> .')):
+    edges = mutation.to_edges(rdf.parse(nq), {}, Op.SET)
+    touched, _, _ = mutation.apply_mutations(store, edges, ts - 1)
+    store.commit(ts - 1, ts, touched)
+    asm.snapshot(ts).pred("friend")
+q = "{ q(func: uid(0x1)) { age friend { uid } } }"
+out["store"] = Executor(asm.snapshot(4), schema).execute(dql.parse(q))
+overlaid = isinstance(asm.snapshot(4).pred("friend").csr, delta.OverlayCSR)
+nat = native.available()
+libs = [ln.split()[-1] for ln in open("/proc/self/maps") if "libdgt" in ln]
 new = set(sys.modules) - before
 bad = sorted(m for m in new if m.split(".")[0] in ("jax", "jaxlib")
              or m == "dgraph_tpu" or m.startswith("dgraph_tpu."))
-print(json.dumps({"bad": bad, "levels": len(json.dumps(out))}))
+print(json.dumps({"bad": bad, "levels": len(json.dumps(out)),
+                  "store": out["store"], "overlaid": overlaid,
+                  "native": nat, "libs": sorted(set(libs))}))
 """
 
 
@@ -421,6 +443,14 @@ def test_port_never_imports_jax():
     res = json.loads(proc.stdout.strip().splitlines()[-1])
     assert res["bad"] == []
     assert res["levels"] > 20
+    # the write path: store, commit, an overlay stamp, a read of both writes
+    assert res["store"] == {"q": [{"age": 5, "friend": [{"uid": "0x2"},
+                                                       {"uid": "0x3"}]}]}
+    assert res["overlaid"]
+    # the port's own codec build, never the JAX package's native/libdgt.so
+    assert res["native"] and res["libs"]
+    for lib in res["libs"]:
+        assert Path(lib).parent == REPO / "build" / "dgraph_tpu_torch", lib
 
 
 def test_port_sources_import_no_jax():
