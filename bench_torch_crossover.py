@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Where dgraph_tpu_torch's device paths start to beat its host mirror.
 
-    python3 bench_torch_crossover.py      # needs one CUDA card
+    python3 bench_torch_crossover.py              # all sections
+    python3 bench_torch_crossover.py groupby      # section 4 alone
+    python3 bench_torch_crossover.py unique       # section 5 alone
 
-Four path choices in the port are made by edge count. Each picks a path
-and never an answer's value; this script times each side of them on the
-card:
+Seven path choices in the port are made by size. Each picks a path and
+never an answer's value; this script times each side of them on the card
+and its host (needs one CUDA card):
 
   1. recurse._kernel_min: a CSR of at least that many edges runs @recurse
      on the active-prefix kernels, a smaller one on the host mirror. For
@@ -31,6 +33,25 @@ card:
      HOST_SHORTEST_MAX_S. Every tier's `_weight_` must
      equal the host-BFS distance (on ties the tiers may pick different
      paths of that length).
+  4. groupby._HOST_AGG_MAX and segments._RANK_DEVICE_MIN: a @groupby whose
+     aggregated members pass the first reduces on the device
+     (segments.fused_group_reduce), a smaller one on the host (numpy
+     ufunc.at over host segment ids, as groupby._batch_aggregates does);
+     a uid-key groupby with at least the second many edges ranks them in
+     the key table on the device (segments.rank_in_table), fewer with
+     numpy's searchsorted. Members 2^12..2^22 over 100 and 10,000 groups
+     (integer values, the f32 rule holding), and lookups 2^12..2^22 into
+     tables of 2^10..2^20 sorted uids, run both ways; the results must
+     agree exactly.
+  5. engine._unique_uids: the known-uid set of a snapshot (engine.
+     _known_uids, merged once per snapshot that answers a uid(...) root)
+     is one scatter into a bitmap where the uids are dense (the largest
+     below UNIQUE_BITMAP_SPREAD times their count), np.unique (the JAX
+     package's code) elsewhere.
+     Host work on the card's host: both run on the uids that the scale-20
+     snapshot of chip_smoke.py phases 8 and 9 hands _known_uids (`friend`
+     and `~friend` subjects and objects, `age` subjects), and on 2^22
+     uids drawn below 1/16..64 times their count; the results must agree.
 
 Each line of output is one JSON object; times are host-clock milliseconds
 (torch.cuda.synchronize before each reading), the median and band of REPS
@@ -72,6 +93,91 @@ def timed(fn, sync) -> tuple[object, dict]:
     return out, band(ms)
 
 
+def groupby_section(dev, sync) -> None:
+    """Section 4: the two path choices of @groupby, host vs device."""
+    from dgraph_tpu_torch.ops import segments as segs
+    from dgraph_tpu_torch.query import groupby as gb
+
+    rng = np.random.default_rng(19)
+    for groups in (100, 10_000):
+        for k in range(12, 23, 2):
+            n = 1 << k
+            lens = np.bincount(rng.integers(0, groups, n), minlength=groups)
+            vals = rng.integers(0, 100, n).astype(np.float64)
+            vals[rng.random(n) < 0.1] = np.nan
+
+            def host():
+                seg = np.repeat(np.arange(groups, dtype=np.int32), lens)
+                hit = ~np.isnan(vals)
+                return gb._host_segment_reduce("sum", seg[hit], vals[hit],
+                                               groups)
+
+            def device():
+                return segs.fused_group_reduce(
+                    ("sum",), vals.astype(np.float32), lens, groups,
+                    device=dev)["sum"]
+
+            line = {"phase": "fused_group_reduce", "members": n,
+                    "groups": groups}
+            want, line["host_ms"] = timed(host, sync)
+            got, line["device_ms"] = timed(device, sync)
+            if not np.array_equal(got, want, equal_nan=True):
+                raise SystemExit(f"fused_group_reduce {n}/{groups}: the "
+                                 f"routes differ")
+            print(json.dumps(line), flush=True)
+    keep = segs._RANK_DEVICE_MIN
+    for t in range(10, 21, 2):
+        table = np.unique(rng.integers(1, 1 << 30, 1 << t))
+        for k in range(12, 23, 2):
+            values = table[rng.integers(0, len(table), 1 << k)]
+            values[::7] += 1                   # some lookups miss
+            line = {"phase": "rank_in_table", "lookups": 1 << k,
+                    "table": int(len(table))}
+            got = {}
+            for path, cut in (("host", 1 << 62), ("device", 0)):
+                segs._RANK_DEVICE_MIN = cut
+                try:
+                    got[path], line[f"{path}_ms"] = timed(
+                        lambda: segs.rank_in_table(table, values,
+                                                   device=dev), sync)
+                finally:
+                    segs._RANK_DEVICE_MIN = keep
+            if not all(np.array_equal(a, b) for a, b in
+                       zip(got["host"], got["device"])):
+                raise SystemExit(f"rank_in_table {1 << k}/{1 << t}: the "
+                                 f"routes differ")
+            print(json.dumps(line), flush=True)
+
+
+def unique_section() -> None:
+    """Section 5: the known-uid merge, bitmap vs np.unique (host only)."""
+    from dgraph_tpu_torch.models.rmat import rmat_csr
+    from dgraph_tpu_torch.query import engine as eng
+
+    subjects, indptr, indices = rmat_csr(20, EDGE_FACTOR, seed=SEED)
+    cases = {"headline": np.concatenate([
+        subjects, indices,                               # friend
+        np.unique(indices), np.repeat(subjects, np.diff(indptr)),  # ~friend
+        np.arange(1, (1 << 20) + 1, dtype=np.int64)])}   # age
+    rng = np.random.default_rng(23)
+    for spread in (1 / 16, 1 / 4, 1, 2, 4, 8, 16, 64):
+        cases[f"spread_{spread:g}"] = rng.integers(
+            0, int(spread * (1 << 22)), 1 << 22).astype(np.int64)
+    for label, uids in cases.items():
+        line = {"phase": "unique_uids", "case": label, "n": int(len(uids)),
+                "max_over_n": float(uids.max() / len(uids)),
+                "bitmap": bool(uids.max() < eng.UNIQUE_BITMAP_SPREAD
+                               * len(uids))}
+        want, line["np_unique_ms"] = timed(lambda: np.unique(uids),
+                                           lambda: None)
+        got, line["unique_uids_ms"] = timed(lambda: eng._unique_uids(uids),
+                                            lambda: None)
+        if not np.array_equal(got, want):
+            raise SystemExit(f"unique_uids {label}: the paths differ")
+        line["distinct"] = int(len(want))
+        print(json.dumps(line), flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -97,6 +203,12 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()[0], flush=True)
+    if sys.argv[1:] == ["groupby"]:
+        groupby_section(dev, sync)
+        return 0
+    if sys.argv[1:] == ["unique"]:
+        unique_section()
+        return 0
     schema = SchemaState()
     for e in parse_schema("friend: [uid] ."):
         schema.set(e)
@@ -234,6 +346,12 @@ def main() -> int:
                 raise SystemExit(f"scale {scale}: {tier} tier _weight_ "
                                  f"{weight} != host BFS {hd[far]}")
         print(json.dumps(line), flush=True)
+
+    # ---- 4. @groupby: device reduce and rank search vs the host ------------
+    groupby_section(dev, sync)
+
+    # ---- 5. the known-uid merge: bitmap vs np.unique, by density ----------
+    unique_section()
     return 0
 
 

@@ -64,8 +64,25 @@ it:
      or to numpy after the same edits, and finally compacts the overlays
      (a from-scratch fold of each predicate at the last commit): the
      stamped CSRs and values equal the fold's and every request gives the
-     same JSON over it;
-  9. prints the card line, a {"kernels": [...]} line and the final
+     same JSON over it; the store lives in a temporary directory and is
+     checkpointed at its last commit;
+  7b. (between 7 and 8, over phase 7's snapshot) sends two @groupby
+     requests through Executor.execute: (a) phase 8's expand frontier (the
+     seeds and the largest rows, 146 uids) grouped by `friend` (one group
+     per distinct target) and (b) every node grouped by `age`, each with
+     count(uid) and aggregates of a value variable of ages <= 31 (the f32
+     rule holds). Each runs the device
+     route (ops/segments' fused reduce; for (a) also the device rank
+     search), asserted by counters read around it, is byte-identical to
+     the host route and equal to numpy, and is timed (p50 of 5 runs);
+  9. serves through the port's Node on the card: the golden battery via
+     alter -> mutate -> query, equal to tests/golden/expected.json, with an
+     upsert and a conflicting transaction pair; then a Node opened over
+     phase 8's checkpoint answers phase 5's one-uid @recurse (K1 or K2
+     launched) and request (a), each byte-identical to phase 8's JSON over
+     its compaction, and reads back SERVE_TXNS of its own transactions
+     (commit-to-visible through the Node);
+  10. prints the card line, a {"kernels": [...]} line and the final
      {"ok": true, "device": {...}} line.
 Any mismatch raises and the script exits non-zero. It never imports jax or
 the JAX package.
@@ -78,6 +95,7 @@ import json
 import pstats
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -110,6 +128,19 @@ COMMITS, COMMIT_POOL = 64, 32
 # the overlay expand adds the largest rows to the seeds until the base side
 # alone passes this many edges (past task.HOST_EXPAND_MAX: the device gather)
 EXPAND_EDGES = 300_000
+# phase 7b: @groupby over phase 8's expand frontier (a uid key) and over
+# every age (a value key), each aggregating a value variable of ages <= GROUPBY_AGE_MAX
+# so the f32 rule holds (all ints, |sum| < 2**24)
+GROUPBY_AGE_MAX = 31
+GROUPBY_UID = ("{ var(func: uid(%s)) @filter(le(age, %d)) { a as age } "
+               "q(func: uid(%s)) @groupby(friend) { count(uid) "
+               "s: sum(val(a)) lo: min(val(a)) hi: max(val(a)) } }")
+GROUPBY_VALUE = ("{ var(func: has(age)) @filter(le(age, %d)) { b as age } "
+                 "q(func: has(age)) @groupby(age) { count(uid) "
+                 "s: sum(val(b)) lo: min(val(b)) hi: max(val(b)) "
+                 "mean: avg(val(b)) } }" % GROUPBY_AGE_MAX)
+# phase 9: read-your-writes transactions through the Node
+SERVE_TXNS = 8
 
 
 def host_3hop(subjects, indptr, indices, seeds, hops=3):
@@ -187,6 +218,88 @@ def path_uids(node, attr):
         out.append(int(node["uid"], 16))
         node = node[attr][0] if attr in node else None
     return out
+
+
+def widened(subjects, indptr, seeds, edges=EXPAND_EDGES):
+    """`seeds` plus the subjects of the largest rows, largest first, until
+    those rows pass `edges` edges: phase 8's expand frontier and phase 7b's
+    uid set (146 uids at the headline scale)."""
+    deg = np.diff(indptr)
+    big = np.argsort(-deg, kind="stable")
+    big = big[: int(np.searchsorted(np.cumsum(deg[big]), edges)) + 1]
+    return np.union1d(seeds, subjects[big]).astype(np.int64)
+
+
+def groupby_uid_text(uids) -> str:
+    s = ", ".join(hex(int(u)) for u in uids)
+    return GROUPBY_UID % (s, GROUPBY_AGE_MAX, s)
+
+
+def groupby_uid_numpy(csr, age, uids) -> list[dict]:
+    """Phase 7b request (a) in numpy: one row per distinct `friend` target
+    of `uids`, its member count and the sum/min/max of the members' ages
+    <= GROUPBY_AGE_MAX (omitted where no member has one), rows ordered as
+    the engine orders groups (by the repr of the key tuple)."""
+    subjects, indptr, indices = csr
+    pos = np.searchsorted(subjects, uids)
+    lens = indptr[pos + 1] - indptr[pos]
+    member = np.repeat(uids, lens)
+    target = np.concatenate([indices[indptr[p]: indptr[p + 1]]
+                             for p in pos]).astype(np.int64)
+    order = np.lexsort((member, target))
+    member, target = member[order], target[order]
+    fresh = np.ones(len(target), dtype=bool)     # one pair per (target, member)
+    fresh[1:] = (target[1:] != target[:-1]) | (member[1:] != member[:-1])
+    member, target = member[fresh], target[fresh]
+    keys, starts = np.unique(target, return_index=True)
+    a = age[member - 1].astype(np.int64)
+    ok = a <= GROUPBY_AGE_MAX
+    n_ok = np.add.reduceat(ok.astype(np.int64), starts)
+    s = np.add.reduceat(np.where(ok, a, 0), starts)
+    lo = np.minimum.reduceat(np.where(ok, a, 1 << 40), starts)
+    hi = np.maximum.reduceat(np.where(ok, a, -1), starts)
+    counts = np.diff(np.append(starts, len(target)))
+    rows = []
+    for i, k in enumerate(keys.tolist()):
+        row = {"friend": hex(k), "count": int(counts[i])}
+        if n_ok[i]:
+            row.update(s=int(s[i]), lo=int(lo[i]), hi=int(hi[i]))
+        rows.append(row)
+    rows.sort(key=lambda r: repr((r["friend"],)))
+    return rows
+
+
+def groupby_value_numpy(age) -> list[dict]:
+    """Phase 7b request (b) in numpy: one row per distinct age with its
+    node count, and for ages <= GROUPBY_AGE_MAX the four aggregates."""
+    vals, counts = np.unique(age, return_counts=True)
+    rows = []
+    for v, c in zip(vals.tolist(), counts.tolist()):
+        row = {"age": v, "count": c}
+        if v <= GROUPBY_AGE_MAX:
+            row.update(s=v * c, lo=v, hi=v, mean=float(v))
+        rows.append(row)
+    rows.sort(key=lambda r: repr((r["age"],)))
+    return rows
+
+
+def golden_battery():
+    """(SCHEMA, N-Quads, QUERIES, expected answers) of the repo's golden
+    battery: tests/test_golden.py's definitions are read with ast (that
+    file imports the JAX package) and tests/golden/expected.json."""
+    import ast
+    import os
+
+    path = Path(__file__).resolve().parent / "tests" / "test_golden.py"
+    tree = ast.parse(path.read_text())
+    body = [n for n in tree.body if isinstance(n, (ast.Assign, ast.AnnAssign))
+            or (isinstance(n, ast.FunctionDef) and n.name == "_dataset")]
+    ns = {"os": os, "__file__": str(path)}
+    exec(compile(ast.Module(body=body, type_ignores=[]), str(path), "exec"),
+         ns)
+    expected = json.loads((path.parent / "golden" / "expected.json")
+                          .read_text())
+    return ns["SCHEMA"], ns["_dataset"](), ns["QUERIES"], expected
 
 
 def band(samples):
@@ -616,18 +729,37 @@ def main() -> int:
     say("values_phase", seconds=time.perf_counter() - t0,
         script_seconds=time.perf_counter() - t_start)
 
-    # ---- 8. the Store, commits and overlays ---------------------------------
+    # ---- 7b. @groupby: a uid key and a value key on the device route -------
     t0 = time.perf_counter()
-    storage_launches = storage_phase(
-        snap, schema, (subjects, indptr, indices), (rsub, rptr, ridx), seeds,
-        expand_seeds, shapes["loop_recurse"][0].replace(", loop: true", ""),
-        1 << SCALE, dev)
-    for name, n in storage_launches.items():
-        kernels[name]["launches_storage"] = n
-    say("storage_phase", seconds=time.perf_counter() - t0,
+    wide = widened(subjects, indptr, expand_seeds)
+    groupby_phase(snap, schema, (subjects, indptr, indices), wide)
+    say("groupby_phase", seconds=time.perf_counter() - t0,
         script_seconds=time.perf_counter() - t_start)
 
-    # ---- 9. summary lines --------------------------------------------------
+    # ---- 8. the Store, commits and overlays ---------------------------------
+    json_recurse = shapes["loop_recurse"][0].replace(", loop: true", "")
+    with tempfile.TemporaryDirectory(prefix="dgt-ckpt-") as ckpt_dir:
+        t0 = time.perf_counter()
+        storage_launches, served = storage_phase(
+            snap, schema, (subjects, indptr, indices), (rsub, rptr, ridx),
+            seeds, expand_seeds, wide, json_recurse, 1 << SCALE,
+            ckpt_dir, dev)
+        for name, n in storage_launches.items():
+            kernels[name]["launches_storage"] = n
+        torch.cuda.empty_cache()
+        say("storage_phase", seconds=time.perf_counter() - t0,
+            script_seconds=time.perf_counter() - t_start)
+
+        # ---- 9. serving through the Node ------------------------------------
+        t0 = time.perf_counter()
+        serve_launches = serve_phase(ckpt_dir, served, wide, json_recurse,
+                                     1 << SCALE, dev)
+        for name, n in serve_launches.items():
+            kernels[name]["launches_serve"] = n
+        say("serve_phase", seconds=time.perf_counter() - t0,
+            script_seconds=time.perf_counter() - t_start)
+
+    # ---- 10. summary lines -------------------------------------------------
     kern_line = {"kernels": [
         {k: v for k, v in kernels[n].items() if k not in ("e_pad", "stream")}
         for n in ("active_prefix", "active_prefix_sparse")]}
@@ -1010,16 +1142,90 @@ def values_phase(snap, schema, csr, seeds, dev) -> dict:
 
 
 
-def storage_phase(snap4, schema4, csr, rev, seeds, expand_seeds, json_recurse,
-                  n_ids, dev) -> dict:
+def groupby_phase(snap, schema, csr, wide) -> None:
+    """Phase 7b over phase 7's snapshot: request (a), a uid key over the
+    widened uid set `wide`, and request (b), a value key over every node id, each
+    through Executor.execute with the device route (the fused segmented
+    reduce, and for (a) the device rank search) asserted by counters read
+    around it, byte-identical to the host route and equal to numpy."""
+    import torch
+
+    from dgraph_tpu_torch.ops import segments as segs
+    from dgraph_tpu_torch.query import dql
+    from dgraph_tpu_torch.query import engine as eng
+    from dgraph_tpu_torch.query import groupby as gb
+    from dgraph_tpu_torch.utils.metrics import Registry
+
+    sync = torch.cuda.synchronize
+    age = snap.pred("age").num_values_host.astype(np.int64)   # uid - 1
+    snap.metrics = Registry()
+    reduces = snap.metrics.counter("dgraph_agg_device_reduces_total")
+
+    def execute(text):
+        return json.dumps(eng.Executor(snap, schema).execute(dql.parse(text)))
+
+    def on_host_route(text):
+        kept = gb._HOST_AGG_MAX, segs._RANK_DEVICE_MIN
+        gb._HOST_AGG_MAX = segs._RANK_DEVICE_MIN = 1 << 62
+        try:
+            return execute(text)
+        finally:
+            gb._HOST_AGG_MAX, segs._RANK_DEVICE_MIN = kept
+
+    edges = int(sum(np.diff(csr[1])[np.searchsorted(csr[0], wide)]))
+    requests = {
+        "groupby_uid": (groupby_uid_text(wide),
+                        groupby_uid_numpy(csr, age, wide), True),
+        "groupby_value": (GROUPBY_VALUE, groupby_value_numpy(age), False)}
+    for name, (text, want, ranks) in requests.items():
+        before = reduces.value, segs.REDUCES["cuda"], segs.RANKS["cuda"]
+        t0 = time.perf_counter()
+        got = execute(text)
+        sync()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        ran = {"agg_device_reduces": reduces.value - before[0],
+               "segment_reduces_cuda": segs.REDUCES["cuda"] - before[1],
+               "rank_searches_cuda": segs.RANKS["cuda"] - before[2]}
+        if ran["agg_device_reduces"] == 0 or ran["segment_reduces_cuda"] == 0:
+            raise SystemExit(f"{name}: the device reduce did not run: {ran}")
+        if ranks and ran["rank_searches_cuda"] == 0:
+            raise SystemExit(f"{name}: the device rank search did not run")
+        if on_host_route(text) != got:
+            raise SystemExit(f"{name}: JSON differs from the host route")
+        rows = json.loads(got)["q"][0]["@groupby"]
+        if rows != want:
+            raise SystemExit(f"{name}: {len(rows)} groups differ from numpy "
+                             f"({len(want)} groups)")
+        ms = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            execute(text)
+            sync()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        line = {"request": name, "groups": len(rows), "json_bytes": len(got),
+                "first_ms": first_ms, "ms": band(ms), **ran}
+        if name == "groupby_uid":
+            line.update(uids=int(len(wide)), edges=edges,
+                        profile=profile_query(lambda: execute(text)))
+        else:
+            line["members"] = int(len(age))
+        say("groupby_request", **line)
+    snap.metrics = None
+
+
+def storage_phase(snap4, schema4, csr, rev, seeds, expand_seeds, wide,
+                  json_recurse, n_ids, ckpt_dir, dev) -> tuple[dict, dict]:
     """Phase 8: the headline graph (with its REVERSE keys) and `age` on
-    every node id loaded into the port's Store through bulk_install, folded,
-    read through a SnapshotAssembler, written to by a seeded program of
-    COMMITS transactions (one more aborted) and read again through the
-    delta overlays, then compacted. snap4/schema4 are phase 4's carried
-    snapshot (with phase 7's `age`, the same data); json_recurse is a
-    one-uid @recurse(depth: 3) whose JSON fits JSON_MAX_BYTES. Returns the
-    K1/K2 launches of the two counted 128-seed @recurse runs."""
+    every node id loaded into the port's Store (a directory, ckpt_dir)
+    through bulk_install, folded, read through a SnapshotAssembler, written
+    to by a seeded program of COMMITS transactions (one more aborted) and
+    read again through the delta overlays, then compacted and checkpointed
+    at the last commit. snap4/schema4 are phase 4's carried snapshot (with
+    phase 7's `age`, the same data); json_recurse is a one-uid
+    @recurse(depth: 3) whose JSON fits JSON_MAX_BYTES; wide is the expand
+    frontier and phase 7b's uid set. Returns the K1/K2 launches of the two counted 128-seed
+    @recurse runs, and the JSON of json_recurse and of phase 7b's request
+    (a) over the compaction, which phase 9 serves from the checkpoint."""
     import threading
 
     import torch
@@ -1052,7 +1258,7 @@ def storage_phase(snap4, schema4, csr, rev, seeds, expand_seeds, json_recurse,
     # ---- load: bulk_install of packed lists, as loader/bulk.py's reduce ---
     if not native.available():
         fail("load", "the native codec did not build")
-    store = Store()
+    store = Store(ckpt_dir)
     for e in parse_schema(STORE_SCHEMA):
         store.set_schema(e)
     schema = store.schema
@@ -1300,14 +1506,14 @@ def storage_phase(snap4, schema4, csr, rev, seeds, expand_seeds, json_recurse,
     t_step = time.perf_counter()
     # phase 5's expand from the seeds, widened by the largest rows until the
     # base side alone passes EXPAND_EDGES, with the overlay's rows spliced in
-    deg = np.diff(indptr)
-    big = np.argsort(-deg, kind="stable")
-    big = big[: int(np.searchsorted(np.cumsum(deg[big]), EXPAND_EDGES)) + 1]
-    frontier = np.union1d(expand_seeds, subjects[big])
+    frontier = wide
     ex_q = "{ q(func: uid(%s)) { uid friend { uid } } }" % ", ".join(
         hex(int(u)) for u in frontier)
     m0 = csrops.MASKED[dev.type]
+    t0 = time.perf_counter()
     ex_json = execute(last, ex_q)
+    sync()
+    ex_ms = (time.perf_counter() - t0) * 1e3
     masked = csrops.MASKED[dev.type] - m0
     if masked == 0:
         fail("overlay_expand", f"expand_masked did not run on {dev.type}")
@@ -1327,7 +1533,7 @@ def storage_phase(snap4, schema4, csr, rev, seeds, expand_seeds, json_recurse,
     say("storage_request", request="overlay_expand", expand_masked=masked,
         frontier=int(len(frontier)),
         edges=int(sum(len(r) for r in want.values())),
-        json_bytes=len(ex_json), ms=p50(lambda: execute(last, ex_q)),
+        json_bytes=len(ex_json), first_ms=ex_ms,
         step_seconds=time.perf_counter() - t_step)
 
     # the merged host CSR is built already: the first uid(...) root over
@@ -1349,7 +1555,10 @@ def storage_phase(snap4, schema4, csr, rev, seeds, expand_seeds, json_recurse,
     t_step = time.perf_counter()
     ix_q = "{ q(func: ge(age, 90), orderasc: age, first: 100) { uid age } }"
     u0 = csrops.UNIONS[dev.type]
+    t0 = time.perf_counter()
     ix_json = execute(last, ix_q)
+    sync()
+    ix_ms = (time.perf_counter() - t0) * 1e3
     unions = csrops.UNIONS[dev.type] - u0
     if unions == 0:
         fail("overlay_index", f"no union ran on {dev.type}")
@@ -1362,7 +1571,7 @@ def storage_phase(snap4, schema4, csr, rev, seeds, expand_seeds, json_recurse,
             != [(int(u), int(ages[u - 1])) for u in top]:
         fail("overlay_index", "first 100 by age differ from numpy")
     say("storage_request", request="overlay_index", device_unions=unions,
-        root_uids=int(len(want)), ms=p50(lambda: execute(last, ix_q)),
+        root_uids=int(len(want)), first_ms=ix_ms,
         profile=profile_query(lambda: execute(last, ix_q)),
         step_seconds=time.perf_counter() - t_step)
 
@@ -1394,10 +1603,147 @@ def storage_phase(snap4, schema4, csr, rev, seeds, expand_seeds, json_recurse,
                                   ("overlay_index", ix_q, ix_json)):
         if execute(post, text) != want_json:
             fail(what, "JSON differs from a from-scratch fold")
+    # phase 7b's request (a) over the compaction, for phase 9 to serve
+    t0 = time.perf_counter()
+    gb_json = execute(post, groupby_uid_text(wide))
+    gb_s = time.perf_counter() - t0
     say("storage_compact", compacted=done, seconds=compact_s,
+        groupby_uid_seconds=gb_s, groupby_uid_json_bytes=len(gb_json),
+        step_seconds=time.perf_counter() - t_step)
+
+    # ---- checkpoint at the last commit, for phase 9's Node ---------------
+    t_step = time.perf_counter()
+    store.checkpoint(last_ts)
+    store.close()
+    say("storage_checkpoint", ts=last_ts,
+        rows=store.last_checkpoint_stats["rows"],
+        peak_transient_bytes=store.last_checkpoint_stats[
+            "peak_transient_bytes"],
+        bytes=sum(f.stat().st_size for f in Path(ckpt_dir).iterdir()),
         step_seconds=time.perf_counter() - t_step,
         phase_seconds=time.perf_counter() - t_phase)
-    return {k: l_store[k] + l_ov[k] for k in l_store}
+    return ({k: l_store[k] + l_ov[k] for k in l_store},
+            {"recurse": rec_json, "groupby_uid": gb_json})
+
+
+def serve_phase(ckpt_dir, expected, wide, json_recurse, n_ids, dev) -> dict:
+    """Phase 9: serving through the port's Node on the card. The golden
+    battery through alter -> mutate -> query (every answer equal to
+    tests/golden/expected.json), an upsert and a conflicting pair; then a
+    Node opened over phase 8's checkpoint serves phase 5's one-uid
+    @recurse (K1 or K2 launched) and phase 7b's request (a), each
+    byte-identical to phase 8's JSON over its compaction, and reads back
+    SERVE_TXNS transactions of its own (commit-to-visible). Returns the
+    K1/K2 launches of the @recurse request."""
+    import torch
+
+    from dgraph_tpu_torch.api.server import Node
+    from dgraph_tpu_torch.coord.zero import TxnConflict
+    from dgraph_tpu_torch.ops import prefix as px
+    from dgraph_tpu_torch.query import dql
+
+    sync = torch.cuda.synchronize
+    t_phase = time.perf_counter()
+
+    def fail(what, msg):
+        raise SystemExit(f"serve {what}: {msg}")
+
+    def timed_query(node, text):
+        t0 = time.perf_counter()
+        out = json.dumps(node.query(text)[0])
+        sync()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    # ---- the golden battery, an upsert and a conflicting pair -------------
+    t_step = time.perf_counter()
+    schema_text, nquads, queries, want = golden_battery()
+    node = Node(device=dev)
+    try:
+        node.alter(schema_text=schema_text)
+        node.mutate(set_nquads=nquads, commit_now=True)
+        for name, q in queries:
+            got = json.loads(json.dumps(node.query(q)[0], default=str))
+            if got != want[name]:
+                fail("golden", f"{name} differs from expected.json")
+        if sorted(n for n, _ in queries) != sorted(want):
+            fail("golden", "the battery and expected.json name other queries")
+        up = dql.parse('upsert { query { v as var(func: eq(email, '
+                       '"new@films.io")) } mutation @if(eq(len(v), 0)) '
+                       '{ set { _:n <email> "new@films.io" . _:n <name> '
+                       '"newcomer" . } } }').upsert
+        made = [node.upsert(up["query"], up["mutations"],
+                            commit_now=True)[1] for _ in range(2)]
+        if len(made[0]) != 1 or made[1]:
+            fail("upsert", f"assigned {made}, want one uid then none")
+        if node.query('{ q(func: eq(email, "new@films.io")) { name } }')[0] \
+                != {"q": [{"name": "newcomer"}]}:
+            fail("upsert", "the inserted node does not read back")
+        t1, t2 = node.new_txn(), node.new_txn()
+        for t, mail in ((t1, "one"), (t2, "two")):
+            node.mutate(set_nquads=f'<0x1000> <email> "{mail}@films.io" .',
+                        start_ts=t.start_ts)
+        node.commit(t1.start_ts)
+        try:
+            node.commit(t2.start_ts)
+            fail("conflict", "the second committer was not refused")
+        except TxnConflict:
+            pass
+        if node.query('{ q(func: uid(0x1000)) { email } }')[0] != \
+                {"q": [{"email": "one@films.io"}]}:
+            fail("conflict", "the first committer's write is not visible")
+    finally:
+        node.close()
+    say("serve_golden", queries=len(queries),
+        step_seconds=time.perf_counter() - t_step)
+
+    # ---- the headline graph from phase 8's checkpoint ----------------------
+    t0 = time.perf_counter()
+    node = Node(dirpath=ckpt_dir, device=dev)
+    open_s = time.perf_counter() - t0
+    try:
+        px.reset_launches()
+        rec_json, first_ms = timed_query(node, json_recurse)
+        launches = dict(px.LAUNCHES)
+        if rec_json != expected["recurse"]:
+            fail("recurse", "JSON differs from phase 8's compaction")
+        if not any(launches.values()):
+            fail("recurse", f"launched neither K1 nor K2: {launches}")
+        gb_json, gb_first_ms = timed_query(node, groupby_uid_text(wide))
+        if gb_json != expected["groupby_uid"]:
+            fail("groupby_uid", "JSON differs from phase 8's compaction")
+
+        # read-your-writes: SERVE_TXNS commits, each probed right after
+        rng = np.random.default_rng(17)
+        probe = "{ q(func: uid(%s)) { age friend { uid } } }"
+        visible = []
+        for _ in range(SERVE_TXNS):
+            u = int(rng.choice(wide))
+            objs = rng.choice(np.arange(1, n_ids + 1), 4, replace=False)
+            a = int(rng.integers(0, 100))
+            nq = "\n".join([f"<{hex(u)}> <friend> <{hex(int(o))}> ."
+                            for o in objs]
+                           + [f'<{hex(u)}> <age> "{a}"^^<xs:int> .'])
+            t0 = time.perf_counter()
+            node.mutate(set_nquads=nq, commit_now=True)
+            got = node.query(probe % hex(u))[0]["q"][0]
+            sync()
+            visible.append((time.perf_counter() - t0) * 1e3)
+            seen = {int(o["uid"], 16) for o in got.get("friend", [])}
+            if got.get("age") != a or not {int(o) for o in objs} <= seen:
+                fail("read_your_writes", f"the writes to {hex(u)} do not "
+                                         f"read back")
+        say("serve", open_seconds=open_s, first_query_ms=first_ms,
+            groupby_uid_first_ms=gb_first_ms,
+            commit_to_visible_ms=band(visible), txns=SERVE_TXNS,
+            launches=launches,
+            recurse_json_bytes=len(rec_json),
+            groupby_uid_json_bytes=len(gb_json),
+            first_query_since_open_ms=node.metrics.counter(
+                "dgraph_first_query_ms").value,
+            phase_seconds=time.perf_counter() - t_phase)
+    finally:
+        node.close()
+    return launches
 
 
 def profile_query(run) -> dict:

@@ -1,0 +1,1131 @@
+"""The embedded server node: Query / Mutate / Alter / CommitOrAbort.
+
+Reference semantics: edgraph/server.go — Query (:373), Mutate (:267), Alter
+(:213), CommitOrAbort (:462); parseMutationObject (:528). The reference runs
+this behind gRPC with a separate Zero process; here the node embeds its Zero
+(coord/zero.py) in-process — the same embedded single-process cluster mode
+the reference's own tests use (query/query_test.go TestMain, SURVEY.md §4).
+
+Read path: a query leases a read_ts from the oracle and executes against an
+immutable GraphSnapshot (storage/csr_build.py) — the TPU-first stance: the
+device only ever sees committed snapshot CSRs; MVCC stays host-side.
+Snapshots are cached per effective read_ts (bounded LRU), so repeated reads
+between commits reuse the same device arrays.
+
+Write path: Mutate buffers edges under start_ts (uncommitted posting layers
++ index/reverse/count maintenance), the oracle tracks conflict-key
+fingerprints, and commit runs the SSI check, assigns commit_ts, and promotes
+the layers — first-committer-wins snapshot isolation
+(dgraph/cmd/zero/oracle.go:71-83).
+
+Port of dgraph_tpu/api/server.py. The port's Node adds one argument,
+`device` (default "cuda", which raises without CUDA): every snapshot it
+assembles lives there. The seams that wait for later slices are OFF by
+default, and the argument or method that would turn one on raises
+NotImplementedError naming its slice:
+
+  * residency and devprof: `device_budget_mb > 0`, `residency_pin`,
+    `devprof=True`, `set_memory_budget`, `enforce_memory`, `set_devprof`;
+  * planner and batching: `planner=True` (and `query(explain=True)`),
+    `batching=True`;
+  * vector: `vector_nprobe`, `vector_centroids >= 0`, `vector_ivf_min_rows`;
+  * wire: `subscribe` (the LiveManager; `live_*` are read by that slice);
+  * mesh: `mesh_devices != 0`, `analytics` (the per-tablet load book of
+    coord/placement.py waits there too).
+
+So `planner`, `batching` and `devprof` default to False here where the JAX
+Node defaults them to True. The answers are the same either way: the
+planner and the batcher change order and dispatch, never output.
+`memory_mb` (the paged store) works as in the JAX Node.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from dataclasses import dataclass, field
+
+from dgraph_tpu_torch import resolve_device
+from dgraph_tpu_torch.coord.zero import TxnConflict, Zero
+from dgraph_tpu_torch.obs import costs, otrace
+from dgraph_tpu_torch.obs.slowlog import SlowQueryLog
+from dgraph_tpu_torch.query import dql, rdf
+from dgraph_tpu_torch.query import mutation as mut
+from dgraph_tpu_torch.query import qcache
+from dgraph_tpu_torch.query import upsert as ups
+from dgraph_tpu_torch.query.engine import Executor, _unported
+from dgraph_tpu_torch.storage import index as idx
+from dgraph_tpu_torch.storage import keys as K
+from dgraph_tpu_torch.storage.csr_build import (GraphSnapshot,
+                                                SnapshotAssembler,
+                                                build_pred)
+from dgraph_tpu_torch.storage.postings import Op
+from dgraph_tpu_torch.storage.store import Store
+from dgraph_tpu_torch.parallel.scheduler import Scheduler
+from dgraph_tpu_torch import tenancy as tnc
+from dgraph_tpu_torch.utils import deadline as dl
+from dgraph_tpu_torch.utils import metrics
+from dgraph_tpu_torch.utils.schema import parse_schema
+
+
+@dataclass
+class TxnContext:
+    """Reference: api.TxnContext (start/commit ts + conflict keys)."""
+
+    start_ts: int
+    commit_ts: int = 0
+    aborted: bool = False
+    keys: list[bytes] = field(default_factory=list)       # all touched
+    conflict_keys: list[bytes] = field(default_factory=list)
+    preds: set[str] = field(default_factory=set)
+    version: int = 0                       # bumped per mutate (overlay cache)
+    overlay: tuple[int, dict] | None = None  # (version, {attr: PredData})
+    inflight: int = 0          # mutations mid-apply; commit/abort wait on 0
+    finishing: bool = False    # commit/abort started: reject new mutations
+    last_active: float = field(default_factory=time.monotonic)
+
+
+@dataclass
+class MutationResult:
+    uids: dict[str, int]          # blank-node name -> assigned uid
+    context: TxnContext
+
+
+class Node:
+    """One embedded server (store + zero + snapshot cache)."""
+
+    def __init__(self, dirpath: str | None = None, n_groups: int = 1,
+                 trace_fraction: float = 1.0,
+                 memory_mb: int | None = None,
+                 plan_cache_size: int = 256,
+                 task_cache_mb: int = 64,
+                 result_cache_mb: int = 32,
+                 dispatch_width: int = 4,
+                 overlay: bool = True,
+                 overlay_max_keys: int | None = None,
+                 overlay_max_age_s: float | None = None,
+                 background_rollup: bool = True,
+                 fold_workers: int | None = None,
+                 planner: bool = False,
+                 stats_top_k: int = 8,
+                 span_sample: float = 0.01,
+                 trace_rng=None,
+                 slow_query_ms: float = 0.0,
+                 slow_query_log: str | None = None,
+                 mesh_devices: int = 0,
+                 mesh_min_edges: int | None = None,
+                 default_timeout_ms: float = 0.0,
+                 vector_nprobe: int = 0,
+                 vector_centroids: int = -1,
+                 vector_ivf_min_rows: int = 0,
+                 batching: bool = False,
+                 batch_window_ms: float = 2.0,
+                 batch_max: int = 16,
+                 write_batch: bool = True,
+                 write_window_ms: float = 2.0,
+                 write_batch_max: int = 64,
+                 device_budget_mb: int = 0,
+                 residency_pin: str = "",
+                 cost_ledger: bool = True,
+                 cost_regression_factor: float = 4.0,
+                 lazy_folds: bool = True,
+                 delta_journal_max_keys: int | None = None,
+                 live_queue_max: int = 256,
+                 live_idle_timeout_s: float = 300.0,
+                 live_heartbeat_s: float = 15.0,
+                 devprof: bool = False,
+                 qos: bool = True,
+                 tenants=None,
+                 device: str = "cuda") -> None:
+        off = (("planner=True", planner, "planner"),
+               ("batching=True", batching and batch_max > 1, "batching"),
+               ("devprof=True", devprof, "devprof"),
+               ("device_budget_mb > 0", device_budget_mb > 0, "residency"),
+               ("residency_pin", bool(residency_pin), "residency"),
+               ("mesh_devices", bool(mesh_devices), "mesh"),
+               ("vector_* knobs", bool(vector_nprobe or vector_centroids >= 0
+                                       or vector_ivf_min_rows), "vector"))
+        for what, on, slice_name in off:
+            if on:
+                raise _unported(f"Node({what})", slice_name)
+        self.device = resolve_device(device)
+        # memory_mb enables the PAGED store: snapshot mmap'd, lists
+        # materialize lazily, clean entries evict under the budget
+        self.store = Store(dirpath,
+                           memory_budget=(memory_mb * (1 << 20))
+                           if memory_mb else None,
+                           max_delta_keys=delta_journal_max_keys)
+        self.zero = Zero(n_groups)
+        self.metrics = metrics.Registry()
+        # checkpoint/ingest gauges (peak transient bytes etc.) land in this
+        # node's registry — they show on /metrics next to the query tiers
+        self.store.metrics = self.metrics
+        self.traces = metrics.TraceStore(fraction=trace_fraction,
+                                         rng=trace_rng)
+        # span tracing + device profiling (obs/otrace.py): root spans start
+        # at query/mutate/alter, children attach via contextvar down to the
+        # device kernels; completed traces export as Chrome trace JSON at
+        # /debug/traces/<id>. slow_query_ms > 0 arms the slow-query log.
+        self.slow_log = SlowQueryLog(slow_query_ms, path=slow_query_log)
+        self.tracer = otrace.Tracer(fraction=span_sample, proc="node",
+                                    rng=trace_rng, slowlog=self.slow_log)
+        # serving tier: parsed-plan cache, snapshot-keyed task
+        # result LRU (+ singleflight), bounded device-dispatch gate.
+        # Size 0 disables a tier (bench.py's cold-cache mode).
+        self.plan_cache = (qcache.PlanCache(plan_cache_size, self.metrics)
+                           if plan_cache_size > 0 else None)
+        self.task_cache = (qcache.TaskResultCache(task_cache_mb << 20,
+                                                  self.metrics)
+                           if task_cache_mb > 0 else None)
+        self.result_cache = (qcache.ResultCache(result_cache_mb << 20,
+                                                self.metrics)
+                             if result_cache_mb > 0 else None)
+        self.dispatch_gate = qcache.DispatchGate(dispatch_width,
+                                                 self.metrics)
+        # group-commit write window (storage/writebatch.py):
+        # concurrent committing txns form ONE batched oracle conflict
+        # pass, ONE contiguous WAL append with ONE fsync, and ONE
+        # store-lock apply advancing the window's union watermarks.
+        # --no_write_batch / write_batch=False restores the exact
+        # per-commit path.
+        self.write_batcher = None
+        if write_batch and write_batch_max > 1:
+            from dgraph_tpu_torch.storage.writebatch import WriteBatcher
+
+            self.write_batcher = WriteBatcher(
+                self.zero.oracle, self.store, self.metrics,
+                window_ms=write_window_ms, max_batch=write_batch_max)
+        # request lifelines: a per-request deadline budget
+        # (query/mutate timeout_ms arg, HTTP ?timeoutMs=, --default_
+        # timeout_ms flag) consumed at the dispatch gate + task seams;
+        # overruns are typed DeadlineExceeded, overload sheds typed
+        # ResourceExhausted — never a hang. 0 = unbudgeted.
+        self.default_timeout_ms = float(default_timeout_ms)
+        self._txns: dict[int, TxnContext] = {}
+        self._lock = threading.RLock()       # commit/read linearization
+        self._inflight_cv = threading.Condition(self._lock)
+        self._sched = Scheduler()            # conflict-keyed mutation apply
+        # incremental per-predicate snapshot reuse (shared with the worker
+        # wire service and follower readers): a commit touching one
+        # predicate STAMPS a delta overlay on one predicate (storage/
+        # delta.py) — or re-folds it when the journal can't prove the delta
+        self._assembler = SnapshotAssembler(
+            self.store,
+            on_pred_build=lambda attr: self.metrics.counter(
+                "dgraph_posting_reads_total").inc(
+                    len(self.store.by_pred.get(
+                        (int(K.KeyKind.DATA), attr), ()))),
+            metrics=self.metrics,
+            overlay_enabled=overlay,
+            overlay_max_keys=overlay_max_keys,
+            overlay_max_age_s=overlay_max_age_s,
+            fold_workers=fold_workers,
+            lazy_folds=lazy_folds,
+            device=self.device)
+        # cold-open / first-query gauges: wall from node birth
+        # to the first completed query — the number lazy folds move
+        self._birth = time.perf_counter()
+        self._first_query_done = False
+        # background rollup: overlays past the size/age threshold fold back
+        # into fresh bases OFF the query path (posting-list rollups one
+        # level up); started lazily on the first stamped overlay
+        self.background_rollup = background_rollup
+        self._rollup_stop = threading.Event()
+        self._rollup_started = False
+        if self.store.max_seen_commit_ts:
+            # recover the ts sequence past everything the WAL replayed
+            self.zero.oracle.timestamps(self.store.max_seen_commit_ts)
+        maxuid = self._max_uid_in_store()
+        if maxuid:
+            self.zero.uids.assign(maxuid)
+        # per-request cost ledger + /debug/top profiler
+        # (obs/costs.py): every query assembles one resource cost record
+        # (device-kernel ms, transfer bytes, traversed edges, cache/batch/
+        # shed outcomes, per-predicate breakdown) which feeds the
+        # aggregatable dgraph_query_cost_* histograms (with trace
+        # exemplars) and the CostBook's sliding /debug/top window with
+        # per-shape EWMA regression baselines. --no_cost_ledger restores
+        # the unmeasured path (bench `obs` gates the armed overhead <2%).
+        self.cost_ledger = bool(cost_ledger)
+        self.cost_book = costs.CostBook(
+            regression_factor=cost_regression_factor)
+        # multi-tenant QoS (dgraph_tpu/tenancy/): namespaces are
+        # ALWAYS active for a non-default tenant (they are correctness —
+        # every request resolves predicates in its caller's namespace via
+        # NamespacedSnapshot/NamespacedSchema views); quota admission and
+        # weighted-fair device scheduling arm only when qos=True AND a
+        # tenants config is installed (serve --tenants / POST
+        # /admin/tenant). --no_qos keeps every serving seam reading one
+        # None attribute — single-tenant deployments stay byte-identical.
+        self.qos_enabled = bool(qos)
+        self.tenancy = tnc.TenantRegistry(self.metrics)
+        from collections import OrderedDict
+
+        # tenant snapshot views, cached per (tenant, base snapshot token)
+        # so engine-side attrs cached ON the snapshot object (known-uid
+        # sets) survive across requests within one base snapshot
+        self._ns_views: OrderedDict = OrderedDict()
+        self._ns_lock = threading.Lock()
+        self.zero.tenants = self.tenancy
+        if tenants:
+            self.configure_tenants(tenants)
+
+    def set_devprof(self, on: bool) -> None:
+        """Arm/disarm the device-runtime observatory (devprof slice)."""
+        raise _unported("Node.set_devprof", "devprof")
+
+    # -- multi-tenant QoS -----------------------------------------
+
+    _NS_VIEW_CAP = 32
+
+    def configure_tenants(self, cfg, replace: bool = False) -> dict:
+        """Install/merge the tenant table (serve --tenants flag and the
+        POST /admin/tenant hot reload). `cfg` is a {"tenants": {...}} (or
+        bare name->spec) dict, a JSON string, or a path to a JSON file.
+        Arms quota admission + fair scheduling when qos is enabled."""
+        if isinstance(cfg, str):
+            import json as _json
+            import os
+
+            if os.path.exists(cfg):
+                with open(cfg, encoding="utf-8") as f:
+                    cfg = _json.load(f)
+            else:
+                cfg = _json.loads(cfg)
+        table = self.tenancy.configure(cfg, replace=replace)
+        self._arm_qos()
+        return table
+
+    def _arm_qos(self) -> None:
+        """Attach the fair scheduler + write-window caps + live-query caps
+        once qos is on and a tenant table exists. Idempotent; reconfigs
+        keep the armed scheduler's virtual clocks (weights re-read live
+        through weight_fn)."""
+        if not (self.qos_enabled and self.tenancy.configured):
+            return
+        gate = self.dispatch_gate
+        if gate.fair is None:
+            gate.fair = tnc.FairScheduler(weight_fn=self.tenancy.weight,
+                                          metrics=self.metrics)
+            gate.tenant_fn = tnc.current
+        wb = self.write_batcher
+        if wb is not None and wb.tenant_fn is None:
+            wb.tenant_fn = tnc.current
+            wb.tenant_cap_fn = lambda t: self.tenancy.window_share(
+                t, wb.max_batch)
+
+    def _ns_view(self, snap, tenant: str):
+        """The tenant's view of one snapshot, cached per (tenant, base
+        cache token): token equality implies identical committed content,
+        so one view object can serve every request of that (tenant,
+        snapshot) pair — and attrs the engine caches on the snapshot
+        object (known-uid sets) stay warm across them."""
+        key = (tenant, qcache.snapshot_token(snap))
+        with self._ns_lock:
+            v = self._ns_views.get(key)
+            if v is not None:
+                self._ns_views.move_to_end(key)
+                return v
+        v = tnc.NamespacedSnapshot(snap, tenant)
+        with self._ns_lock:
+            self._ns_views[key] = v
+            self._ns_views.move_to_end(key)
+            while len(self._ns_views) > self._NS_VIEW_CAP:
+                self._ns_views.popitem(last=False)
+        return v
+
+    def _schema_view(self):
+        """The caller's schema: the raw SchemaState for the default
+        namespace, a translating NamespacedSchema view for a tenant."""
+        t = tnc.current()
+        if t:
+            return tnc.NamespacedSchema(self.store.schema, t)
+        return self.store.schema
+
+    def _admit_tenant(self, tenant: str) -> None:
+        """API-edge quota admission (the shed discipline): over-quota
+        tenants get typed ResourceExhausted before any device work —
+        never a queue slot. Disarmed = one boolean check."""
+        if self.qos_enabled and self.tenancy.configured:
+            self.tenancy.admit(tenant)
+
+    def set_memory_budget(self, budget_bytes: int) -> None:
+        """The --memory_mb enforcement loop (residency slice)."""
+        raise _unported("Node.set_memory_budget", "residency")
+
+    # value-posting slots (lang/value fingerprints) carry the 1<<60 / 1<<61
+    # tag bits (storage/postings.py lang_uid/value_fingerprint) and must never
+    # be mistaken for uids when recovering the lease
+    _SLOT_BITS = 1 << 60
+
+    def _max_uid_in_store(self) -> int:
+        ts = self.store.max_seen_commit_ts
+        m = 0
+        if self.store.paged:
+            # segment-backed keys never enter by_pred: recover their max
+            # from packed metadata without materializing any list
+            def _uid_typed(attr):
+                e = self.store.schema.get(attr)
+                return e is None or e.type_id.name in ("UID", "DEFAULT")
+
+            m = self.store.segment_max_uid(_uid_typed, self._SLOT_BITS)
+        for (kind, attr), keys in self.store.by_pred.items():
+            if kind not in (int(K.KeyKind.DATA), int(K.KeyKind.REVERSE)):
+                continue
+            entry = self.store.schema.get(attr)
+            uid_typed = entry is None or entry.type_id.name == "UID" or \
+                entry.type_id.name == "DEFAULT"
+            for kb in keys:
+                m = max(m, K.uid_of(kb))
+                pl = self.store.lists.get(kb)
+                if pl is None or kind != int(K.KeyKind.DATA) or not uid_typed:
+                    continue
+                bp = pl.base_packed
+                if not pl.layers and not pl.uncommitted:
+                    # packed metadata already carries the max object uid —
+                    # decoding every list made cold-open O(edges). Slot-tagged
+                    # values (>= _SLOT_BITS) force the slow path: the max
+                    # REAL uid hides below them.
+                    if not bp.nblocks:
+                        continue
+                    last = int(bp.block_last[-1])
+                    if last < self._SLOT_BITS:
+                        m = max(m, last)
+                        continue
+                u = pl.uids(max(ts, pl.base_ts))
+                u = u[u < self._SLOT_BITS]
+                if len(u):
+                    m = max(m, int(u[-1]))
+        return m
+
+    # -- transactions --------------------------------------------------------
+
+    # abandoned query-only txns (opened lazily by the gRPC surface, never
+    # committed/discarded) are reaped once this many accumulate, else they
+    # pin the oracle's conflict-GC watermark forever
+    MAX_IDLE_TXNS = 1024
+    # a pristine txn younger than this is never reaped: a slow-but-live
+    # client that opened via a query and mutates later must not get
+    # "unknown txn" just because 1024 other txns arrived in between
+    IDLE_TXN_GRACE_S = 60.0
+
+    def new_txn(self) -> TxnContext:
+        st = self.zero.oracle.new_txn()
+        ctx = TxnContext(start_ts=st.start_ts)
+        with self._lock:
+            self._txns[st.start_ts] = ctx
+            if len(self._txns) > self.MAX_IDLE_TXNS:
+                # pristine txns (no buffered writes) past the grace period
+                # abort harmlessly, oldest-activity first: a later commit on
+                # one returns "unknown txn", same as the reference's
+                # expired-txn behavior
+                cutoff = time.monotonic() - self.IDLE_TXN_GRACE_S
+                pristine = sorted(
+                    (ts for ts, c in self._txns.items()
+                     if not c.keys and not c.inflight and ts != st.start_ts),
+                    key=lambda ts: self._txns[ts].last_active)
+                idle = [ts for ts in pristine
+                        if self._txns[ts].last_active < cutoff]
+                if not idle and len(self._txns) > 4 * self.MAX_IDLE_TXNS:
+                    # burst pressure: >4x the soft bound opened inside one
+                    # grace window — the bound (it protects the oracle's
+                    # conflict-GC watermark) beats the grace period
+                    idle = pristine
+                for ts in idle[: max(len(idle) // 2, 1)]:
+                    del self._txns[ts]
+                    self.zero.oracle.abort(ts)
+        return ctx
+
+    def _drain_inflight(self, ctx, clamped: bool = True) -> None:
+        """Wait out this txn's in-flight mutation applies, clamped to the
+        caller's deadline — the lifeline contract: a budgeted commit or
+        read never hangs behind a wedged apply (unbudgeted callers keep
+        the exact old blocking wait). abort() drains UNclamped: it is the
+        cleanup that unpins the oracle's conflict-GC watermark, and
+        bailing on an expired budget would leak the keyed txn forever
+        (the janitor only reaps pristine txns). Caller holds self._lock;
+        the condition releases it while waiting."""
+        while ctx.inflight:
+            if not self._inflight_cv.wait(
+                    dl.clamp(None) if clamped else None):
+                dl.check("txn inflight drain")
+
+    def commit(self, start_ts: int) -> int:
+        """CommitOrAbort (edgraph/server.go:462). Returns commit_ts; raises
+        TxnConflict after aborting the txn's buffered layers on conflict."""
+        t0 = time.perf_counter()
+        with self._span("commit", start_ts=int(start_ts)):
+            with self._lock:
+                ctx = self._txns.get(start_ts)
+                if ctx is None:
+                    raise mut.MutationError(f"unknown txn {start_ts}")
+                # cut off new mutations first, then drain in-flight applies
+                # — otherwise a steady write stream could starve this wait
+                # and late mutations would silently ride the commit
+                ctx.finishing = True
+                self._drain_inflight(ctx)
+                if self._txns.pop(start_ts, None) is None:
+                    # a concurrent commit/abort won the race while we waited
+                    raise mut.MutationError(f"unknown txn {start_ts}")
+            # node lock RELEASED before the write window: the group-commit
+            # batcher parks followers on events, and a follower parked
+            # while holding the node lock would stall every other
+            # committer's prep (defeating the window) and every reader.
+            # Visibility stays exact: an in-flight commit is invisible
+            # until the group apply advances the store watermarks, and
+            # the ack below returns only after that apply — so a
+            # committer's next read always observes its own write.
+            try:
+                wb = self.write_batcher
+                if wb is None:
+                    with self._lock:   # exact pre-window path
+                        commit_ts = self._commit_solo(start_ts, ctx)
+                else:
+                    # dgraph: allow(ctxvar-copy) synchronous same-thread
+                    # call (the window batcher, not an executor) — the
+                    # caller's deadline/ledger ride into the entry itself
+                    commit_ts = wb.submit(
+                        start_ts, ctx.keys,
+                        solo=lambda: self._commit_solo(start_ts, ctx))
+            except TxnConflict:
+                ctx.aborted = True
+                self.metrics.counter("dgraph_num_aborts_total").inc()
+                raise
+            ctx.commit_ts = commit_ts
+            self.metrics.counter("dgraph_num_commits_total").inc()
+            self.metrics.histogram("dgraph_commit_latency_s").observe(
+                time.perf_counter() - t0)
+            return commit_ts
+
+    def _commit_solo(self, start_ts: int, ctx) -> int:
+        """The exact per-commit path: one oracle decision, one per-commit
+        WAL record with its own fsync. Runs for --no_write_batch, deadline
+        bypasses, and write windows of one — unaccompanied traffic
+        produces byte-identical logs to the pre-16 write path."""
+        try:
+            with otrace.span("zero:commit"):
+                commit_ts = self.zero.oracle.commit(start_ts)
+        except TxnConflict:
+            self.store.abort(start_ts, ctx.keys)
+            raise
+        self.store.commit(start_ts, commit_ts, ctx.keys)
+        return commit_ts
+
+    def abort(self, start_ts: int) -> None:
+        with self._lock:
+            ctx = self._txns.get(start_ts)
+            if ctx is not None:
+                ctx.finishing = True
+                self._drain_inflight(ctx, clamped=False)
+            ctx = self._txns.pop(start_ts, None)
+            self.zero.oracle.abort(start_ts)
+            if ctx is not None:
+                self.store.abort(start_ts, ctx.keys)
+
+    # -- snapshots ----------------------------------------------------------
+
+    def snapshot(self, read_ts: int | None = None) -> GraphSnapshot:
+        with self._lock:
+            if read_ts is None:
+                read_ts = self.zero.oracle.read_ts()
+            snap = self._assembler.snapshot(read_ts)
+            if self.background_rollup and not self._rollup_started and \
+                    self._assembler._overlays:
+                self._start_rollup_loop()
+            return snap
+
+    # overlays older than this many seconds (or deeper than the stamp
+    # ceiling) compact on the next tick
+    ROLLUP_TICK_S = 1.0
+
+    def _start_rollup_loop(self) -> None:
+        self._rollup_started = True
+
+        def loop():
+            while not self._rollup_stop.wait(self.ROLLUP_TICK_S):
+                try:
+                    if self._assembler.compact_candidates():
+                        self._assembler.compact(self._lock)
+                # dgraph: allow(except-seam) next tick retries; queries
+                # are unaffected by a failed compaction attempt
+                except Exception:
+                    pass
+        # dgraph: allow(ctxvar-copy) detached compaction bg loop
+        threading.Thread(target=loop, daemon=True,
+                         name="dgt-rollup").start()
+
+    def _invalidate_snapshots(self) -> None:
+        with self._lock:
+            self._assembler.invalidate()
+        # schema/drop changes don't always mint a new read_ts, but they DO
+        # mint new snapshot objects (fresh cache tokens), so stale task
+        # results can never be served — clearing just releases the bytes
+        if self.task_cache is not None:
+            self.task_cache.clear()
+        if self.result_cache is not None:
+            self.result_cache.clear()
+
+    # -- parsing --------------------------------------------------------------
+
+    def _span(self, name: str, **attrs):
+        """Root span when nothing is active on this execution context
+        (direct API / HTTP entry — the sampling decision happens here);
+        child span when nested (upsert inside query, commit inside
+        mutate). An armed slow-query log force-samples every root: a slow
+        query can only be identified AFTER it ran, so the threshold can
+        never be honored from a 1% sample."""
+        cur = otrace.current()
+        if cur is not None:
+            return self.tracer.start(name, parent=cur, attrs=attrs)
+        return self.tracer.root(name, attrs=attrs,
+                                force=self.slow_log.enabled)
+
+    def _parse(self, q: str, variables: dict | None = None) -> dql.ParsedRequest:
+        """Parse through the plan cache: hot query shapes skip the lexer +
+        recursive-descent parser entirely. Parsed trees are read-only
+        during execution (engine only builds NEW GraphQuery nodes), so one
+        AST serves every replay."""
+        if self.plan_cache is not None:
+            return self.plan_cache.parse(q, variables,
+                                         ns=tnc.current())
+        return dql.parse(q, variables)
+
+    # -- Query ---------------------------------------------------------------
+
+    def _read_view(self, start_ts: int | None) -> tuple[int, GraphSnapshot]:
+        """Snapshot for a read: committed state at read_ts, with an open
+        txn's own uncommitted layers overlaid when start_ts names one
+        (posting/list.go:528 — StartTs == readTs visibility)."""
+        if start_ts is not None:
+            read_ts = start_ts
+        else:
+            with otrace.span("zero:read_ts"):
+                read_ts = self.zero.oracle.read_ts()
+        with self._lock:
+            # only an EXPLICIT startTs continues an open txn: a fresh read's
+            # ts may numerically equal a pending txn's start_ts and must not
+            # see its uncommitted writes
+            ctx = self._txns.get(start_ts) if start_ts is not None else None
+            if ctx is not None:
+                ctx.last_active = time.monotonic()
+                # drain this txn's in-flight applies: the overlay build reads
+                # the uncommitted layer dicts a concurrent apply mutates
+                self._drain_inflight(ctx)
+            if ctx is not None and ctx.preds:
+                base = self.snapshot(read_ts)
+                snap = GraphSnapshot(read_ts, device=self.device)
+                # lazy base: share the pending fold-thunks —
+                # dict(base.preds) would drop them via the CPython dict
+                # fast path and untouched predicates would read as absent
+                copier = getattr(base.preds, "lazy_copy", None)
+                snap.preds = copier() if copier is not None \
+                    else dict(base.preds)
+                snap.metrics = getattr(base, "metrics", None)
+                if ctx.overlay is not None and ctx.overlay[0] == ctx.version:
+                    snap.preds.update(ctx.overlay[1])
+                else:
+                    built = {attr: build_pred(self.store, attr, read_ts,
+                                              own_start_ts=read_ts,
+                                              device=self.device)
+                             for attr in sorted(ctx.preds)}
+                    ctx.overlay = (ctx.version, built)
+                    snap.preds.update(built)
+                # overlay views are cacheable WITHIN one txn version: the
+                # per-mutate version bump rotates the token, so a buffered
+                # write can never be served from a pre-write cache entry
+                snap.cache_token = ("txn", ctx.start_ts, ctx.version,
+                                    qcache.snapshot_token(base))
+            else:
+                snap = self.snapshot(read_ts)
+        return read_ts, snap
+
+    def _deadline_scope(self, timeout_ms: float | None):
+        """Deadline scope for one request: explicit timeout_ms beats the
+        node default; 0/None = unbudgeted (a no-op scope)."""
+        from dgraph_tpu_torch.utils import deadline as dl
+
+        ms = self.default_timeout_ms if timeout_ms is None \
+            else float(timeout_ms)
+        return dl.scope(ms / 1000.0 if ms and ms > 0 else None)
+
+    def query(self, q: str, variables: dict | None = None,
+              start_ts: int | None = None,
+              read_only: bool = False,
+              edge_limit: int | None = None,
+              explain: bool = False,
+              timeout_ms: float | None = None,
+              _cost_endpoint: str = "query",
+              _cost_subs: tuple = ()) -> tuple[dict, TxnContext]:
+        """Parse + execute a DQL request (edgraph/server.go:373).
+
+        read_only treats start_ts purely as a snapshot timestamp: it never
+        joins an open txn's uncommitted overlay even if some pending txn
+        happens to carry the same start_ts (read ts values come from the same
+        oracle counter, so numeric collision is possible).
+
+        edge_limit overrides the process-default traversed-edge budget for
+        THIS request only (the --query_edge_limit flag, now per-request).
+
+        explain=True (the plan tree with estimated vs actual cardinality)
+        raises until the planner slice."""
+        if explain:
+            raise _unported("Node.query(explain=True)", "planner")
+        qtitle = q.strip().splitlines()[0][:120] if q.strip() else ""
+        tr = self.traces.start("query", qtitle)
+        sp = self._span("query", query=qtitle)
+        m = self.metrics
+        m.counter("dgraph_num_queries_total").inc()
+        m.counter("dgraph_pending_queries_total").inc()
+        m.meter("query").mark()
+        t0 = time.perf_counter()
+        err = ""
+        # per-request cost ledger: the plan-shape key is the DQL text —
+        # exactly what qcache.plan_key keys on — so /debug/top aggregates
+        # replays of one shape across variable bindings
+        # _cost_endpoint="live" tags standing-subscription re-evals so
+        # /debug/top?endpoint=live ranks them next to foreground shapes
+        tenant = tnc.current()
+        lg = costs.CostLedger(endpoint=_cost_endpoint, shape=q,
+                              tenant=tenant) \
+            if self.cost_ledger else None
+        if lg is not None and _cost_subs:
+            # per-subscription attribution: the live manager
+            # passes the ids of every subscription a coalesced re-eval
+            # serves; /debug/top?group=sub apportions the record's cost
+            # equally among them
+            lg.subs = tuple(_cost_subs)
+        try:
+          with sp, self._deadline_scope(timeout_ms), costs.scope(lg):
+            self._admit_tenant(tenant)
+            req = self._parse(q, variables)
+            tr.printf("parsed: %d query blocks", len(req.queries))
+            if req.upsert is not None:
+                # implicit txn commits; an explicit one stays open for the
+                # client's own commit/abort
+                out, _uids, ctx = self.upsert(
+                    req.upsert["query"], req.upsert["mutations"],
+                    start_ts=start_ts, commit_now=start_ts is None)
+                return out, ctx
+            if req.schema_request is not None:
+                return {"schema": self._schema_json(req.schema_request)}, \
+                    TxnContext(start_ts=0)
+            if read_only and start_ts is not None:
+                read_ts, snap = start_ts, self.snapshot(start_ts)
+            else:
+                read_ts, snap = self._read_view(start_ts)
+            if tenant:
+                # namespace seam: the executor, planner, caches, and
+                # batcher all run on the tenant's unprefixed vocabulary
+                # while reading only the tenant's storage tablets
+                snap = self._ns_view(snap, tenant)
+            schema = self._schema_view()
+            sp.set(read_ts=int(read_ts))
+            tr.printf("snapshot at ts %d (%d preds)", read_ts, len(snap.preds))
+            # whole-query result tier: keyed on (plan key, per-predicate
+            # token tuple of the plan's read set, edge budget). A commit to
+            # predicate P rotates only P's PredData token, so replays that
+            # never read P keep their cache heat; plans whose read set
+            # isn't statically derivable (explicit uids, expand, shortest)
+            # key on the snapshot object and rotate on every commit /
+            # alter / drop / txn-overlay version bump as before
+            rkey = None
+            if self.result_cache is not None and not req.mutations:
+                pk = qcache.plan_key(q, variables, tenant)
+                if pk is not None:
+                    # the EFFECTIVE budget is part of the key: a shrunk
+                    # budget (per-request or via set_query_edge_limit) must
+                    # re-execute, not serve a result computed under a
+                    # larger one (and vice versa)
+                    from dgraph_tpu_torch.query import engine as _eng
+
+                    eff = edge_limit if edge_limit is not None \
+                        else _eng.MAX_QUERY_EDGES
+                    rkey = (pk, qcache.result_token(req, snap), eff)
+                    cached = self.result_cache.get(rkey)
+                    if cached is not None:
+                        tr.printf("result cache hit")
+                        sp.set(result_cache="hit")
+                        costs.note("result_cache_hit")
+                        return cached, TxnContext(start_ts=read_ts)
+            out = Executor(snap, schema,
+                           cache=self.task_cache, gate=self.dispatch_gate,
+                           edge_limit=edge_limit).execute(req)
+            tr.printf("executed")
+            if rkey is not None:
+                self.result_cache.put(rkey, out)
+            return out, TxnContext(start_ts=read_ts)
+        except BaseException as e:
+            # EVERY failure shape finishes the breadcrumb trace with its
+            # error, exactly once, via the finally below — including
+            # TxnConflict from the upsert path and non-Exception bases
+            err = str(e) or type(e).__name__
+            from dgraph_tpu_torch.utils.deadline import DeadlineExceeded
+
+            if isinstance(e, DeadlineExceeded):
+                m.counter("dgraph_deadline_exceeded_total").inc()
+            raise
+        finally:
+            m.counter("dgraph_pending_queries_total").dec()
+            m.histogram("dgraph_query_latency_s").observe(
+                time.perf_counter() - t0,
+                exemplar=sp.trace_id or None)
+            if not self._first_query_done and not err:
+                self._first_query_done = True
+                m.counter("dgraph_first_query_ms").set(
+                    (time.perf_counter() - self._birth) * 1e3)
+            self._finish_cost(lg, sp)
+            self.traces.finish(tr, error=err)
+
+    def _finish_cost(self, lg, sp) -> None:
+        """Close one request's cost ledger: observe the aggregatable
+        dgraph_query_cost_* histograms (exemplar = the request's sampled
+        trace id, resolvable at /debug/traces/<id>), admit the record to
+        the /debug/top window, and route a flagged cost regression into
+        the slow-query ring — even when the query finished UNDER
+        --slow_query_ms (that is the point: a shape that regressed from
+        2ms to 40ms never crosses a 500ms threshold)."""
+        if lg is None:
+            return
+        m = self.metrics
+        if not lg.tasks and lg.device_ms == 0.0 and not lg.groups:
+            # trivial record (whole-result cache hit, schema request,
+            # parse error): nothing executed — skip record assembly and
+            # the cost observations entirely. This keeps the armed warm
+            # path within the <2% bench `obs` gate AND keeps zero-cost
+            # replays from diluting the cost distributions and the
+            # per-shape EWMA baselines into flagging every real
+            # execution as a regression.
+            return
+        # counted AFTER the trivial skip: the counter means "records
+        # admitted to the cost surfaces", matching /debug/metrics
+        m.counter("dgraph_cost_records_total").inc()
+        lg.finish()
+        rec = lg.to_dict()
+        total = rec["total"]
+        # per-tenant attribution + quota debit: every admitted
+        # record's ledger units debit its tenant's buckets and advance
+        # the dgraph_tenant_* labeled series. Cache hits are trivial
+        # records (skipped above): they consumed no device resources, so
+        # they cost nothing — admission still gated them.
+        if lg.tenant or self.tenancy.configured:
+            self.tenancy.debit(
+                lg.tenant,
+                device_ms=float(total["device_ms"]),
+                edges=float(total["edges"]),
+                bytes_=float(total["h2d"] + total["d2h"]))
+        tid = sp.trace_id if sp else ""
+        ex = tid or None
+        m.histogram("dgraph_query_cost_device_ms").observe(
+            float(total["device_ms"]), exemplar=ex)
+        m.histogram("dgraph_query_cost_edges").observe(
+            float(total["edges"]), exemplar=ex)
+        m.histogram("dgraph_query_cost_bytes").observe(
+            float(total["h2d"] + total["d2h"]), exemplar=ex)
+        flag = self.cost_book.record(lg.shape, lg.endpoint, tid, rec)
+        if flag is not None:
+            m.counter("dgraph_cost_regressions_total").inc()
+            self.slow_log.record({
+                "ts": time.strftime("%Y-%m-%dT%H:%M:%S", time.gmtime()),
+                "root": "cost_regression",
+                "trace_id": tid,
+                "query": lg.shape[:2000],
+                "elapsed_ms": total["wall_ms"],
+                **flag})
+
+    def analytics(self, kind: str, pred: str, **kw) -> dict:
+        """Whole-graph analytics over one uid predicate (mesh slice)."""
+        raise _unported("Node.analytics", "mesh")
+
+    def upsert(self, q: str, mutations: list[dict],
+               variables: dict | None = None, start_ts: int | None = None,
+               commit_now: bool = False) -> tuple[dict, dict, TxnContext]:
+        """Query-then-conditionally-mutate in one txn (edgraph/server.go
+        doQueryInUpsert + gql/upsert.go). `mutations` entries carry any of
+        cond / set / delete / set_json / delete_json (text cond is the inside
+        of @if(...)). Returns (query json, assigned uids, ctx)."""
+        self.metrics.counter("dgraph_num_upserts_total").inc()
+        own_txn = start_ts is None
+        with self._lock:
+            if own_txn:
+                ctx = self.new_txn()
+            else:
+                ctx = self._txns.get(start_ts)
+                if ctx is None:
+                    raise mut.MutationError(f"unknown txn {start_ts}")
+        with self._span("upsert", mutations=len(mutations)):
+            try:
+                out: dict = {}
+                vars_map: dict = {}
+                if q.strip():
+                    _, snap = self._read_view(ctx.start_ts)
+                    tenant = tnc.current()
+                    if tenant:
+                        snap = self._ns_view(snap, tenant)
+                    ex = Executor(snap, self._schema_view(),
+                                  cache=self.task_cache,
+                                  gate=self.dispatch_gate)
+                    out = ex.execute(self._parse(q, variables))
+                    vars_map = ex.vars
+                uid_map: dict = {}
+                for m in mutations:
+                    cond = m.get("cond", "")
+                    if cond and not ups.eval_cond(cond, vars_map):
+                        continue
+                    nq_set = ups.expand(rdf.parse(m.get("set", "")), vars_map)
+                    nq_del = ups.expand(rdf.parse(m.get("delete", "")),
+                                        vars_map)
+                    if m.get("set_json") is not None:
+                        nq_set += mut.nquads_from_json(
+                            m["set_json"], Op.SET,
+                            schema=self._schema_view())
+                    if m.get("delete_json") is not None:
+                        nq_del += mut.nquads_from_json(
+                            m["delete_json"], Op.DEL,
+                            schema=self._schema_view())
+                    if not nq_set and not nq_del:
+                        continue   # cond met but every quad's var was empty
+                    res = self.mutate_quads(nq_set, nq_del, commit_now=False,
+                                            start_ts=ctx.start_ts)
+                    uid_map.update(res.uids)
+            except BaseException:
+                if own_txn:
+                    # don't leak the implicit txn (it would pin the oracle's
+                    # conflict-GC watermark); an explicit txn stays open for
+                    # the client to retry or abort
+                    self.abort(ctx.start_ts)
+                raise
+            if commit_now:
+                self.commit(ctx.start_ts)
+            return out, uid_map, ctx
+
+    def _schema_json(self, preds: list[str]) -> list[dict]:
+        from dgraph_tpu_torch.utils.schema import schema_json
+
+        # the tenant's schema view lists + strips its own entries, so a
+        # schema{} response never leaks another namespace (or the prefix)
+        return schema_json(self._schema_view(), preds)
+
+    # -- Mutate --------------------------------------------------------------
+
+    def mutate(self, set_nquads: str = "", del_nquads: str = "",
+               set_json=None, delete_json=None, commit_now: bool = False,
+               start_ts: int | None = None,
+               timeout_ms: float | None = None) -> MutationResult:
+        """Buffer (and optionally commit) one mutation (server.go:267)."""
+        nquads_set = rdf.parse(set_nquads) if set_nquads else []
+        nquads_del = rdf.parse(del_nquads) if del_nquads else []
+        if set_json is not None:
+            nquads_set += mut.nquads_from_json(set_json, Op.SET,
+                                               schema=self._schema_view())
+        if delete_json is not None:
+            nquads_del += mut.nquads_from_json(delete_json, Op.DEL,
+                                               schema=self._schema_view())
+        return self.mutate_quads(nquads_set, nquads_del,
+                                 commit_now=commit_now, start_ts=start_ts,
+                                 timeout_ms=timeout_ms)
+
+    def mutate_quads(self, nquads_set, nquads_del=(), *,
+                     commit_now: bool = False,
+                     start_ts: int | None = None,
+                     timeout_ms: float | None = None) -> MutationResult:
+        """Mutate with pre-parsed NQuads (the loaders' entry — skips text
+        parsing; dgraph/cmd/live/batch.go feeds api.Mutation.Set directly)."""
+        nquads_set = list(nquads_set)
+        nquads_del = list(nquads_del)
+        if not nquads_set and not nquads_del:
+            raise mut.MutationError("empty mutation")
+        tenant = tnc.current()
+        if tenant:
+            # namespace seam for writes: the tenant's quads land on its
+            # own storage attrs. "S * *" wildcard deletion reads the
+            # store to learn its footprint — a tenant must not discover
+            # (or delete) predicates outside its namespace, so it gets
+            # the typed error instead.
+            self._admit_tenant(tenant)
+            for nq in nquads_set + nquads_del:
+                if nq.predicate == "*":
+                    raise tnc.NamespaceError(
+                        "wildcard predicate deletion (S * *) is not "
+                        "available inside a tenant namespace")
+                nq.predicate = tnc.prefix(tenant, nq.predicate)
+        tr = self.traces.start(
+            "mutate", f"{len(nquads_set)} set / {len(nquads_del)} del")
+        sp = self._span("mutate", set=len(nquads_set),
+                        delete=len(nquads_del))
+        m = self.metrics
+        m.counter("dgraph_num_mutations_total").inc()
+        m.counter("dgraph_active_mutations_total").inc()
+        m.meter("mutate").mark()
+        t0 = time.perf_counter()
+        err = ""
+        try:
+          with sp, self._deadline_scope(timeout_ms):
+            with self._lock:
+                if start_ts is None:
+                    ctx = self.new_txn()
+                else:
+                    ctx = self._txns.get(start_ts)
+                    if ctx is None or ctx.finishing:
+                        raise mut.MutationError(f"unknown txn {start_ts}")
+                # inflight pins the txn: commit/abort of this start_ts wait
+                # until apply completes, so they can't interleave mid-apply
+                # and orphan uncommitted layers (an invariant kept
+                # WITHOUT serializing all mutations behind one lock)
+                ctx.inflight += 1
+                ctx.last_active = time.monotonic()
+            applied = False
+            try:
+                uid_map = mut.assign_uids(nquads_set + nquads_del,
+                                          self.zero.uids)
+                edges = mut.to_edges(nquads_set, uid_map, Op.SET) + \
+                    mut.to_edges(nquads_del, uid_map, Op.DEL)
+                # conflict-keyed parallel apply (worker/scheduler.go:34-95):
+                # disjoint (attr, uid) footprints run concurrently; shared
+                # footprints serialize in arrival order. Objects of uid edges
+                # are in the footprint too (reverse/count maintenance does
+                # read-modify-write on the object side). `S * *` deletes
+                # only learn their footprint by reading the store at apply
+                # time, so they take the scheduler exclusively.
+                exclusive = any(e.attr == "*" for e in edges)
+                skeys: set[int] = set()
+                if not exclusive:
+                    for e in edges:
+                        skeys.add(hash((e.attr, e.subject)))
+                        if e.object_uid:
+                            skeys.add(hash((e.attr, e.object_uid)))
+                touched, conflict, preds = self._sched.run(
+                    skeys, lambda: mut.apply_mutations(
+                        self.store, edges, ctx.start_ts),
+                    exclusive=exclusive)
+                applied = True
+            finally:
+                with self._lock:
+                    try:
+                        if applied:
+                            ctx.keys += touched
+                            ctx.conflict_keys += conflict
+                            ctx.preds |= preds
+                            ctx.version += 1
+                            self.zero.oracle.track(ctx.start_ts, conflict,
+                                                   sorted(preds))
+                            m.counter("dgraph_posting_writes_total").inc(
+                                len(touched))
+                    finally:
+                        # unconditional: a parked commit/abort must wake even
+                        # if oracle bookkeeping above raised
+                        ctx.inflight -= 1
+                        self._inflight_cv.notify_all()
+            for p in preds:
+                self.zero.should_serve(p)
+            res = MutationResult(uids=uid_map, context=ctx)
+            if commit_now:
+                self.commit(ctx.start_ts)
+            return res
+        except BaseException as e:
+            err = str(e) or type(e).__name__
+            raise
+        finally:
+            m.counter("dgraph_active_mutations_total").dec()
+            m.histogram("dgraph_mutation_latency_s").observe(
+                time.perf_counter() - t0,
+                exemplar=sp.trace_id or None)
+            self.traces.finish(tr, error=err)
+
+    def run_request(self, q: str, variables: dict | None = None,
+                    commit_now: bool = True) -> tuple[dict, MutationResult | None]:
+        """One combined DQL request: query blocks and/or mutation blocks
+        through the same entry (the `{set {...}}` surface)."""
+        req = self._parse(q, variables)
+        mres = None
+        if req.mutations:
+            sets, dels = [], []
+            for m in req.mutations:
+                (sets if m["op"] == "set" else dels).append(m["rdf"])
+            mres = self.mutate(set_nquads="\n".join(sets),
+                               del_nquads="\n".join(dels),
+                               commit_now=commit_now)
+        out = {}
+        if req.queries:
+            out, _ = self.query(q, variables)
+        return out, mres
+
+    # -- Alter ---------------------------------------------------------------
+
+    def alter(self, schema_text: str = "", drop_attr: str = "",
+              drop_all: bool = False) -> None:
+        """Schema mutations + drops (server.go:213), with the reindex
+        pipeline (worker/mutation.go:97 runSchemaMutation)."""
+        self.metrics.counter("dgraph_num_alters_total").inc()
+        title = ("drop_all" if drop_all else
+                 f"drop {drop_attr}" if drop_attr else
+                 (schema_text.strip().splitlines() or [""])[0][:120])
+        tr = self.traces.start("alter", title)
+        err = ""
+        try:
+          with self._span("alter", op=title):
+            self._alter_locked(schema_text, drop_attr, drop_all)
+        except BaseException as e:
+            err = str(e) or type(e).__name__
+            raise
+        finally:
+            self.traces.finish(tr, error=err)
+
+    def _alter_locked(self, schema_text: str, drop_attr: str,
+                      drop_all: bool) -> None:
+        tenant = tnc.current()
+        with self._lock:
+            if drop_all:
+                attrs = set(self.store.predicates()) | \
+                    set(self.store.schema.predicates())
+                if tenant:
+                    # a tenant's drop_all empties ITS namespace only; the
+                    # default (admin) namespace keeps the whole-store drop
+                    attrs = {a for a in attrs
+                             if tnc.split(a)[0] == tenant}
+                for attr in attrs:
+                    self.store.delete_predicate(attr)
+                self._invalidate_snapshots()
+                return
+            if drop_attr:
+                self.store.delete_predicate(tnc.prefix(tenant, drop_attr))
+                self._invalidate_snapshots()
+                return
+            for e in parse_schema(schema_text):
+                if tenant:
+                    e.predicate = tnc.prefix(tenant, e.predicate)
+                old = self.store.schema.get(e.predicate)
+                self.store.set_schema(e)
+                if idx.needs_reindex(old, e):
+                    read_ts = self.zero.oracle.read_ts()
+                    commit_ts = self.zero.oracle.timestamps(1)
+                    idx.rebuild_index(self.store, e.predicate, read_ts, commit_ts)
+                    idx.rebuild_reverse(self.store, e.predicate, read_ts, commit_ts)
+                    idx.rebuild_count(self.store, e.predicate, read_ts, commit_ts)
+            self._invalidate_snapshots()
+
+    # -- memory management ---------------------------------------------------
+
+    def enforce_memory(self, budget_bytes: int) -> dict:
+        """Bring host and device memory under budget (residency slice)."""
+        raise _unported("Node.enforce_memory", "residency")
+
+    # -- live queries --------------------------------------------------------
+
+    def subscribe(self, q: str, variables: dict | None = None, *,
+                  cursor: int | None = None, queue_max: int | None = None):
+        """Register a standing query (wire slice)."""
+        raise _unported("Node.subscribe", "wire")
+
+    # -- ops -----------------------------------------------------------------
+
+    def health(self) -> dict:
+        return {"status": "healthy", "version": "dgraph-tpu",
+                "maxAssigned": self.zero.oracle.max_assigned}
+
+    def state(self) -> dict:
+        return self.zero.state()
+
+    def close(self) -> None:
+        self._rollup_stop.set()
+        self.slow_log.close()
+        self.store.close()

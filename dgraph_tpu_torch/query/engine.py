@@ -13,10 +13,14 @@ Ported: uid(...) and index root functions, uid and value children (lang
 chains, checkpwd, @facets reads, facet filters and facet variables), value,
 count and uid(...) filters under and/or/not, val()/math()/min/max/sum/avg,
 orderasc/orderdesc (index-ordered for a bounded single key), pagination,
-@cascade, @recurse, shortest paths (query/shortest.py). The mesh, batcher,
-caches, dispatch gate and planner of the JAX engine are not carried over.
-@groupby raises NotImplementedError naming its slice, and similar_to (in
-query/task.py) names the vector slice.
+@cascade, @recurse, shortest paths (query/shortest.py) and @groupby
+(query/groupby.py). The serving seams of the JAX Executor are here: the
+task dispatcher, the task-result cache, the dispatch gate (`gated`), the
+per-request edge limit, the per-task deadline check, otrace spans and
+cost-ledger attribution (`_traced_dispatch`), and the per-task hook
+(`on_task`). The planner (`plan`, `explain`), the mesh and the device
+batcher wait for their slices: passing one raises NotImplementedError
+naming it. similar_to (in query/task.py) names the vector slice.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ from typing import Any
 
 import numpy as np
 
+from dgraph_tpu_torch.obs import costs, otrace
 from dgraph_tpu_torch.ops import uidset as us
 from dgraph_tpu_torch.query import dql
 from dgraph_tpu_torch.query.task import TaskQuery, process_task
@@ -38,9 +43,11 @@ MAX_QUERY_EDGES = 1_000_000  # reference x/init.go:53 QueryEdgeLimit
 
 
 def set_query_edge_limit(n: int) -> None:
-    """Set the process-wide per-query traversed-edge budget (the
-    reference's --query_edge_limit flag); traversal modules read it through
-    ex.edge_budget(). The per-request override waits for the Node slice."""
+    """Set the process-default per-query traversed-edge budget (the
+    reference's --query_edge_limit server flag, x/config.go:18-24). The
+    module global is only the DEFAULT: an Executor built with edge_limit=N
+    (the per-request override, Node.query(edge_limit=...)) ignores it —
+    traversal modules read the effective budget via ex.edge_budget()."""
     global MAX_QUERY_EDGES
     MAX_QUERY_EDGES = int(n)
 
@@ -84,23 +91,142 @@ class SubGraph:
     traversed: int = 0
 
 
+def kernel_klass(q) -> str:
+    """Coarse kernel class of one TaskQuery for the gate's per-class EWMA
+    (root functions and frontier expands have very different step
+    times). The JAX package keeps this in query/batch.py, which waits for
+    the batching slice."""
+    if q.frontier is None:
+        return "root"
+    return "expand"
+
+
 class Executor:
     """Executes one parsed request against a snapshot; the device is the
-    snapshot's."""
+    snapshot's.
 
-    def __init__(self, snap: GraphSnapshot, schema: SchemaState):
+    The embedded single-process analog of the reference's server: no RPC —
+    the same code path their tests exercise via the in-process worker
+    (query/query_test.go TestMain, SURVEY.md §4).
+    """
+
+    def __init__(self, snap: GraphSnapshot, schema: SchemaState,
+                 dispatch=None, cache=None, gate=None,
+                 edge_limit: int | None = None,
+                 plan=None, explain: dict | None = None,
+                 mesh=None, batcher=None, on_task=None):
+        for name, arg, slice_name in (("plan", plan, "planner"),
+                                      ("explain", explain, "planner"),
+                                      ("mesh", mesh, "mesh"),
+                                      ("batcher", batcher, "batching")):
+            if arg is not None:
+                raise _unported(f"Executor({name}=...)", slice_name)
         self.snap = snap
         self.schema = schema
+        self.plan = None               # read by groupby (planner slice)
         self.vars: dict[str, VarValue] = {}
         self.traversed_edges = 0
+        # per-request edge budget override; None = module default (read
+        # dynamically so set_query_edge_limit still applies)
+        self.edge_limit = edge_limit
+        self.gate = gate               # DispatchGate | None
+        # task dispatch seam (ProcessTaskOverNetwork): the default executes
+        # against the local snapshot; a dispatcher may route each task
+        # elsewhere
+        self._remote = dispatch is not None
+        raw = dispatch or (
+            lambda q: process_task(self.snap, q, self.schema))
+        if gate is not None:
+            inner = raw
+            raw = lambda q, klass=None: gate.run(
+                lambda: inner(q),
+                klass=klass if klass is not None else kernel_klass(q))
+        if cache is not None:
+            from dgraph_tpu_torch.query.qcache import task_token
 
-    def _dispatch(self, q: TaskQuery):
-        return process_task(self.snap, q, self.schema)
+            # per-PREDICATE tokens (not per-snapshot): a commit to P rotates
+            # only P's task keys, so unrelated predicates keep their cache
+            # heat across writes (the delta-overlay tier's cache contract)
+            self._dispatch = lambda q: cache.dispatch(
+                task_token(snap, q), q, raw)
+        else:
+            self._dispatch = raw
+        self._dispatch = self._traced_dispatch(self._dispatch)
+        if on_task is not None:
+            # per-task accounting seam: the hook sees every dispatched
+            # task — cache tiers and gate run inside, so the elapsed time
+            # is what the caller experienced
+            inner_hooked = self._dispatch
+
+            def _counted(q, _inner=inner_hooked, _hook=on_task):
+                import time as _time
+
+                t0 = _time.monotonic()
+                res = _inner(q)
+                try:
+                    _hook(q, res, _time.monotonic() - t0)
+                except Exception:
+                    pass          # accounting must never fail a query
+                return res
+            self._dispatch = _counted
+
+    @staticmethod
+    def _traced_dispatch(inner):
+        """Span per task at the dispatch seam: cache tiers and the gate run
+        INSIDE the span, so cache hit/miss and wait time are attributed to
+        the task that caused them. One contextvar read when unsampled.
+
+        The per-task deadline check lives here too: a budgeted multi-hop
+        query gives up BETWEEN tasks the moment its budget runs out (typed
+        DeadlineExceeded) — even when every remaining task would be a
+        cache hit — instead of finishing work nobody is waiting for.
+
+        The cost ledger (obs/costs.py) attributes here as well: the task's
+        predicate scopes every device-kernel charge below, and the task's
+        traversed edges land on the per-predicate row — one contextvar
+        read when unarmed."""
+        from dgraph_tpu_torch.utils import deadline as _dl
+
+        def run_ledgered(q):
+            lg = costs.current()
+            if lg is None:
+                return inner(q)
+            attr = q.attr[1:] if q.attr.startswith("~") else q.attr
+            with lg.task(attr):
+                res = inner(q)
+            lg.add_task(attr, int(res.traversed_edges))
+            return res
+
+        def traced(q):
+            if _dl.current() is not None:      # unbudgeted: zero cost
+                _dl.check(f"task:{q.attr}")
+            if otrace.current() is None:
+                return run_ledgered(q)
+            attrs = {"attr": q.attr}
+            if q.func is not None:
+                attrs["func"] = q.func[0]
+            if q.frontier is not None:
+                attrs["frontier"] = int(len(q.frontier))
+            with otrace.span("task:" + q.attr, **attrs) as sp:
+                res = run_ledgered(q)
+                sp.set(dest=int(len(res.dest_uids)),
+                       edges=int(res.traversed_edges))
+                return res
+        return traced
 
     def edge_budget(self) -> int:
-        """Traversed-edge budget for this request (read at call time, so
-        set_query_edge_limit applies)."""
-        return MAX_QUERY_EDGES
+        """Effective traversed-edge budget for this request (read at call
+        time, so set_query_edge_limit applies)."""
+        return self.edge_limit if self.edge_limit is not None \
+            else MAX_QUERY_EDGES
+
+    def gated(self, fn, klass: str | None = None):
+        """Run a device-step closure through the dispatch gate when one is
+        installed (recurse kernel steps that bypass _dispatch). klass feeds
+        the gate's per-kernel-class EWMA so shed decisions use the right
+        step estimate."""
+        return self.gate.run(fn, klass=klass) if self.gate is not None \
+            else fn()
 
     # ------------------------------------------------------------------ API
 
@@ -154,9 +280,14 @@ class Executor:
         uids: list[np.ndarray] = []
         if gq.uids:
             want = np.unique(np.asarray(gq.uids, dtype=np.int64))
-            present = _known_uids(self.snap)
-            uids.append(want[np.isin(want, present)]
-                        if len(present) else want)
+            if self._remote:
+                # existence spans groups the local snapshot can't see;
+                # accept explicit uids as-is
+                uids.append(want)
+            else:
+                present = _known_uids(self.snap)
+                uids.append(want[np.isin(want, present)]
+                            if len(present) else want)
         for v in gq.root_uid_vars:
             vv = self.vars.get(v)
             if vv is not None and vv.uids is not None:
@@ -203,7 +334,11 @@ class Executor:
         if is_root:
             sg.dest_uids = self._apply_filter(gq.filter, sg.dest_uids)
         if gq.groupby is not None:
-            raise _unported("@groupby", "groupby")
+            from dgraph_tpu_torch.query.groupby import process_groupby
+
+            process_groupby(self, sg)
+            self._record_uid_var(gq, sg)
+            return
         if is_root:
             if gq.order:
                 sg.dest_uids = self._apply_order(gq, sg.dest_uids)
@@ -647,9 +782,27 @@ def _known_uids(snap: GraphSnapshot) -> np.ndarray:
         if pd.csr is not None:
             parts.append(np.asarray(
                 pd.csr.host_arrays()[2]).astype(np.int64))
-    out = np.unique(np.concatenate(parts)) if parts else np.zeros(0, np.int64)
+    out = _unique_uids(np.concatenate(parts)) if parts \
+        else np.zeros(0, np.int64)
     snap._known_uids_cache = out
     return out
+
+
+# _unique_uids takes the bitmap where the largest uid is below this many
+# times their count (bench_torch_crossover.py section 5 on the card's host)
+UNIQUE_BITMAP_SPREAD = 1
+
+
+def _unique_uids(uids: np.ndarray) -> np.ndarray:
+    """np.unique of int64 uids. Where they are dense (a snapshot's
+    subjects and objects name each uid many times over) one scatter into
+    a bitmap replaces the sort; the result is the same."""
+    if len(uids) and uids.min() >= 0 and \
+            uids.max() < UNIQUE_BITMAP_SPREAD * len(uids):
+        seen = np.zeros(int(uids.max()) + 1, dtype=bool)
+        seen[uids] = True
+        return np.flatnonzero(seen).astype(np.int64)
+    return np.unique(uids)
 
 
 def _match_any_rhs(op: str, val: Val, args: list) -> bool:

@@ -1,7 +1,6 @@
 """Result encoding: SubGraph tree → JSON-able dict.
 
-Port of dgraph_tpu/query/outputnode.py (pure host code, copied): the
-@groupby branch waits for its slice and raises.
+Port of dgraph_tpu/query/outputnode.py (pure host code, copied).
 Reference semantics: query/outputnode.go — preTraverse walks the SubGraph per
 root uid building the response tree (query/query.go:370), fastJsonNode writes
 it (:81-271), @normalize flattens aliased leaves (:296), ToJson (:43).
@@ -56,9 +55,8 @@ def encode_result(ex, sg, out: dict) -> None:
         encode_paths(ex, sg, out)
         return
     if sg.group_result is not None:
-        raise NotImplementedError(
-            "@groupby results are not ported yet: they wait for the groupby "
-            "slice of dgraph_tpu_torch")
+        out[alias] = [{"@groupby": sg.group_result}]
+        return
     nodes: list[dict] = []
     frontier = np.sort(sg.dest_uids)
     # @ignorereflex: a node never appears in its own subtree — an ancestor

@@ -25,6 +25,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from dgraph_tpu_torch.obs import costs
 from dgraph_tpu_torch.ops import pull_bfs as pb
 from dgraph_tpu_torch.query.engine import QueryError, SubGraph
 from dgraph_tpu_torch.query.task import TaskQuery
@@ -251,11 +252,14 @@ def recurse(ex, sg: SubGraph) -> None:
                 st = _kstate(cgq.attr, csr)
                 g = st["g"]
                 fmask = _seeds_mask(frontier, g.num_nodes, g.device)
-                dest_words, trav, seen2, fresh = pb.recurse_step(
-                    g.in_src_pad, g.in_iptr_rank, g.subjects,
-                    g.in_subjects, fmask, st["seen"],
-                    chunks=g.chunks, num_nodes=g.num_nodes,
-                    allow_loop=spec.allow_loop)
+                with costs.kernel("pb.recurse_step", attr=cgq.attr):
+                    dest_words, trav, seen2, fresh = ex.gated(
+                        lambda: pb.recurse_step(
+                            g.in_src_pad, g.in_iptr_rank, g.subjects,
+                            g.in_subjects, fmask, st["seen"],
+                            chunks=g.chunks, num_nodes=g.num_nodes,
+                            allow_loop=spec.allow_loop),
+                        klass="recurse")
                 st["seen"] = seen2
                 edges += int(trav)
                 if edges > ex.edge_budget():
@@ -302,11 +306,14 @@ def _recurse_fused_path(ex, sg: SubGraph, cgq, csr, depth: int,
     g = pb.pull_graph_for(csr)
     seeds = np.sort(np.asarray(sg.dest_uids, dtype=np.int64))
     seeds_mask = _seeds_mask(seeds, g.num_nodes, g.device)
-    masks_p, trav, fresh = pb.recurse_fused(
-        g.in_src_pad, g.in_src_pad_d, g.in_iptr_rank, g.subjects,
-        g.in_subjects, seeds_mask,
-        depth=depth, chunks=g.chunks, chunks_d=g.chunks_d,
-        allow_loop=allow_loop)
+    with costs.kernel("pb.recurse_fused", attr=cgq.attr):
+        masks_p, trav, fresh = ex.gated(
+            lambda: pb.recurse_fused(
+                g.in_src_pad, g.in_src_pad_d, g.in_iptr_rank, g.subjects,
+                g.in_subjects, seeds_mask,
+                depth=depth, chunks=g.chunks, chunks_d=g.chunks_d,
+                allow_loop=allow_loop),
+            klass="recurse")
     # one fetch for the whole traversal, bit-packed in dst-rank space (fresh
     # flags stay on the device until a uidMatrix is materialized)
     masks_h, trav_h = masks_p.cpu().numpy(), trav.cpu().numpy()

@@ -69,6 +69,10 @@ class TaskQuery:
     lang: str = ""
     facet_keys: list[str] = field(default_factory=list)  # non-empty: attach facets
     first: int = 0                          # per-uid result truncation
+    # override of the host/device expand cutover (0 = HOST_EXPAND_MAX);
+    # groupby pins key expansions to the host with it. Results are the
+    # same either way, so qcache.task_key leaves it out.
+    cutover: int = 0
 
 
 @dataclass
@@ -101,7 +105,8 @@ def _gather_rows_host(indptr_h: np.ndarray, indices_h: np.ndarray,
     return indices_h[pos].astype(np.int64)
 
 
-def _expand_overlay(ov, uids: np.ndarray) -> tuple[list[np.ndarray], int]:
+def _expand_overlay(ov, uids: np.ndarray,
+                    cutover: int = 0) -> tuple[list[np.ndarray], int]:
     """Merge-on-read expand over an OverlayCSR (storage/delta.py): gather
     the untouched rows from the unchanged base (host mirror at or below
     HOST_EXPAND_MAX edges, ops/csr.expand_masked on the base's device
@@ -116,7 +121,7 @@ def _expand_overlay(ov, uids: np.ndarray) -> tuple[list[np.ndarray], int]:
     base = ov.base
     if base is None or need_base == 0:
         base_targets = np.zeros(0, np.int64)
-    elif need_base <= HOST_EXPAND_MAX:
+    elif need_base <= (cutover or HOST_EXPAND_MAX):
         _, indptr_h, indices_h = base.host_arrays()
         base_targets = _gather_rows_host(indptr_h, indices_h, rb, deg_b,
                                          offs)
@@ -134,8 +139,8 @@ def _expand_overlay(ov, uids: np.ndarray) -> tuple[list[np.ndarray], int]:
     return matrix, total
 
 
-def _expand_csr(csr: PredCSR, uids: np.ndarray,
-                first: int = 0) -> tuple[list[np.ndarray], int]:
+def _expand_csr(csr: PredCSR, uids: np.ndarray, first: int = 0,
+                cutover: int = 0) -> tuple[list[np.ndarray], int]:
     """uidMatrix for a frontier over one adjacency: exact degree sum counted
     on the host indptr mirror, then the host gather (small) or one device
     gather at a pow2 capacity class (large); both give the same matrix. An
@@ -143,7 +148,7 @@ def _expand_csr(csr: PredCSR, uids: np.ndarray,
     if len(uids) == 0 or csr is None:
         return [np.zeros(0, np.int64) for _ in range(len(uids))], 0
     if isinstance(csr, OverlayCSR):
-        matrix, total = _expand_overlay(csr, uids)
+        matrix, total = _expand_overlay(csr, uids, cutover)
         return apply_first(matrix, first), total
     rows = rows_for_uids(csr, uids)
     _, indptr_h, indices_h = csr.host_arrays()
@@ -151,7 +156,7 @@ def _expand_csr(csr: PredCSR, uids: np.ndarray,
     ok = rows != us.SENTINEL32
     deg = np.where(ok, indptr_h[rc + 1] - indptr_h[rc], 0)
     need = int(deg.sum())
-    if need <= HOST_EXPAND_MAX:
+    if need <= (cutover or HOST_EXPAND_MAX):
         offs = np.zeros(len(uids) + 1, dtype=np.int64)
         np.cumsum(deg, out=offs[1:])
         targets = _gather_rows_host(indptr_h, indices_h, rows, deg, offs)
@@ -332,7 +337,7 @@ def process_task(snap: GraphSnapshot, q: TaskQuery,
     # ---- frontier + uid-edge predicate: expand ----------------------------
     if pd.type_id == TypeID.UID or pd.csr is not None or q.reverse:
         csr = pd.rev_csr if q.reverse else pd.csr
-        matrix, traversed = _expand_csr(csr, frontier, q.first) \
+        matrix, traversed = _expand_csr(csr, frontier, q.first, q.cutover) \
             if csr is not None else (
             [np.zeros(0, np.int64) for _ in frontier], 0)
         return finish_uid_expand(pd, q, frontier, matrix, traversed)

@@ -1,6 +1,8 @@
 """Durable posting store: in-memory map + append-only WAL + packed snapshots.
 
-Copy of dgraph_tpu/storage/store.py for the PyTorch port.
+Copy of dgraph_tpu/storage/store.py for the PyTorch port. Its eager
+DGTS3 load reads each tablet's row bounds as Python ints once per section,
+not per row; the loaded lists are the same as the JAX store's.
 
 Replaces the reference's embedded badger LSM (vendor/github.com/dgraph-io/
 badger) for the posting space. The reference relies on badger's managed MVCC
@@ -1344,16 +1346,17 @@ class Store:
             post_blob = post_blob_arr.tobytes()
             k0 = b0 = w0 = p0 = 0
             preds = self.by_pred.setdefault((kind, attr), set())
-            for i in range(N):
-                k1, b1 = int(kends[i]), int(bends[i])
-                w1, p1 = int(wends[i]), int(pends[i])
+            # row bounds as Python ints once per section, not per row
+            rows = zip(kends.tolist(), bends.tolist(), wends.tolist(),
+                       pends.tolist(), base_ts.tolist(), counts.tolist())
+            for k1, b1, w1, p1, ts_i, count_i in rows:
                 kb = keys_blob[k0:k1]
                 pl = PostingList()
-                pl.base_ts = int(base_ts[i])
+                pl.base_ts = ts_i
                 # zero-copy slices of the shared (read-only) buffers:
                 # packed bases are immutable — rollup REPLACES base_packed
                 pl.base_packed = packed.PackedUidList(
-                    int(counts[i]), bfirst[b0:b1], blast[b0:b1],
+                    count_i, bfirst[b0:b1], blast[b0:b1],
                     bcount[b0:b1], bwidth[b0:b1], boff[b0:b1], words[w0:w1])
                 if p1 > p0:
                     pl.base_postings = {

@@ -1,7 +1,6 @@
 """Faultline: seeded fault injection at the system's real seams.
 
-Copy of dgraph_tpu/utils/faults.py for the PyTorch port, without the
-trace event a firing point emits (the port has no tracer yet).
+Copy of dgraph_tpu/utils/faults.py for the PyTorch port.
 
 Reference analog: the reference proves its failure handling with systest
 clusters that kill/partition real processes; conn/pool.go Echo failures
@@ -168,8 +167,10 @@ class FaultRegistry:
                 m.counter("dgraph_fault_injected_total").inc()
             except Exception:
                 pass
+        from ..obs import otrace
         from . import deadline as dl
 
+        otrace.event("fault_injected", point=name, mode=mode)
         if delay_s > 0:
             # an in-process delay is synchronous on the request thread, so
             # the deadline cannot preempt it — clamp the injected sleep to

@@ -343,15 +343,11 @@ def test_fused_path_one_call(kernels_on, monkeypatch):
 
 
 def test_unported_branches_raise():
-    """What is still unported: @groupby (groupby slice) and similar_to, at
-    the root or in a filter (vector slice)."""
+    """What is still unported: similar_to, at the root or in a filter
+    (vector slice)."""
     _, tsnap = _both(_graph())
     _, ts = _schemas()
     for q, slice_name in (
-            ('{ q(func: uid(0x1)) @groupby(follow) { count(uid) } }',
-             "groupby"),
-            ('{ q(func: uid(0x1)) { follow @groupby(knows) { count(uid) } } }',
-             "groupby"),
             ('{ q(func: similar_to(follow, "[1, 2]", 2)) { uid } }',
              "vector"),
             ('{ q(func: uid(0x1, 0x2)) @filter(similar_to(follow, "[1, 2]", 2)) '
@@ -469,3 +465,31 @@ def test_port_sources_import_no_jax():
                     bad.append(f"{path.relative_to(REPO)}: {name}")
     assert bad == []
     assert (REPO / "dgraph_tpu_torch" / "query" / "engine.py").exists()
+
+
+@pytest.mark.parametrize("scale,ef,seed", [(6, 4, 1), (10, 16, 7), (12, 8, 9),
+                                           (14, 16, 3)])
+def test_rmat_matches_jax(scale, ef, seed):
+    """The port's generator (a packed 1-D dedup) gives the JAX package's
+    edges and CSR exactly."""
+    from dgraph_tpu.models import rmat as jrmat
+    from dgraph_tpu_torch.models import rmat as trmat
+
+    assert np.array_equal(trmat.rmat_edges(scale, ef, seed=seed),
+                          jrmat.rmat_edges(scale, ef, seed=seed))
+    assert np.array_equal(trmat.rmat_edges(scale, ef, seed=seed, dedup=False),
+                          jrmat.rmat_edges(scale, ef, seed=seed, dedup=False))
+    for got, want in zip(trmat.rmat_csr(scale, ef, seed=seed),
+                         jrmat.rmat_csr(scale, ef, seed=seed)):
+        assert got.dtype == want.dtype and np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("n,hi", [(0, 1), (1, 1), (50, 10), (1000, 800),
+                                  (1000, 1000), (1000, 8000), (1000, 1 << 40)])
+def test_unique_uids_equals_np_unique(n, hi):
+    """engine._unique_uids (a bitmap where the uids are dense) is
+    np.unique, on both sides of its density rule."""
+    rng = np.random.default_rng(n + hi)
+    uids = rng.integers(0, hi, n).astype(np.int64)
+    got = teng._unique_uids(uids)
+    assert got.dtype == np.int64 and np.array_equal(got, np.unique(uids))

@@ -65,7 +65,7 @@ def _golden_module():
 GOLDEN = _golden_module()
 EXPECTED = json.loads((REPO / "tests" / "golden" / "expected.json")
                       .read_text())
-BATTERY = [(n, q) for n, q in GOLDEN.QUERIES if n != "groupby"]
+BATTERY = list(GOLDEN.QUERIES)
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -56,7 +56,7 @@ def _golden_module():
 GOLDEN = _golden_module()
 EXPECTED = json.loads((REPO / "tests" / "golden" / "expected.json")
                       .read_text())
-BATTERY = [(n, q) for n, q in GOLDEN.QUERIES if n != "groupby"]
+BATTERY = list(GOLDEN.QUERIES)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -148,15 +148,8 @@ def test_golden_battery_byte_identical(golden, union_path, name, q):
 
 
 def test_golden_battery_covers_the_file():
-    assert len(BATTERY) == 37
+    assert len(BATTERY) == 38
     assert {n for n, _ in GOLDEN.QUERIES} == set(EXPECTED)
-
-
-def test_groupby_raises_naming_its_slice(golden):
-    q = dict(GOLDEN.QUERIES)["groupby"]
-    _, _, tsnap, ts = golden
-    with pytest.raises(NotImplementedError, match="groupby slice"):
-        teng.Executor(tsnap, ts).execute(tdql.parse(q))
 
 
 # shapes the battery leaves out: geo and datetime output, ordering by a
@@ -497,3 +490,26 @@ def test_recurse_value_children_kernel_path(rmat_state, monkeypatch, shape):
     assert got == want
     assert calls["step"] > 0
     assert len(json.loads(got)["q"]) > 0
+
+
+def test_term_tokens_equal_jax():
+    """The port's term tokenizer gives the JAX package's terms: ASCII with
+    every punctuation and control character, digits and case, and
+    non-ASCII text."""
+    from dgraph_tpu.utils import tok as jtok
+    from dgraph_tpu.utils.types import TypeID as JT, Val as JV
+    from dgraph_tpu_torch.utils import tok as ttok
+
+    rng = np.random.default_rng(29)
+    ascii_all = "".join(chr(c) for c in range(128))
+    texts = [ascii_all, ascii_all[::-1], "", "   ", "p17 wab wcd WEF",
+             "Hello, World! 3.14 e=mc^2 _under_score_ tab\there",
+             "Ünïcödé café naïve — résumé", "日本語 テキスト 123", "ﬁne ﬂow Ⅻ"]
+    for _ in range(200):
+        k = int(rng.integers(0, 40))
+        pool = ascii_all if rng.random() < 0.7 else ascii_all + "éßΩ–ﬁ"
+        texts.append("".join(pool[int(i)] for i in
+                             rng.integers(0, len(pool), k)))
+    for t in texts:
+        assert ttok._term_tokens(Val(TypeID.STRING, t)) == \
+            jtok._term_tokens(JV(JT.STRING, t)), repr(t)
