@@ -54,7 +54,7 @@ it:
      codec, Store.bulk_install), folds it eagerly (held to the input
      arrays), runs phase 4's @recurse over a SnapshotAssembler's lazy
      folds (levels equal to phase 4's, K1 and K2 launched), commits a
-     seeded write program of 64 transactions (one more aborted) through
+     seeded write program of COMMITS transactions (one more aborted) through
      rdf -> mutation -> Store.commit with a one-uid probe after each
      (commit-to-visible ms; every commit stamped as a delta overlay over
      base tensors that keep their device pointers), then over the last
@@ -82,7 +82,22 @@ it:
      launched) and request (a), each byte-identical to phase 8's JSON over
      its compaction, and reads back SERVE_TXNS of its own transactions
      (commit-to-visible through the Node);
-  10. prints the card line, a {"kernels": [...]} line and the final
+  10. (inside phase 9, after its two requests and before its
+     transactions) puts the wire in front of the serving Node: first
+     `python -m dgraph_tpu_torch serve` as a user starts it (--device left
+     at cuda), held to the golden battery over HTTP and over gRPC, with a
+     conflicting pair (409), /metrics parsed and /admin/shutdown (exit 0);
+     then the port's HTTP and gRPC servers over phase 9's Node: phase 5's
+     @recurse over HTTP (K1/K2 launches read around it, `launches_wire`)
+     and phase 7b's request (a) over gRPC, each byte-identical to phase
+     8's JSON over its compaction, and /subscribe SSE streams on one uid
+     (a one-hop read under WIRE_COMMITS commits over HTTP, and for the
+     last an @recurse whose re-evaluation launches K1/K2), each commit
+     delivering one diff event at its timestamp that equals the diff
+     applied and a read-only query at that timestamp; every reply's
+     status is checked with its payload (the CLI starts before phase 9
+     opens its Node, so its start overlaps that open);
+  11. prints the card line, a {"kernels": [...]} line and the final
      {"ok": true, "device": {...}} line.
 Any mismatch raises and the script exits non-zero. It never imports jax or
 the JAX package.
@@ -122,9 +137,10 @@ name: string @index(exact, term) .
 """
 VOCAB = tuple(f"w{chr(97 + i // 8)}{chr(97 + i % 8)}" for i in range(64))
 # phase 8: the headline graph and age in the port's Store, then a seeded
-# program of COMMITS transactions over a pool of COMMIT_POOL subjects
+# program of COMMITS transactions over a pool of COMMIT_POOL subjects (32
+# transactions since phase 10 came: the script's time limit, a cut of scale)
 STORE_SCHEMA = "friend: [uid] @reverse .\nage: int @index(int) ."
-COMMITS, COMMIT_POOL = 64, 32
+COMMITS, COMMIT_POOL = 32, 32
 # the overlay expand adds the largest rows to the seeds until the base side
 # alone passes this many edges (past task.HOST_EXPAND_MAX: the device gather)
 EXPAND_EDGES = 300_000
@@ -141,6 +157,9 @@ GROUPBY_VALUE = ("{ var(func: has(age)) @filter(le(age, %d)) { b as age } "
                  "mean: avg(val(b)) } }" % GROUPBY_AGE_MAX)
 # phase 9: read-your-writes transactions through the Node
 SERVE_TXNS = 8
+# phase 10: commits over HTTP under two live subscriptions on one uid of
+# phase 7b's set, the one whose two-hop edge count is nearest WIRE_TWO_HOP
+WIRE_COMMITS, WIRE_TWO_HOP = 4, 20_000
 
 
 def host_3hop(subjects, indptr, indices, seeds, hops=3):
@@ -750,16 +769,33 @@ def main() -> int:
         say("storage_phase", seconds=time.perf_counter() - t0,
             script_seconds=time.perf_counter() - t_start)
 
-        # ---- 9. serving through the Node ------------------------------------
+        # ---- 9. serving through the Node, and 10. the wire -------------------
+        def wire(node):
+            """Phase 10, run inside phase 9 over its Node's state."""
+            t0 = time.perf_counter()
+            cli_out = cli_phase(cli, dev)
+            wire_launches = wire_phase(node, served, json_recurse, wide,
+                                       (subjects, indptr, indices), dev)
+            say("wire_phase", seconds=time.perf_counter() - t0,
+                cli_seconds=cli_out["seconds"],
+                script_seconds=time.perf_counter() - t_start)
+            return wire_launches
+
         t0 = time.perf_counter()
-        serve_launches = serve_phase(ckpt_dir, served, wide, json_recurse,
-                                     1 << SCALE, dev)
+        cli = CliServer()
+        try:
+            serve_launches, wire_launches = serve_phase(
+                ckpt_dir, served, wide, json_recurse, 1 << SCALE, dev, wire)
+        finally:
+            cli.stop()
         for name, n in serve_launches.items():
             kernels[name]["launches_serve"] = n
+        for name, n in wire_launches.items():
+            kernels[name]["launches_wire"] = n
         say("serve_phase", seconds=time.perf_counter() - t0,
             script_seconds=time.perf_counter() - t_start)
 
-    # ---- 10. summary lines -------------------------------------------------
+    # ---- 11. summary lines -------------------------------------------------
     kern_line = {"kernels": [
         {k: v for k, v in kernels[n].items() if k not in ("e_pad", "stream")}
         for n in ("active_prefix", "active_prefix_sparse")]}
@@ -1626,15 +1662,17 @@ def storage_phase(snap4, schema4, csr, rev, seeds, expand_seeds, wide,
             {"recurse": rec_json, "groupby_uid": gb_json})
 
 
-def serve_phase(ckpt_dir, expected, wide, json_recurse, n_ids, dev) -> dict:
+def serve_phase(ckpt_dir, expected, wide, json_recurse, n_ids, dev,
+                wire) -> dict:
     """Phase 9: serving through the port's Node on the card. The golden
     battery through alter -> mutate -> query (every answer equal to
     tests/golden/expected.json), an upsert and a conflicting pair; then a
     Node opened over phase 8's checkpoint serves phase 5's one-uid
     @recurse (K1 or K2 launched) and phase 7b's request (a), each
-    byte-identical to phase 8's JSON over its compaction, and reads back
+    byte-identical to phase 8's JSON over its compaction, hands itself to
+    `wire(node)` (phase 10's servers, over the same state), and reads back
     SERVE_TXNS transactions of its own (commit-to-visible). Returns the
-    K1/K2 launches of the @recurse request."""
+    K1/K2 launches of the @recurse request and what `wire` returned."""
     import torch
 
     from dgraph_tpu_torch.api.server import Node
@@ -1711,6 +1749,9 @@ def serve_phase(ckpt_dir, expected, wide, json_recurse, n_ids, dev) -> dict:
         gb_json, gb_first_ms = timed_query(node, groupby_uid_text(wide))
         if gb_json != expected["groupby_uid"]:
             fail("groupby_uid", "JSON differs from phase 8's compaction")
+        t_wire = time.perf_counter()
+        wired = wire(node)
+        wire_s = time.perf_counter() - t_wire
 
         # read-your-writes: SERVE_TXNS commits, each probed right after
         rng = np.random.default_rng(17)
@@ -1740,9 +1781,442 @@ def serve_phase(ckpt_dir, expected, wide, json_recurse, n_ids, dev) -> dict:
             groupby_uid_json_bytes=len(gb_json),
             first_query_since_open_ms=node.metrics.counter(
                 "dgraph_first_query_ms").value,
-            phase_seconds=time.perf_counter() - t_phase)
+            phase_seconds=time.perf_counter() - t_phase - wire_s,
+            wire_seconds=wire_s)
     finally:
         node.close()
+    return launches, wired
+
+
+def http_call(port, method, path, body=None, headers=None, timeout=300):
+    """(status, body bytes) of one request to 127.0.0.1:port."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        if isinstance(body, (dict, list)):
+            body = json.dumps(body)
+            headers = {"Content-Type": "application/json", **(headers or {})}
+        conn.request(method, path, body=body, headers=headers or {})
+        r = conn.getresponse()
+        return r.status, r.read()
+    finally:
+        conn.close()
+
+
+class CliServer:
+    """`python -m dgraph_tpu_torch serve` started as a user starts it, with
+    --device at its default, its output read by a thread that stamps each
+    line's arrival. Started before phase 9 opens its Node, so its start
+    (torch import, CUDA context) overlaps that open; stop() kills it if it
+    is still running."""
+
+    def __init__(self):
+        import queue
+        import socket
+        import threading
+
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            self.gport = sock.getsockname()[1]
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "dgraph_tpu_torch", "serve", "--port", "0",
+             "--grpc_port", str(self.gport)],
+            cwd=Path(__file__).resolve().parent, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+        self.lines: queue.Queue = queue.Queue()
+        self.log: list[str] = []
+        self.reader = threading.Thread(target=self._pump, daemon=True)
+        self.reader.start()
+
+    def _pump(self):
+        for ln in self.proc.stdout:
+            self.log.append(ln)
+            self.lines.put((time.perf_counter(), ln))
+        self.lines.put((time.perf_counter(), None))
+
+    def stop(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(timeout=30)
+        self.reader.join(timeout=10)
+
+
+def cli_phase(cli: CliServer, dev) -> dict:
+    """Phase 10 (a): the CLI server of `cli`; its HTTP banner must name
+    `dev`. Over its HTTP port: /alter the golden schema, /mutate its
+    N-Quads with commitNow, the 38 golden queries (data equal to
+    expected.json), a conflicting pair (409) and /metrics parsed as
+    Prometheus text; over its gRPC port, through the port's client, the 38
+    queries again (json equal to expected.json); then /admin/shutdown, and
+    the process exits 0. Every reply's status is checked with its payload:
+    the handler turns any exception, a device error included, into a 400
+    envelope."""
+    import queue
+
+    import grpc
+
+    from dgraph_tpu_torch.api.grpc_client import DgraphClient
+    from dgraph_tpu_torch.obs import prom
+    from dgraph_tpu_torch.protos import api_pb2 as pbm
+
+    def fail(what, msg):
+        raise SystemExit(f"wire_cli {what}: {msg}")
+
+    def ok(status, body, what):
+        if status != 200:
+            fail(what, f"status {status}: {body[:300]!r}")
+        return json.loads(body)
+
+    t_phase = time.perf_counter()
+    proc, gport, log = cli.proc, cli.gport, cli.log
+    client = None
+    try:
+        banners = {}
+        while len(banners) < 2:
+            try:
+                t_line, ln = cli.lines.get(timeout=180)
+            except queue.Empty:
+                fail("start", f"no banners in 180 s: {''.join(log)[-2000:]}")
+            if ln is None:
+                fail("start", f"exited {proc.wait()}: {''.join(log)[-2000:]}")
+            for role in ("gRPC", "HTTP"):
+                if ln.startswith(f"serving {role} on "):
+                    banners[role] = ln
+        start_s = t_line - cli.t0
+        hport = int(banners["HTTP"].split()[3].rsplit(":", 1)[1])
+        if f"device={dev}" not in banners["HTTP"].split():
+            fail("start", f"the server is not on {dev}: {banners['HTTP']}")
+        if not banners["gRPC"].startswith(f"serving gRPC on 127.0.0.1:{gport}"):
+            fail("start", f"gRPC banner {banners['gRPC']!r}")
+
+        t_steps = time.perf_counter()
+        schema_text, nquads, queries, want = golden_battery()
+        if sorted(n for n, _ in queries) != sorted(want):
+            fail("golden", "the battery and expected.json name other queries")
+        ok(*http_call(hport, "POST", "/alter", schema_text), "alter")
+        out = ok(*http_call(hport, "POST", "/mutate?commitNow=true",
+                            "{ set {\n" + nquads + "\n} }"), "mutate")
+        if not out["extensions"]["txn"]["commit_ts"]:
+            fail("mutate", f"not committed: {out}")
+        for name, q in queries:
+            got = ok(*http_call(hport, "POST", "/query", q), name)["data"]
+            if got != want[name]:
+                fail("golden_http", f"{name} differs from expected.json")
+        channel = grpc.insecure_channel(f"127.0.0.1:{gport}")
+        client = DgraphClient(channel=channel)
+        grpc.channel_ready_future(channel).result(timeout=60)
+        for name, q in queries:
+            resp = client._query(pbm.Request(query=q, read_only=True),
+                                 timeout=120)
+            if json.loads(resp.json) != want[name]:
+                fail("golden_grpc", f"{name} differs from expected.json")
+        t1, t2 = (ok(*http_call(hport, "POST", "/mutate",
+                                '{ set { <0x1000> <email> "%s@films.io" . } }'
+                                % who), "txn")["extensions"]["txn"]["start_ts"]
+                  for who in ("one", "two"))
+        ok(*http_call(hport, "POST", f"/commit?startTs={t1}"), "commit")
+        st, body = http_call(hport, "POST", f"/commit?startTs={t2}")
+        if st != 409 or json.loads(body)["errors"][0]["code"] != \
+                "ErrorAborted":
+            fail("conflict", f"status {st}: {body[:300]!r}")
+        got = ok(*http_call(hport, "POST", "/query",
+                            "{ q(func: uid(0x1000)) { email } }"), "readback")
+        if got["data"] != {"q": [{"email": "one@films.io"}]}:
+            fail("conflict", f"the first committer's write reads {got}")
+        st, body = http_call(hport, "GET", "/metrics")
+        series = prom.parse(body.decode()) if st == 200 else {}
+        served = series.get("dgraph_num_queries_total", [({}, 0)])[0][1]
+        if served < 2 * len(queries) + 1:
+            fail("metrics", f"status {st}, {served} queries counted")
+        ok(*http_call(hport, "POST", "/admin/shutdown"), "shutdown")
+        rc = proc.wait(timeout=120)
+        if rc != 0:
+            fail("shutdown", f"exit code {rc}: {''.join(log)[-2000:]}")
+        steps_s = time.perf_counter() - t_steps
+    finally:
+        if client is not None:
+            client.close()
+        cli.stop()
+    out = {"start_seconds": start_s, "steps_seconds": steps_s,
+           "queries": 2 * len(queries), "metric_series": len(series),
+           "seconds": time.perf_counter() - t_phase}
+    say("wire_cli", **out)
+    return out
+
+
+def apply_diff(old: dict, diff: dict | None) -> dict:
+    """A live event's diff applied to the result before it: entries with a
+    uid are matched by uid, the others as a multiset of encodings (the
+    rules of live/diff.py, written out again here)."""
+    from dgraph_tpu_torch.live.diff import canon
+
+    new = {k: list(v) if isinstance(v, list) else v for k, v in old.items()}
+    for block, d in (diff or {}).items():
+        if not isinstance(new.get(block, []), list):
+            new[block] = d["changed"][0]
+            continue
+        rows = new.get(block, [])
+        gone_uid = {e["uid"] for e in d["removed"] + d["changed"]
+                    if isinstance(e, dict) and "uid" in e}
+        gone_anon = [canon(e) for e in d["removed"]
+                     if not (isinstance(e, dict) and "uid" in e)]
+        kept = []
+        for e in rows:
+            if isinstance(e, dict) and e.get("uid") in gone_uid:
+                continue
+            if canon(e) in gone_anon:
+                gone_anon.remove(canon(e))
+                continue
+            kept.append(e)
+        new[block] = kept + d["changed"] + d["added"]
+    return new
+
+
+def same_rows(a: dict, b: dict) -> bool:
+    """Two results equal up to the order of each block's top-level rows."""
+    from dgraph_tpu_torch.live.diff import canon
+
+    def norm(r):
+        return canon({k: sorted((canon(e) for e in v)) if isinstance(v, list)
+                      else v for k, v in r.items()})
+    return norm(a) == norm(b)
+
+
+def wire_phase(node, expected, json_recurse, wide, csr, dev) -> dict:
+    """Phase 10 (b): the headline graph over the wire. The port's HTTP and
+    gRPC servers go in front of phase 9's Node (its state is phase 8's
+    checkpoint): phase 5's one-uid @recurse over HTTP, byte-identical to
+    phase 8's JSON over the compaction, with K1/K2 launches read around it;
+    phase 7b's request (a) over gRPC, equal to it too. The Node's result
+    cache is emptied before each, so each executes (phase 9 sent the same
+    texts). Then a /subscribe SSE stream on a one-hop `friend` read of a
+    uid x of `wide`, and WIRE_COMMITS commits over HTTP that add friends
+    to x (one also deletes one); before the last, a second stream on an
+    @recurse(depth: 2) from x, whose re-evaluation runs K1/K2. Each commit
+    delivers one diff event on each open stream at the commit's
+    timestamp, whose result equals the diff applied to the result before
+    it, a fresh read-only query at that timestamp, and (the one-hop read)
+    the friend set the commits made. Launches are read around each
+    commit, with no other traffic. Returns the K1/K2 launches of the HTTP
+    @recurse."""
+    import queue
+    import threading
+
+    import grpc
+    import torch
+
+    from dgraph_tpu_torch.api.grpc_client import DgraphClient
+    from dgraph_tpu_torch.api.grpc_server import serve_grpc
+    from dgraph_tpu_torch.api.http import make_server
+    from dgraph_tpu_torch.live.diff import canon
+    from dgraph_tpu_torch.ops import prefix as px
+    from dgraph_tpu_torch.protos import api_pb2 as pbm
+
+    sync = torch.cuda.synchronize
+    t_phase = time.perf_counter()
+    subjects, indptr, indices = csr
+
+    def fail(what, msg):
+        raise SystemExit(f"wire {what}: {msg}")
+
+    srv = make_server(node, "127.0.0.1", 0)
+    serving = threading.Thread(target=srv.serve_forever, daemon=True)
+    serving.start()
+    gsrv, gport = serve_grpc(node, "127.0.0.1:0")
+    port = srv.server_address[1]
+    channel = grpc.insecure_channel(
+        f"127.0.0.1:{gport}",
+        options=[("grpc.max_receive_message_length", -1)])
+    client = DgraphClient(channel=channel)
+    streams: list = []
+    sids: list = []
+    try:
+        # ---- phase 5's @recurse over HTTP ----------------------------------
+        node.result_cache.clear()
+        sync()
+        px.reset_launches()
+        t0 = time.perf_counter()
+        st, rec_body = http_call(port, "POST", "/query", json_recurse)
+        http_ms = (time.perf_counter() - t0) * 1e3
+        sync()
+        launches = dict(px.LAUNCHES)
+        if st != 200:
+            fail("recurse", f"status {st}: {rec_body[:300]!r}")
+        if not rec_body.startswith(b'{"data": ' + expected["recurse"].encode()
+                                   + b', "extensions": '):
+            fail("recurse", "data differs from phase 8's compaction")
+        if not any(launches.values()):
+            fail("recurse", f"launched neither K1 nor K2: {launches}")
+        http_server_ms = json.loads(rec_body)["extensions"][
+            "server_latency"]["total_ns"] / 1e6
+
+        # ---- phase 7b's request (a) over gRPC -------------------------------
+        grpc.channel_ready_future(channel).result(timeout=60)
+        node.result_cache.clear()
+        t0 = time.perf_counter()
+        resp = client._query(pbm.Request(query=groupby_uid_text(wide),
+                                         read_only=True), timeout=600)
+        grpc_ms = (time.perf_counter() - t0) * 1e3
+        if resp.json.decode() != expected["groupby_uid"]:
+            fail("groupby_uid", "json differs from phase 8's compaction")
+        grpc_server_ms = resp.latency.total_ns / 1e6
+
+        # ---- live subscriptions over SSE ------------------------------------
+        deg = np.diff(indptr)
+        row = {int(u): i for i, u in enumerate(subjects)}
+
+        def two_hop(u):
+            i = row.get(int(u))
+            if i is None:
+                return 0
+            nb = indices[indptr[i]: indptr[i + 1]]
+            return int(deg[i]) + sum(int(deg[row[int(v)]]) for v in nb
+                                     if int(v) in row)
+        cands = [u for u in wide if int(u) in row and deg[row[int(u)]] >= 4]
+        x = min(cands, key=lambda u: (abs(two_hop(u) - WIRE_TWO_HOP), u))
+        q_read = "{ q(func: uid(%s)) { uid friend { uid } } }" % hex(int(x))
+        q_rec = ("{ q(func: uid(%s)) @recurse(depth: 2) { uid friend } }"
+                 % hex(int(x)))
+
+        def subscribe(q):
+            import http.client
+
+            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+            conn.request("POST", "/subscribe",
+                         json.dumps({"query": q, "heartbeat_s": 5}),
+                         {"Content-Type": "application/json"})
+            r = conn.getresponse()
+            if r.status != 200:
+                fail("subscribe", f"status {r.status}: {r.read()[:300]!r}")
+            events: queue.Queue = queue.Queue()
+
+            def pump(fp=r.fp):
+                kind = None
+                try:
+                    while True:
+                        ln = fp.readline()
+                        if not ln:
+                            break
+                        ln = ln.decode().rstrip("\n")
+                        if ln.startswith("event: "):
+                            kind = ln[7:]
+                        elif ln.startswith("data: "):
+                            events.put((time.perf_counter(), kind,
+                                        json.loads(ln[6:])))
+                except (OSError, ValueError):      # the stream was closed
+                    pass
+                events.put(None)
+
+            th = threading.Thread(target=pump, daemon=True)
+            th.start()
+            streams.append((conn, r, th))
+            return events
+
+        def next_event(events, what):
+            try:
+                item = events.get(timeout=300)
+            except queue.Empty:
+                fail(what, "no event within 300 s")
+            if item is None:
+                fail(what, "the stream closed")
+            return item
+
+        state, queries, open_s = {}, {}, {}
+
+        def open_sub(what, q):
+            t0 = time.perf_counter()
+            events = subscribe(q)
+            _t, kind, ev = next_event(events, what)
+            if kind != "init":
+                fail(what, f"first event {kind}")
+            state[what], queries[what] = ev["result"], (events, q)
+            sids.append(ev["sub"])
+            open_s[what] = time.perf_counter() - t0
+
+        t_subs = time.perf_counter()
+        open_sub("read", q_read)
+        friends = {int(e["uid"], 16)
+                   for e in state["read"]["q"][0].get("friend", [])}
+        rng = np.random.default_rng(19)
+        notify = {"read": [], "recurse": []}
+        commit_launches = []
+        for i in range(WIRE_COMMITS):
+            if i == WIRE_COMMITS - 1:
+                # the @recurse joins for the last commit: every commit
+                # wakes it, and each re-evaluation over a new overlay
+                # pays a merged prep_pull (PERF.md section 5)
+                open_sub("recurse", q_rec)
+            fresh = [int(o) for o in rng.choice(subjects, 8, replace=False)
+                     if int(o) not in friends][:2]
+            gone = [min(friends)] if i == WIRE_COMMITS // 2 else []
+            quads = lambda objs: " ".join(
+                f"<{hex(int(x))}> <friend> <{hex(o)}> ." for o in objs)
+            text = "{ set { %s } delete { %s } }" % (quads(fresh),
+                                                     quads(gone))
+            sync()
+            px.reset_launches()
+            st, body = http_call(port, "POST", "/mutate?commitNow=true", text)
+            t_resp = time.perf_counter()
+            if st != 200:
+                fail("commit", f"status {st}: {body[:300]!r}")
+            ts = json.loads(body)["extensions"]["txn"]["commit_ts"]
+            friends = (friends | set(fresh)) - set(gone)
+            for what, (events, q) in queries.items():
+                t_ev, kind, ev = next_event(events, what)
+                if kind != "diff" or ev["at"] != ts:
+                    fail(what, f"commit {i} at ts {ts}: got {kind} at "
+                               f"{ev.get('at')}")
+                if not same_rows(apply_diff(state[what], ev["diff"]),
+                                 ev["result"]):
+                    fail(what, f"commit {i}: the diff does not give the "
+                               f"result")
+                node.result_cache.clear()
+                fresh_read = node.query(q, start_ts=ts, read_only=True)[0]
+                if canon(fresh_read) != canon(ev["result"]):
+                    fail(what, f"commit {i}: the event differs from a "
+                               f"read-only query at {ts}")
+                state[what] = ev["result"]
+                notify[what].append((t_ev - t_resp) * 1e3)
+            sync()
+            commit_launches.append(dict(px.LAUNCHES))
+            got = {int(e["uid"], 16)
+                   for e in state["read"]["q"][0].get("friend", [])}
+            if got != friends:
+                fail("read", f"commit {i}: friends of {hex(int(x))} are not "
+                             f"what the commits made")
+        if not any(commit_launches[-1].values()):
+            fail("recurse", f"its re-evaluation launched neither K1 nor "
+                            f"K2: {commit_launches}")
+        subs_s = time.perf_counter() - t_subs
+    finally:
+        # cancelled subscriptions end their streams from the server's side
+        for sid in sids:
+            node.live.cancel(sid)
+        for conn, r, th in streams:
+            th.join(timeout=30)
+            r.close()
+            conn.close()
+        client.close()
+        gsrv.stop(0)
+        srv.shutdown()
+        srv.server_close()
+        serving.join(timeout=30)
+    say("wire", device=str(dev), launches=launches,
+        http_recurse_ms=http_ms, http_recurse_server_ms=http_server_ms,
+        http_recurse_wire_ms=http_ms - http_server_ms,
+        http_recurse_bytes=len(rec_body),
+        grpc_groupby_ms=grpc_ms, grpc_groupby_server_ms=grpc_server_ms,
+        grpc_groupby_wire_ms=grpc_ms - grpc_server_ms,
+        grpc_groupby_bytes=len(resp.json),
+        subscription_uid=hex(int(x)), subscription_two_hop=two_hop(x),
+        subscription_open_seconds=open_s,
+        recurse_init_bytes=len(canon(state["recurse"])),
+        subscription_notify_ms={k: band(v) for k, v in notify.items()},
+        subscription_notify_samples_ms=notify, commits=WIRE_COMMITS,
+        commit_launches=commit_launches, subscriptions_seconds=subs_s,
+        phase_seconds=time.perf_counter() - t_phase)
     return launches
 
 

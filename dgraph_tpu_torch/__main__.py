@@ -1,0 +1,341 @@
+"""CLI of the PyTorch port: `python -m dgraph_tpu_torch <subcommand>`.
+
+Port of dgraph_tpu/__main__.py's `serve`, `version` and `export`. `serve`
+starts the port's Node behind the HTTP API (api/http.py) and the gRPC
+api.Dgraph service (api/grpc_server.py), on the card by default: `--device`
+is "cuda" unless given, and raises without CUDA (`--device cpu` runs the
+plain PyTorch versions on the host). The flags are the JAX server's and
+DGRAPH_TPU_<FLAG> environment variables set their defaults, as there.
+
+The JAX server turns batching, the planner and the device observatory on
+by default; they are later slices of the port, so this server starts with
+them off and `--no_batch`, `--no_planner` and `--no_devprof` are accepted
+and change nothing. Flags that ask for another later slice reach the Node
+and raise naming it: `--mesh`, `--mesh_devices`, `--device_budget_mb`,
+`--residency_pin`, the `--vector_*` flags, and `--memory_mb` (through
+`Node.set_memory_budget`). The `bulk`, `live`, `worker`, `zero`,
+`ldbc_gen` and `convert` subcommands wait for the loaders and mesh slices.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+from dgraph_tpu_torch.utils import log
+
+VERSION = "dgraph-tpu 0.2.0 (dgraph_tpu_torch)"
+
+
+def cmd_serve(args) -> int:
+    from dgraph_tpu_torch.api.http import make_server
+    from dgraph_tpu_torch.api.server import Node
+
+    lg = log.get_logger("serve")
+    node = Node(dirpath=args.postings, trace_fraction=args.trace,
+                memory_mb=args.memory_mb or None,
+                plan_cache_size=args.plan_cache,
+                task_cache_mb=args.task_cache_mb,
+                result_cache_mb=args.result_cache_mb,
+                dispatch_width=args.dispatch_width,
+                batch_window_ms=args.batch_window_ms,
+                batch_max=args.batch_max,
+                write_batch=not args.no_write_batch,
+                write_window_ms=args.write_window_ms,
+                write_batch_max=args.write_batch_max,
+                overlay=not args.no_overlay,
+                overlay_max_keys=args.overlay_max_keys,
+                overlay_max_age_s=args.overlay_max_age_s,
+                background_rollup=not args.no_background_rollup,
+                fold_workers=args.fold_workers or None,
+                stats_top_k=args.stats_top_k,
+                span_sample=args.span_sample,
+                slow_query_ms=args.slow_query_ms,
+                slow_query_log=args.slow_query_log,
+                mesh_devices=(args.mesh_devices or (-1 if args.mesh else 0)),
+                mesh_min_edges=args.mesh_min_edges or None,
+                default_timeout_ms=args.default_timeout_ms,
+                vector_nprobe=args.vector_nprobe,
+                vector_centroids=args.vector_centroids,
+                vector_ivf_min_rows=args.vector_ivf_min_rows,
+                device_budget_mb=args.device_budget_mb,
+                residency_pin=args.residency_pin,
+                cost_ledger=not args.no_cost_ledger,
+                cost_regression_factor=args.cost_regression_factor,
+                lazy_folds=not args.no_lazy_folds,
+                delta_journal_max_keys=args.delta_journal_max_keys or None,
+                qos=not args.no_qos,
+                tenants=args.tenants or None,
+                device=args.device)
+    grpc_srv = None
+    try:
+        if args.faults or args.faults_seed is not None:
+            from dgraph_tpu_torch.utils import faults as faults_mod
+
+            if args.faults_seed is not None:    # 0 is a valid seed
+                faults_mod.GLOBAL.reseed(args.faults_seed)
+            if args.faults:
+                faults_mod.GLOBAL.configure(args.faults)
+            lg.info("fault injection armed", points=args.faults or "",
+                    seed=args.faults_seed)
+        if args.memory_mb:
+            node.set_memory_budget(args.memory_mb * (1 << 20))
+        if args.schema:
+            with open(args.schema) as f:
+                node.alter(schema_text=f.read())
+        if args.grpc_port:
+            from dgraph_tpu_torch.api.grpc_server import serve_grpc
+            grpc_srv, gport = serve_grpc(node,
+                                         f"{args.host}:{args.grpc_port}",
+                                         tls_cert=args.tls_cert,
+                                         tls_key=args.tls_key)
+            # startup banners keep the "<role> serving ... on host:port"
+            # shape: tests and scripts parse the bound port out of text mode
+            lg.info(f"serving gRPC on {args.host}:{gport}",
+                    tls=bool(args.tls_cert))
+        srv = make_server(node, args.host, args.port,
+                          tls_cert=args.tls_cert, tls_key=args.tls_key)
+        lg.info(f"serving HTTP{'S' if args.tls_cert else ''} on "
+                f"{args.host}:{srv.server_address[1]}",
+                postings=args.postings or "<memory>", device=node.device)
+        try:
+            srv.serve_forever()
+        except KeyboardInterrupt:
+            pass
+        finally:
+            srv.server_close()
+    finally:
+        if grpc_srv is not None:
+            grpc_srv.stop(0)
+        node.close()
+    return 0
+
+
+def cmd_version(_args) -> int:
+    log.get_logger("version").info(VERSION)
+    return 0
+
+
+def cmd_export(args) -> int:
+    from dgraph_tpu_torch.loader.export import export_rdf
+    from dgraph_tpu_torch.storage.store import Store
+
+    store = Store(args.postings)
+    try:
+        stats = export_rdf(store, args.out, schema_path=args.out_schema)
+    finally:
+        store.close()
+    log.get_logger("export").info("export done", quads=stats.quads,
+                                  predicates=stats.predicates, out=args.out)
+    return 0
+
+
+def _apply_env_defaults(sp: argparse.ArgumentParser) -> None:
+    """DGRAPH_TPU_<FLAG> environment variables override flag defaults
+    (the reference's viper env binding: every cobra flag doubles as an env
+    key). Explicit command-line values still win."""
+    import os
+
+    for action in sp._actions:
+        if not action.option_strings or action.dest == "help":
+            continue
+        env = os.environ.get(f"DGRAPH_TPU_{action.dest.upper()}")
+        if env is None:
+            continue
+        if action.type is int:
+            action.default = int(env)
+        elif action.type is float:
+            action.default = float(env)
+        elif isinstance(action, argparse._StoreTrueAction):
+            action.default = env.lower() in ("1", "true", "yes")
+        elif action.nargs in ("+", "*"):
+            action.default = env.split(",")
+        else:
+            action.default = env
+        action.required = False
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="dgraph_tpu_torch")
+    sub = p.add_subparsers(dest="cmd", required=True)
+
+    sp = sub.add_parser("serve", help="run the embedded server (HTTP API)")
+    sp.add_argument("--device", default="cuda",
+                    help="torch device the Node's snapshots live on "
+                         "(default cuda, which fails without CUDA; cpu "
+                         "runs the plain PyTorch versions on the host)")
+    sp.add_argument("--host", default="127.0.0.1")
+    sp.add_argument("--port", type=int, default=8080)
+    sp.add_argument("--grpc_port", type=int, default=9080,
+                    help="gRPC api.Dgraph port (0 disables)")
+    sp.add_argument("-p", "--postings", default=None,
+                    help="durable posting dir (default: in-memory)")
+    sp.add_argument("--schema", default=None, help="schema file to apply")
+    sp.add_argument("--trace", type=float, default=1.0,
+                    help="fraction of requests to trace (/debug/requests)")
+    sp.add_argument("--span_sample", type=float, default=0.01,
+                    help="fraction of requests getting a full span trace "
+                         "(/debug/traces; Chrome trace JSON per trace; "
+                         "set 1.0 when debugging a specific query)")
+    sp.add_argument("--slow_query_ms", type=float, default=0.0,
+                    help="log queries slower than this to /debug/slow "
+                         "(plan + span tree; 0 disables)")
+    sp.add_argument("--slow_query_log", default=None,
+                    help="also append slow-query entries to this JSONL file")
+    sp.add_argument("--no_cost_ledger", action="store_true",
+                    help="disable the per-request cost ledger (/debug/top "
+                         "profiler, dgraph_query_cost_* histograms, "
+                         "regression flags; <2%% overhead armed)")
+    sp.add_argument("--cost_regression_factor", type=float, default=4.0,
+                    help="flag a query into /debug/slow when its device "
+                         "cost exceeds this multiple of its plan-shape's "
+                         "EWMA baseline (needs 8 warmup samples)")
+    sp.add_argument("--no_devprof", action="store_true",
+                    help="accepted and changes nothing: the device-runtime "
+                         "observatory is a later slice of the port and "
+                         "is off")
+    sp.add_argument("--plan_cache", type=int, default=256,
+                    help="parsed-plan cache entries (0 disables)")
+    sp.add_argument("--task_cache_mb", type=int, default=64,
+                    help="task-result cache budget in MB (0 disables)")
+    sp.add_argument("--result_cache_mb", type=int, default=32,
+                    help="query-result cache budget in MB (0 disables)")
+    sp.add_argument("--batch_window_ms", type=float, default=2.0,
+                    help="batched-dispatch collect window in ms; a batch "
+                         "fires immediately when the device is idle")
+    sp.add_argument("--batch_max", type=int, default=16,
+                    help="max tasks packed into one batched device kernel")
+    sp.add_argument("--no_batch", action="store_true",
+                    help="accepted and changes nothing: batched "
+                         "multi-query execution is a later slice of the "
+                         "port and is off (exact per-task dispatch)")
+    sp.add_argument("--write_window_ms", type=float, default=2.0,
+                    help="group-commit collect window in ms; a window "
+                         "fires immediately when the journal is idle")
+    sp.add_argument("--write_batch_max", type=int, default=64,
+                    help="max txns committed per group-commit window "
+                         "(one WAL append + one fsync per window)")
+    sp.add_argument("--no_write_batch", action="store_true",
+                    help="disable group-commit write batching (exact "
+                         "per-commit WAL append + fsync)")
+    sp.add_argument("--dispatch_width", type=int, default=4,
+                    help="max simultaneous device dispatches")
+    sp.add_argument("--no_overlay", action="store_true",
+                    help="disable delta-overlay stamping (commits re-fold "
+                         "their whole tablet)")
+    sp.add_argument("--overlay_max_keys", type=int, default=None,
+                    help="overlay depth ceiling before inline compaction "
+                         "(default 512)")
+    sp.add_argument("--overlay_max_age_s", type=float, default=None,
+                    help="overlay age before background rollup (default 30)")
+    sp.add_argument("--no_background_rollup", action="store_true",
+                    help="disable the background overlay compaction loop")
+    sp.add_argument("--delta_journal_max_keys", type=int, default=0,
+                    help="per-predicate delta-journal key bound (0 = "
+                         "default 8192); size to the working set a live "
+                         "subscriber may fall behind by — overflow forces "
+                         "affected subscriptions through a full resync")
+    sp.add_argument("--fold_workers", type=int, default=0,
+                    help="parallel tablet-fold threads (0 = auto)")
+    sp.add_argument("--no_lazy_folds", action="store_true",
+                    help="fold every tablet eagerly at snapshot assembly "
+                         "instead of "
+                         "on-demand at first read")
+    sp.add_argument("--no_planner", action="store_true",
+                    help="accepted and changes nothing: the cost-based "
+                         "planner is a later slice of the port and is off "
+                         "(parse-order execution)")
+    sp.add_argument("--stats_top_k", type=int, default=8,
+                    help="top-K term-frequency sketch size per index "
+                         "tokenizer (EXPLAIN / stats readout)")
+    sp.add_argument("--mesh", action="store_true",
+                    help="mesh deployment mode: shard large tablets across "
+                         "every visible device and fuse multi-hop "
+                         "traversals (the mesh slice of the port: fails "
+                         "until then)")
+    sp.add_argument("--mesh_devices", type=int, default=0,
+                    help="shard over the first N devices instead of all "
+                         "(implies --mesh; 0 = follow --mesh; fails until "
+                         "the mesh slice)")
+    sp.add_argument("--mesh_min_edges", type=int, default=0,
+                    help="tablets below this edge count stay replicated on "
+                         "the classic path (0 = default 65536)")
+    sp.add_argument("--vector_nprobe", type=int, default=0,
+                    help="IVF coarse lists scanned per similar_to probe "
+                         "(vector slice: any value fails until then)")
+    sp.add_argument("--vector_centroids", type=int, default=-1,
+                    help="IVF centroid count built at snapshot fold "
+                         "(-1 = auto; vector slice: any other value fails "
+                         "until then)")
+    sp.add_argument("--vector_ivf_min_rows", type=int, default=0,
+                    help="embedding tablets below this row count stay "
+                         "brute-force exact (vector slice: any value fails "
+                         "until then)")
+    sp.add_argument("--device_budget_mb", type=int, default=0,
+                    help="device (HBM) byte budget for the working-set "
+                         "manager; tablets admit/evict by load score and "
+                         "graphs larger than the budget serve through the "
+                         "host tiers (0 = unbounded; residency slice: "
+                         "any budget fails until then)")
+    sp.add_argument("--residency_pin", default="",
+                    help="comma-separated predicates pinned in the HBM "
+                         "tier (residency slice: fails until then)")
+    sp.add_argument("--memory_mb", type=int, default=0,
+                    help="posting-list memory budget; periodic rollup + "
+                         "cache drop keeps usage under it (0 = unbounded; "
+                         "the enforcement loop is the residency slice: "
+                         "any budget fails until then)")
+    sp.add_argument("--default_timeout_ms", type=float, default=0,
+                    help="end-to-end deadline budget for requests without "
+                         "an explicit ?timeoutMs= — consumed at every wait "
+                         "point, typed DeadlineExceeded on overrun, never "
+                         "a hang (0 = unbudgeted)")
+    sp.add_argument("--tenants", default=None,
+                    help="tenant QoS table: a JSON file path or inline "
+                         'JSON {"tenants": {name: {weight, '
+                         "device_ms_per_s, edges_per_s, bytes_per_s, "
+                         "burst_s, max_subs, sub_queue_max}}}; hot-"
+                         "reloadable via POST /admin/tenant")
+    sp.add_argument("--no_qos", action="store_true",
+                    help="disarm quota admission + weighted-fair device "
+                         "scheduling (namespaces stay active; a single-"
+                         "tenant deployment is byte-identical either way)")
+    sp.add_argument("--faults", default=None,
+                    help="arm fault injection: 'name:mode:p[:delay_s]"
+                         "[:count],...' over the points in docs/ops.md "
+                         "(modes error/delay/drop; chaos testing only)")
+    sp.add_argument("--faults_seed", type=int, default=None,
+                    help="deterministic PRNG seed for --faults schedules "
+                         "(same seed replays the same fault sequence; "
+                         "0 is a valid seed)")
+    sp.add_argument("--tls_cert", default=None,
+                    help="PEM certificate: serve HTTP and gRPC over TLS")
+    sp.add_argument("--tls_key", default=None, help="PEM private key")
+    sp.set_defaults(fn=cmd_serve)
+
+    vp = sub.add_parser("version", help="print version")
+    vp.set_defaults(fn=cmd_version)
+
+    ep = sub.add_parser("export", help="export a posting dir to RDF(.gz)")
+    ep.add_argument("-p", "--postings", required=True)
+    ep.add_argument("-o", "--out", required=True)
+    ep.add_argument("--out-schema", default=None)
+    ep.set_defaults(fn=cmd_export)
+
+    for sp_ in (sp, ep):
+        sp_.add_argument("--log_json", action="store_true",
+                         help="structured single-line JSON logs instead of "
+                              "text (log shippers ingest these directly)")
+        _apply_env_defaults(sp_)
+    return p
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    if getattr(args, "log_json", False):
+        log.configure(json_mode=True)
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -29,14 +29,16 @@ NotImplementedError naming its slice:
   * planner and batching: `planner=True` (and `query(explain=True)`),
     `batching=True`;
   * vector: `vector_nprobe`, `vector_centroids >= 0`, `vector_ivf_min_rows`;
-  * wire: `subscribe` (the LiveManager; `live_*` are read by that slice);
   * mesh: `mesh_devices != 0`, `analytics` (the per-tablet load book of
     coord/placement.py waits there too).
 
 So `planner`, `batching` and `devprof` default to False here where the JAX
 Node defaults them to True. The answers are the same either way: the
-planner and the batcher change order and dispatch, never output.
-`memory_mb` (the paged store) works as in the JAX Node.
+planner and the batcher change order and dispatch, never output. The
+attributes the wire's /debug/metrics reads of those seams (`batcher`,
+`devprof`, `mesh_exec`, `planner_enabled`) hold the JAX Node's values with
+the seams off. `memory_mb` (the paged store) works as in the JAX Node, and
+live queries (`subscribe`, the LiveManager over the delta journal) as well.
 """
 
 from __future__ import annotations
@@ -149,6 +151,11 @@ class Node:
             if on:
                 raise _unported(f"Node({what})", slice_name)
         self.device = resolve_device(device)
+        # the seams of later slices, as the JAX Node holds them when off
+        self.batcher = None
+        self.devprof = None
+        self.mesh_exec = None
+        self.planner_enabled = False
         # memory_mb enables the PAGED store: snapshot mmap'd, lists
         # materialize lazily, clean entries evict under the budget
         self.store = Store(dirpath,
@@ -249,6 +256,25 @@ class Node:
         self.cost_ledger = bool(cost_ledger)
         self.cost_book = costs.CostBook(
             regression_factor=cost_regression_factor)
+        # live queries (live/): standing subscriptions re-derived O(Δ) per
+        # commit window. Re-evals run read-only at the window's watermark
+        # through the normal query path — same caches — ranked under
+        # endpoint="live" in /debug/top.
+        from dgraph_tpu_torch.live import LiveManager
+
+        self.live = LiveManager(
+            eval_fn=lambda q, v, ts, subs=(): self.query(
+                q, v, start_ts=ts, read_only=True,
+                _cost_endpoint="live", _cost_subs=subs)[0],
+            watermark_fn=lambda: self.store.max_seen_commit_ts,
+            parse_fn=self._parse,
+            stores=[self.store],
+            metrics=self.metrics,
+            queue_max=live_queue_max,
+            idle_timeout_s=live_idle_timeout_s,
+            heartbeat_s=live_heartbeat_s,
+            batcher=self.batcher)
+        self.store.on_delta_overflow = self.live.on_journal_overflow
         # multi-tenant QoS (dgraph_tpu/tenancy/): namespaces are
         # ALWAYS active for a non-default tenant (they are correctness —
         # every request resolves predicates in its caller's namespace via
@@ -313,6 +339,7 @@ class Node:
             wb.tenant_fn = tnc.current
             wb.tenant_cap_fn = lambda t: self.tenancy.window_share(
                 t, wb.max_batch)
+        self.live.registry = self.tenancy
 
     def _ns_view(self, snap, tenant: str):
         """The tenant's view of one snapshot, cached per (tenant, base
@@ -492,6 +519,11 @@ class Node:
                 self.metrics.counter("dgraph_num_aborts_total").inc()
                 raise
             ctx.commit_ts = commit_ts
+            # live-query wake: outside every lock, after the apply is
+            # visible. One truthiness check when nobody subscribes.
+            live = self.live
+            if live is not None and live.active:
+                live.notify_commit(commit_ts, ctx.preds)
             self.metrics.counter("dgraph_num_commits_total").inc()
             self.metrics.histogram("dgraph_commit_latency_s").observe(
                 time.perf_counter() - t0)
@@ -1113,8 +1145,13 @@ class Node:
 
     def subscribe(self, q: str, variables: dict | None = None, *,
                   cursor: int | None = None, queue_max: int | None = None):
-        """Register a standing query (wire slice)."""
-        raise _unported("Node.subscribe", "wire")
+        """Register a standing query (the gRPC/embedded surface): returns a
+        live.Subscription iterator whose first event is init (full result
+        at its watermark), ack (reconnect cursor proven unchanged by the
+        delta journal), or a typed resync; subsequent events are diffs at
+        the commit watermark they reflect."""
+        return self.live.subscribe(q, variables, cursor=cursor,
+                                   queue_max=queue_max)
 
     # -- ops -----------------------------------------------------------------
 
@@ -1126,6 +1163,9 @@ class Node:
         return self.zero.state()
 
     def close(self) -> None:
+        live = getattr(self, "live", None)
+        if live is not None:
+            live.close()
         self._rollup_stop.set()
         self.slow_log.close()
         self.store.close()

@@ -143,7 +143,10 @@ def test_off_seams_raise_naming_their_slice(kw, slice_name):
     (lambda n: n.set_memory_budget(1 << 20), "residency"),
     (lambda n: n.enforce_memory(1 << 20), "residency"),
     (lambda n: n.set_devprof(True), "devprof"),
-    (lambda n: n.subscribe("{ q(func: has(name)) { name } }"), "wire"),
+    # subscribe works since the wire slice; a standing query over a later
+    # slice's path raises at registration, naming that slice
+    (lambda n: n.subscribe('{ q(func: similar_to(emb, 2, "[1.0, 1.0]")) '
+                           '{ uid } }'), "vector"),
     (lambda n: n.analytics("pagerank", "friend"), "mesh"),
     (lambda n: n.query("{ q(func: has(name)) { name } }", explain=True),
      "planner"),
