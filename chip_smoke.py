@@ -97,7 +97,30 @@ it:
      applied and a read-only query at that timestamp; every reply's
      status is checked with its payload (the CLI starts before phase 9
      opens its Node, so its start overlaps that open);
-  11. prints the card line, a {"kernels": [...]} line and the final
+  11. the default serving configuration (phase 9's Node is opened with the
+     planner, the batcher and the device observatory on and an unbounded
+     working-set manager, as the JAX Node serves): (a) before phase 10's
+     commits, BURST distinct one-uid @recurse(depth: 3) requests, each
+     first alone and then all together from threads behind a barrier —
+     each concurrent JSON byte-identical to its solo JSON, at least one
+     recurse batch of two or more packed into one recurse_fused_multi run
+     with K1 or K2 launched inside it (`launches_batch`) — and the same for
+     EXPAND_SLICES slices of phase 8's expand frontier (batched
+     ops/csr.expand); (c) a ResidencyManager adopting the friend and
+     ~friend tablets, with budgets from their own device footprints:
+     BUDGET_FIT x the larger (one fits, two do not) while the wide one-hop
+     expand alternates over friend and ~friend through an Executor without
+     a task cache (evictions, a re-admission counted as thrash, and
+     torch.cuda.memory_allocated falling by at least the evicted
+     footprint), then BUDGET_COLD x the smaller (both COLD: host serves,
+     no upload), every JSON byte-identical to the unbounded run; and after
+     phase 10's commits, over its HTTP server, (b) PLANNER_QUERY through
+     the Node with explain=True and over ?explain=true (a root swap, the
+     data byte-identical to a plan-less Executor on the same snapshot) and
+     (d) /debug/timeline (recurse and expand records with CUDA-event device
+     intervals), /debug/compiles (the port's families), the HBM high-water
+     mark from torch.cuda.memory_stats and the device busy share in [0, 1];
+  12. prints the card line, a {"kernels": [...]} line and the final
      {"ok": true, "device": {...}} line.
 Any mismatch raises and the script exits non-zero. It never imports jax or
 the JAX package.
@@ -160,6 +183,19 @@ SERVE_TXNS = 8
 # phase 10: commits over HTTP under two live subscriptions on one uid of
 # phase 7b's set, the one whose two-hop edge count is nearest WIRE_TWO_HOP
 WIRE_COMMITS, WIRE_TWO_HOP = 4, 20_000
+# phase 11: the default serving configuration over phase 9's Node. BURST
+# distinct one-uid @recurse(depth: 3) requests (the seeds of phase 4's 128
+# whose rendered JSON is smallest by a host estimate, from BURST_MIN_ROWS
+# rendered uids up; at most BURST_MAX_ROWS) run alone, then together behind
+# a barrier, packed by the batcher's documented knobs (batch_window_ms,
+# batch_max) for the burst; then EXPAND_SLICES slices of phase 8's expand
+# frontier the same way; a root-swapping filter request; the residency
+# budgets as shares of the friend tablets' own footprints
+BURST, BURST_WINDOW_MS = 8, 1000.0
+BURST_MIN_ROWS, BURST_MAX_ROWS = 2_000, 2_000_000
+EXPAND_SLICES = 4
+PLANNER_QUERY = "{ q(func: has(friend)) @filter(eq(age, 42)) { uid age } }"
+BUDGET_FIT, BUDGET_COLD = 1.5, 0.5
 
 
 def host_3hop(subjects, indptr, indices, seeds, hops=3):
@@ -771,20 +807,32 @@ def main() -> int:
 
         # ---- 9. serving through the Node, and 10. the wire -------------------
         def wire(node):
-            """Phase 10, run inside phase 9 over its Node's state."""
+            """Phases 10 and 11, run inside phase 9 over its Node's state:
+            11 (a) and (c) before phase 10's commits, (b) and (d) over
+            phase 10's HTTP server after them."""
             t0 = time.perf_counter()
             cli_out = cli_phase(cli, dev)
-            wire_launches = wire_phase(node, served, json_recurse, wide,
-                                       (subjects, indptr, indices), dev)
-            say("wire_phase", seconds=time.perf_counter() - t0,
+            t11 = time.perf_counter()
+            batch_launches = batch_phase(node, seeds, wide, dev)
+            residency_phase(node, wide,
+                            widened(rsub, rptr, expand_seeds), dev)
+            t11 = time.perf_counter() - t11
+            t10 = time.perf_counter()
+            wire_launches, t_after = wire_phase(
+                node, served, json_recurse, wide,
+                (subjects, indptr, indices), dev,
+                after=lambda port: planner_devprof_phase(node, port))
+            say("wire_phase", seconds=time.perf_counter() - t10 - t_after,
                 cli_seconds=cli_out["seconds"],
                 script_seconds=time.perf_counter() - t_start)
-            return wire_launches
+            say("default_phase", seconds=t11 + t_after,
+                script_seconds=time.perf_counter() - t_start)
+            return wire_launches, batch_launches
 
         t0 = time.perf_counter()
         cli = CliServer()
         try:
-            serve_launches, wire_launches = serve_phase(
+            serve_launches, (wire_launches, batch_launches) = serve_phase(
                 ckpt_dir, served, wide, json_recurse, 1 << SCALE, dev, wire)
         finally:
             cli.stop()
@@ -792,10 +840,12 @@ def main() -> int:
             kernels[name]["launches_serve"] = n
         for name, n in wire_launches.items():
             kernels[name]["launches_wire"] = n
+        for name, n in batch_launches.items():
+            kernels[name]["launches_batch"] = n
         say("serve_phase", seconds=time.perf_counter() - t0,
             script_seconds=time.perf_counter() - t_start)
 
-    # ---- 11. summary lines -------------------------------------------------
+    # ---- 12. summary lines -------------------------------------------------
     kern_line = {"kernels": [
         {k: v for k, v in kernels[n].items() if k not in ("e_pad", "stream")}
         for n in ("active_prefix", "active_prefix_sparse")]}
@@ -1984,7 +2034,8 @@ def same_rows(a: dict, b: dict) -> bool:
     return norm(a) == norm(b)
 
 
-def wire_phase(node, expected, json_recurse, wide, csr, dev) -> dict:
+def wire_phase(node, expected, json_recurse, wide, csr, dev,
+               after=None) -> tuple:
     """Phase 10 (b): the headline graph over the wire. The port's HTTP and
     gRPC servers go in front of phase 9's Node (its state is phase 8's
     checkpoint): phase 5's one-uid @recurse over HTTP, byte-identical to
@@ -1999,8 +2050,9 @@ def wire_phase(node, expected, json_recurse, wide, csr, dev) -> dict:
     timestamp, whose result equals the diff applied to the result before
     it, a fresh read-only query at that timestamp, and (the one-hop read)
     the friend set the commits made. Launches are read around each
-    commit, with no other traffic. Returns the K1/K2 launches of the HTTP
-    @recurse."""
+    commit, with no other traffic. Then `after(port)` runs over the same
+    servers (phase 11 (b) and (d)). Returns the K1/K2 launches of the HTTP
+    @recurse and the seconds `after` took."""
     import queue
     import threading
 
@@ -2190,6 +2242,10 @@ def wire_phase(node, expected, json_recurse, wide, csr, dev) -> dict:
             fail("recurse", f"its re-evaluation launched neither K1 nor "
                             f"K2: {commit_launches}")
         subs_s = time.perf_counter() - t_subs
+        t_after = time.perf_counter()
+        if after is not None:
+            after(port)
+        t_after = time.perf_counter() - t_after
     finally:
         # cancelled subscriptions end their streams from the server's side
         for sid in sids:
@@ -2216,8 +2272,445 @@ def wire_phase(node, expected, json_recurse, wide, csr, dev) -> dict:
         subscription_notify_ms={k: band(v) for k, v in notify.items()},
         subscription_notify_samples_ms=notify, commits=WIRE_COMMITS,
         commit_launches=commit_launches, subscriptions_seconds=subs_s,
+        phase_seconds=time.perf_counter() - t_phase - t_after)
+    return launches, t_after
+
+
+def batch_phase(node, seeds, wide, dev) -> dict:
+    """Phase 11 (a), over phase 9's Node before phase 10's commits: BURST
+    one-uid @recurse(depth: 3) requests, each alone and then all at once
+    from threads behind a barrier, then EXPAND_SLICES slices of phase 8's
+    expand frontier the same way. The seeds and slices are chosen from the
+    served snapshot's own friend arrays. Task and result caches are
+    emptied before each run, so each executes. Each solo JSON must render
+    a non-empty block and equal the host-mirror route's JSON (on_host);
+    each concurrent JSON must equal its solo JSON; each burst must form a
+    batch of two or more (dgraph_batch_tasks_total grows past
+    dgraph_batch_formed_total); a recurse_fused_multi run of B >= 2 must
+    launch K1 or K2. One solo recurse request is profiled for the device's
+    busy time. Returns the K1/K2 launches of the recurse burst's
+    concurrent run."""
+    import threading
+
+    import torch
+
+    from dgraph_tpu_torch.ops import prefix as px
+    from dgraph_tpu_torch.ops import pull_bfs as pb
+    from dgraph_tpu_torch.query import task as taskmod
+
+    sync = torch.cuda.synchronize
+    t_phase = time.perf_counter()
+
+    def fail(what, msg):
+        raise SystemExit(f"batch {what}: {msg}")
+
+    b = node.batcher
+    if b is None or not node.planner_enabled or node.devprof is None \
+            or node.residency is None or node.residency.enabled:
+        fail("defaults", "phase 9's Node does not serve with the planner, "
+                         "the batcher, the observatory and an unbounded "
+                         "working-set manager")
+    subjects, indptr, indices = (
+        np.asarray(a) for a in node.snapshot().pred("friend").csr.host_arrays())
+    deg = np.diff(indptr).astype(np.int64)
+    # the rendered size of a one-uid @recurse(depth: 3) from s: a uid's row
+    # is rendered under every occurrence of the uid, so the uids rendered
+    # are deg(s) + S(s) + sum of S(v) over s's targets v, where S(r) sums
+    # the out-degrees of row r's targets (an upper bound: edge dedup only
+    # removes rows)
+    pos = np.clip(np.searchsorted(subjects, indices), 0, len(subjects) - 1)
+    hit = subjects[pos] == indices
+
+    def row_sums(per_edge):
+        cs = np.concatenate([[0], np.cumsum(per_edge)])
+        return cs[indptr[1:]] - cs[indptr[:-1]]
+
+    s2 = row_sums(np.where(hit, deg[pos], 0))
+    s3 = row_sums(np.where(hit, s2[pos], 0))
+    del pos, hit
+    rows = np.clip(np.searchsorted(subjects, seeds), 0, len(subjects) - 1)
+    # a seed without a friend row renders nothing: its estimate is 0
+    est = sorted((int(deg[r] + s2[r] + s3[r]) if subjects[r] == u else 0,
+                  int(u)) for r, u in zip(rows, seeds))
+    picks = [(e, u) for e, u in est if e >= BURST_MIN_ROWS][:BURST]
+    if len(picks) < BURST or picks[-1][0] > BURST_MAX_ROWS:
+        fail("recurse", f"no {BURST} seeds render {BURST_MIN_ROWS}.."
+                        f"{BURST_MAX_ROWS} uids: {est[:2 * BURST]}")
+    est_rows, picks = [e for e, _ in picks], [u for _, u in picks]
+    c = lambda n: node.metrics.counter(n).value
+
+    def run(text):
+        return json.dumps(node.query(text)[0])
+
+    def clear():
+        node.result_cache.clear()
+        node.task_cache.clear()
+
+    def burst(what, texts):
+        """Each text alone, then all together; returns (solo JSONs, the
+        batches formed, the tasks they held, seconds of the burst, the
+        K1/K2 launches of the concurrent run)."""
+        solo = []
+        for i, text in enumerate(texts):
+            clear()
+            solo.append(run(text))
+            if not json.loads(solo[-1]).get("q"):
+                fail(what, f"request {i} renders no block: {solo[-1][:80]}")
+            clear()
+            if on_host(lambda: run(text)) != solo[-1]:
+                fail(what, f"request {i}: the solo JSON differs from the "
+                           f"host-mirror route's")
+        clear()
+        outs, errs = [None] * len(texts), [None] * len(texts)
+        barrier = threading.Barrier(len(texts))
+
+        def go(i):
+            barrier.wait(timeout=60)
+            try:
+                outs[i] = run(texts[i])
+            except BaseException as e:      # surfaced below
+                errs[i] = e
+
+        kept = b.window_s, b.max_batch
+        b.window_s, b.max_batch = BURST_WINDOW_MS / 1e3, len(texts)
+        f0, k0 = c("dgraph_batch_formed_total"), c("dgraph_batch_tasks_total")
+        threads = [threading.Thread(target=go, args=(i,))
+                   for i in range(len(texts))]
+        sync()
+        px.reset_launches()
+        t0 = time.perf_counter()
+        b.hint_burst()
+        try:
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=600)
+        finally:
+            b.window_s, b.max_batch = kept
+        sync()
+        burst_s = time.perf_counter() - t0
+        launches = dict(px.LAUNCHES)
+        if any(t.is_alive() for t in threads):
+            fail(what, "a request of the burst did not finish in 600 s")
+        if any(errs):
+            fail(what, f"a request of the burst raised: {errs}")
+        for i, (a, w) in enumerate(zip(outs, solo)):
+            if a != w:
+                fail(what, f"request {i}: the concurrent JSON differs from "
+                           f"its solo JSON")
+        formed = c("dgraph_batch_formed_total") - f0
+        tasks = c("dgraph_batch_tasks_total") - k0
+        if tasks - formed < 1:
+            fail(what, f"no batch of two or more formed ({tasks} tasks in "
+                       f"{formed} batches)")
+        return solo, formed, tasks, burst_s, launches
+
+    # ---- the recurse family ------------------------------------------------
+    texts = ["{ q(func: uid(%s)) @recurse(depth: 3) { friend } }" % hex(u)
+             for u in picks]
+    real, multi = pb.recurse_fused_multi, []
+
+    def spy(*a, **k):
+        sync()
+        l0 = dict(px.LAUNCHES)
+        out = real(*a, **k)
+        sync()
+        multi.append({"batch": int(a[5].shape[0]),
+                      **{n: px.LAUNCHES[n] - l0[n] for n in l0}})
+        return out
+
+    t_step = time.perf_counter()
+    pb.recurse_fused_multi = spy
+    try:
+        solo, formed, tasks, burst_s, launches = burst("recurse", texts)
+    finally:
+        pb.recurse_fused_multi = real
+    if not any(m["batch"] >= 2 and (m["active_prefix"]
+                                    or m["active_prefix_sparse"])
+               for m in multi):
+        fail("recurse", f"no recurse_fused_multi run of two or more "
+                        f"launched K1 or K2: {multi}")
+    # the device's busy time for one solo request (a trace, not the
+    # timeline's event-bracketed intervals)
+    clear()
+    prof = profile_query(lambda: (clear(), run(texts[0])))
+    say("batch", family="recurse", requests=len(texts),
+        seeds=[hex(u) for u in picks], est_rows=est_rows, batches=formed,
+        tasks=tasks, multi_runs=multi, launches=launches,
+        json_bytes=[len(x) for x in solo], burst_seconds=burst_s,
+        solo_profile=prof, step_seconds=time.perf_counter() - t_step)
+
+    # ---- the expand family -------------------------------------------------
+    t_step = time.perf_counter()
+    pos = np.clip(np.searchsorted(subjects, wide), 0, len(subjects) - 1)
+    dw = dict(zip(wide.tolist(),
+                  np.where(subjects[pos] == wide, deg[pos], 0).tolist()))
+    for k in range(EXPAND_SLICES, 1, -1):
+        parts, sums = [[] for _ in range(k)], [0] * k
+        for u in sorted(dw, key=lambda x: (-dw[x], x)):
+            i = int(np.argmin(sums))
+            parts[i].append(u)
+            sums[i] += dw[u]
+        if min(sums) > taskmod.HOST_EXPAND_MAX:
+            break
+    else:
+        fail("expand", f"no split of the frontier puts every slice past "
+                       f"HOST_EXPAND_MAX: {sums}")
+    texts = ["{ q(func: uid(%s)) { friend { uid } } }" % ", ".join(
+        hex(u) for u in sorted(p)) for p in parts]
+    solo, formed, tasks, burst_s, _launches = burst("expand", texts)
+    say("batch", family="expand", requests=len(texts), slice_edges=sums,
+        batches=formed, tasks=tasks, json_bytes=[len(x) for x in solo],
+        burst_seconds=burst_s, step_seconds=time.perf_counter() - t_step,
         phase_seconds=time.perf_counter() - t_phase)
     return launches
+
+
+def residency_phase(node, wide, wide_rev, dev) -> None:
+    """Phase 11 (c): a ResidencyManager adopts phase 9's friend and
+    ~friend tablets (phase 8's compaction, from its checkpoint) through the
+    adopt seam. The wide one-hop expand over friend and over ~friend runs
+    through an Executor without a task cache: first under the Node's own
+    unbounded manager (the JSON every later run must equal), then under
+    BUDGET_FIT x the larger device footprint (one tablet fits, two do
+    not): friend, ~friend, friend — evictions, a re-admission counted as
+    thrash, and torch.cuda.memory_allocated, read around each eviction's
+    drop, falling by at least the evicted footprint — and then under
+    BUDGET_COLD x the smaller (both COLD: the host gather serves, no
+    upload). The Node's manager adopts the tablets back at the end."""
+    import torch
+
+    from dgraph_tpu_torch.query import dql
+    from dgraph_tpu_torch.query import engine as eng
+    from dgraph_tpu_torch.storage.csr_build import PredCSR
+    from dgraph_tpu_torch.storage.residency import ResidencyManager
+    from dgraph_tpu_torch.utils.metrics import Registry
+
+    sync = torch.cuda.synchronize
+    t_phase = time.perf_counter()
+
+    def fail(what, msg):
+        raise SystemExit(f"residency {what}: {msg}")
+
+    snap, schema = node.snapshot(), node._schema_view()
+    pd = snap.pred("friend")
+    owners = {"friend": pd.csr, "~friend": pd.rev_csr}
+    if not all(type(o) is PredCSR for o in owners.values()):
+        fail("tablets", f"friend is {type(pd.csr).__name__}, not a fold")
+    texts = {"friend": "{ q(func: uid(%s)) { friend { uid } } }" % ", ".join(
+                 hex(int(u)) for u in wide),
+             "~friend": "{ q(func: uid(%s)) { ~friend { uid } } }" % ", ".join(
+                 hex(int(u)) for u in wide_rev)}
+
+    def execute(what):
+        out = json.dumps(eng.Executor(snap, schema).execute(
+            dql.parse(texts[what])))
+        sync()
+        return out
+
+    def allocated():
+        # no gc.collect(): a collection over millions of posting lists
+        # takes seconds, longer than the thrash window; the dropped device
+        # tuples hold no reference cycles
+        sync()
+        return torch.cuda.memory_allocated(dev)
+
+    falls = []
+
+    def measured(what, drop):
+        """The owner's drop_device with memory_allocated read around it:
+        the eviction frees to the caching allocator only if nothing else
+        holds the tensors."""
+        def run():
+            m0 = allocated()
+            drop()
+            falls.append({"evicted": what, "footprint": foot[what],
+                          "fall": m0 - allocated()})
+        return run
+
+    t_step = time.perf_counter()
+    want = {w: execute(w) for w in texts}
+    unbounded_s = time.perf_counter() - t_step
+    node.residency.evict_to(0)
+    mgr = ResidencyManager(budget_bytes=0, metrics=Registry())
+    mgr.adopt_pred(pd)
+    foot = {w: o.device_nbytes() for w, o in owners.items()}
+    for w, o in owners.items():
+        o.drop_device = measured(w, o.drop_device)
+    c = lambda n: mgr.metrics.counter(f"dgraph_residency_{n}_total").value
+    try:
+        # ---- one fits, two do not ----------------------------------------
+        t_step = time.perf_counter()
+        mgr.budget = int(BUDGET_FIT * max(foot.values()))
+        for what in ("friend", "~friend", "friend"):
+            if execute(what) != want[what]:
+                fail("fit", f"{what}: JSON differs from the unbounded run")
+            if [w for w, o in owners.items() if o.device_resident()] \
+                    != [what]:
+                fail("fit", f"after {what}, resident: "
+                            f"{[w for w, o in owners.items() if o.device_resident()]}")
+        mgr.evict_to(0)
+        fit = {n: c(n) for n in ("admissions", "evictions", "thrash")}
+        if fit["evictions"] < 2 or fit["thrash"] < 1 or len(falls) < 3:
+            fail("fit", f"counters {fit}, evictions measured {falls}")
+        if any(f["fall"] < f["footprint"] for f in falls):
+            fail("fit", f"memory_allocated fell by less than the evicted "
+                        f"footprint: {falls}")
+        fit_s = time.perf_counter() - t_step
+
+        # ---- both cold ---------------------------------------------------
+        t_step = time.perf_counter()
+        mgr.budget = int(BUDGET_COLD * min(foot.values()))
+        m0, a0 = allocated(), c("admissions")
+        for what in ("friend", "~friend"):
+            if execute(what) != want[what]:
+                fail("cold", f"{what}: JSON differs from the unbounded run")
+        if any(o.device_resident() for o in owners.values()) \
+                or c("admissions") != a0 or allocated() != m0:
+            fail("cold", "a cold tablet uploaded")
+        if c("cold_serves") < 2:
+            fail("cold", f"cold_serves {c('cold_serves')}")
+        cold_s = time.perf_counter() - t_step
+        say("residency", footprints=foot,
+            budgets={"fit": int(BUDGET_FIT * max(foot.values())),
+                     "cold": mgr.budget},
+            fit=fit, evicted_falls=falls, cold_serves=c("cold_serves"),
+            upload_failures=c("upload_failures"),
+            json_bytes={w: len(x) for w, x in want.items()},
+            unbounded_seconds=unbounded_s, fit_seconds=fit_s,
+            cold_seconds=cold_s, phase_seconds=time.perf_counter() - t_phase)
+    finally:
+        for o in owners.values():
+            del o.drop_device
+        mgr.evict_to(0)
+        node.residency.adopt_pred(pd)
+
+
+def planner_devprof_phase(node, port) -> None:
+    """Phase 11 (b) and (d), after phase 10's commits, over its HTTP server
+    in front of phase 9's Node. (b) PLANNER_QUERY through Node.query with
+    explain=True and over POST /query?explain=true: the plan swaps its root
+    (root_swaps >= 1) and the data is byte-identical to an Executor with no
+    plan on the same snapshot. (d) /debug/timeline holds recurse and expand
+    records whose CUDA-event device intervals are resolved and
+    non-negative, its device busy share lies in [0, 1]; /debug/compiles
+    lists the port's program families; /debug/metrics has an HBM
+    high-water mark from torch.cuda.memory_stats above 0."""
+    from dgraph_tpu_torch.query import dql
+    from dgraph_tpu_torch.query import engine as eng
+
+    t_phase = time.perf_counter()
+
+    def fail(what, msg):
+        raise SystemExit(f"default {what}: {msg}")
+
+    def get(path):
+        st, body = http_call(port, "GET", path)
+        if st != 200:
+            fail(path, f"status {st}: {body[:300]!r}")
+        return json.loads(body)
+
+    # ---- (b) the planner ---------------------------------------------------
+    node.result_cache.clear()
+    node.task_cache.clear()
+    t0 = time.perf_counter()
+    out = dict(node.query(PLANNER_QUERY, explain=True)[0])
+    planned_ms = (time.perf_counter() - t0) * 1e3
+    ex = out.pop("explain")
+    t0 = time.perf_counter()
+    plain = json.dumps(eng.Executor(node.snapshot(), node._schema_view())
+                       .execute(dql.parse(PLANNER_QUERY)))
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    if json.dumps(out) != plain:
+        fail("planner", "the planned JSON differs from the plan-less one")
+    if ex.get("planner") != "on" or ex["decisions"]["root_swaps"] < 1:
+        fail("planner", f"no root swap: {ex.get('decisions')}")
+    st, body = http_call(port, "POST", "/query?explain=true", PLANNER_QUERY)
+    if st != 200 or not body.startswith(b'{"data": ' + plain.encode()
+                                        + b', "extensions": '):
+        fail("planner", f"?explain=true status {st} or data differs")
+    hx = json.loads(body)["extensions"]["explain"]
+    if hx["decisions"]["root_swaps"] < 1:
+        fail("planner", f"no root swap over HTTP: {hx['decisions']}")
+    say("planner", query=PLANNER_QUERY, decisions=ex["decisions"],
+        root=ex["blocks"][0]["root"], json_bytes=len(plain),
+        planned_ms=planned_ms, plain_ms=plain_ms,
+        plans_built=node.metrics.counter("dgraph_planner_plans_total").value)
+
+    # ---- (d) the device observatory ------------------------------------------
+    recs = get("/debug/timeline?view=raw&n=4096")
+    by = {}
+    for r in recs:
+        by.setdefault(r["klass"], []).append(r)
+    for k in ("recurse", "expand"):
+        rs = by.get(k, [])
+        if not rs:
+            fail("timeline", f"no {k} dispatch record: {sorted(by)}")
+        if not all(r.get("device_ms", -1) >= 0
+                   and r.get("device_start_ms", -1) >= 0 for r in rs):
+            fail("timeline", f"a {k} record has no device interval, or a "
+                             f"negative one: {rs[:4]}")
+    chrome = get("/debug/timeline")
+    share = chrome["otherData"].get("dispatch_in_flight_share")
+    if share is None or not 0.0 <= share <= 1.0:
+        fail("timeline", f"dispatch-in-flight share {share}")
+    compiles = get("/debug/compiles")
+    sizes = compiles["cache_sizes"]
+    fams = ("pb.active_prefix", "pb.active_prefix_sparse",
+            "pb.recurse_fused", "pb.recurse_fused_multi", "segments.reduce",
+            "traversal.sssp")
+    if not all(f in sizes for f in fams) or sizes["pb.active_prefix"] != 1:
+        fail("compiles", f"families {sorted(sizes)}")
+    dm = get("/debug/metrics")["devprof"]
+    hw = dm["hbm"]["high_water"]
+    if not dm["hbm"]["capable"] or hw.get("device", 0) <= 0:
+        fail("hbm", f"no device high-water mark: {dm['hbm']}")
+    cost = record_dispatch_cost(node)
+    dev_ms = {k: band([r["device_ms"] for r in by[k]])
+              for k in ("recurse", "expand")}
+    run_ms = {k: band([r["run_ms"] for r in by[k]])
+              for k in ("recurse", "expand")}
+    say("devprof", records=len(recs), klasses=sorted(by),
+        device_ms=dev_ms, run_ms=run_ms, dispatch_in_flight_share=share,
+        record_dispatch_cost=cost,
+        utilization_pct=dm["utilization_pct"],
+        dispatches=dm["dispatches"], hbm=dm["hbm"],
+        compiles={k: v for k, v in compiles["families"].items()},
+        cache_sizes=sizes, phase_seconds=time.perf_counter() - t_phase)
+
+
+def record_dispatch_cost(node, n: int = 4096) -> dict:
+    """The observatory's own cost per dispatch, on a DevProfiler of its
+    own over the Node's device and working-set manager (the Node's ring
+    and meters stay as they are): mean microseconds of record_dispatch
+    (the allocator and the residency spine read every UTIL_REFRESH), of
+    one allocator read (torch.cuda.memory_stats) and of one residency
+    spine read (usage() plus host_bytes(), which walk every live
+    PredData)."""
+    import torch
+
+    from dgraph_tpu_torch.obs.devprof import DevProfiler
+    from dgraph_tpu_torch.utils.metrics import Registry
+
+    prof = DevProfiler(Registry(), residency=node.residency,
+                       device=node.device)
+    prof.record_dispatch("expand", 0.0, 0.0, 0.001)      # the probe
+    t0 = time.perf_counter()
+    for _ in range(n):
+        prof.record_dispatch("expand", 0.0, 0.0, 0.001)
+    per_us = (time.perf_counter() - t0) / n * 1e6
+    spine, alloc = [], []
+    for _ in range(8):
+        t0 = time.perf_counter()
+        node.residency.usage()
+        node.residency.host_bytes()
+        spine.append((time.perf_counter() - t0) * 1e6)
+        t0 = time.perf_counter()
+        torch.cuda.memory_stats(node.device)
+        alloc.append((time.perf_counter() - t0) * 1e6)
+    return {"record_dispatch_us": per_us, "dispatches": n,
+            "spine_read_us": band(spine), "allocator_read_us": band(alloc),
+            "util_refresh": DevProfiler.UTIL_REFRESH}
 
 
 def profile_query(run) -> dict:

@@ -7,14 +7,14 @@ is "cuda" unless given, and raises without CUDA (`--device cpu` runs the
 plain PyTorch versions on the host). The flags are the JAX server's and
 DGRAPH_TPU_<FLAG> environment variables set their defaults, as there.
 
-The JAX server turns batching, the planner and the device observatory on
-by default; they are later slices of the port, so this server starts with
-them off and `--no_batch`, `--no_planner` and `--no_devprof` are accepted
-and change nothing. Flags that ask for another later slice reach the Node
-and raise naming it: `--mesh`, `--mesh_devices`, `--device_budget_mb`,
-`--residency_pin`, the `--vector_*` flags, and `--memory_mb` (through
-`Node.set_memory_budget`). The `bulk`, `live`, `worker`, `zero`,
-`ldbc_gen` and `convert` subcommands wait for the loaders and mesh slices.
+As the JAX server, it serves with batching, the planner and the device
+observatory on (`--no_batch`, `--no_planner` and `--no_devprof` turn each
+off), an HBM working-set manager under `--device_budget_mb` (0 =
+accounting only) with `--residency_pin` floors, and the `--memory_mb`
+enforcement loop. Flags that ask for a later slice reach the Node and
+raise naming it: `--mesh`, `--mesh_devices` and the `--vector_*` flags.
+The `bulk`, `live`, `worker`, `zero`, `ldbc_gen` and `convert`
+subcommands wait for the loaders and mesh slices.
 """
 
 from __future__ import annotations
@@ -38,6 +38,7 @@ def cmd_serve(args) -> int:
                 task_cache_mb=args.task_cache_mb,
                 result_cache_mb=args.result_cache_mb,
                 dispatch_width=args.dispatch_width,
+                batching=not args.no_batch,
                 batch_window_ms=args.batch_window_ms,
                 batch_max=args.batch_max,
                 write_batch=not args.no_write_batch,
@@ -48,6 +49,7 @@ def cmd_serve(args) -> int:
                 overlay_max_age_s=args.overlay_max_age_s,
                 background_rollup=not args.no_background_rollup,
                 fold_workers=args.fold_workers or None,
+                planner=not args.no_planner,
                 stats_top_k=args.stats_top_k,
                 span_sample=args.span_sample,
                 slow_query_ms=args.slow_query_ms,
@@ -64,6 +66,7 @@ def cmd_serve(args) -> int:
                 cost_regression_factor=args.cost_regression_factor,
                 lazy_folds=not args.no_lazy_folds,
                 delta_journal_max_keys=args.delta_journal_max_keys or None,
+                devprof=not args.no_devprof,
                 qos=not args.no_qos,
                 tenants=args.tenants or None,
                 device=args.device)
@@ -191,9 +194,10 @@ def build_parser() -> argparse.ArgumentParser:
                          "cost exceeds this multiple of its plan-shape's "
                          "EWMA baseline (needs 8 warmup samples)")
     sp.add_argument("--no_devprof", action="store_true",
-                    help="accepted and changes nothing: the device-runtime "
-                         "observatory is a later slice of the port and "
-                         "is off")
+                    help="disable the device-runtime observatory (kernel "
+                         "build tracking, HBM telemetry, "
+                         "/debug/compiles + /debug/timeline; zero overhead "
+                         "when off)")
     sp.add_argument("--plan_cache", type=int, default=256,
                     help="parsed-plan cache entries (0 disables)")
     sp.add_argument("--task_cache_mb", type=int, default=64,
@@ -206,9 +210,8 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--batch_max", type=int, default=16,
                     help="max tasks packed into one batched device kernel")
     sp.add_argument("--no_batch", action="store_true",
-                    help="accepted and changes nothing: batched "
-                         "multi-query execution is a later slice of the "
-                         "port and is off (exact per-task dispatch)")
+                    help="disable batched multi-query device execution "
+                         "(exact per-task dispatch)")
     sp.add_argument("--write_window_ms", type=float, default=2.0,
                     help="group-commit collect window in ms; a window "
                          "fires immediately when the journal is idle")
@@ -242,9 +245,8 @@ def build_parser() -> argparse.ArgumentParser:
                          "instead of "
                          "on-demand at first read")
     sp.add_argument("--no_planner", action="store_true",
-                    help="accepted and changes nothing: the cost-based "
-                         "planner is a later slice of the port and is off "
-                         "(parse-order execution)")
+                    help="disable the cost-based query planner "
+                         "(restores parse-order execution)")
     sp.add_argument("--stats_top_k", type=int, default=8,
                     help="top-K term-frequency sketch size per index "
                          "tokenizer (EXPLAIN / stats readout)")
@@ -275,16 +277,13 @@ def build_parser() -> argparse.ArgumentParser:
                     help="device (HBM) byte budget for the working-set "
                          "manager; tablets admit/evict by load score and "
                          "graphs larger than the budget serve through the "
-                         "host tiers (0 = unbounded; residency slice: "
-                         "any budget fails until then)")
+                         "host tiers (0 = unbounded)")
     sp.add_argument("--residency_pin", default="",
                     help="comma-separated predicates pinned in the HBM "
-                         "tier (residency slice: fails until then)")
+                         "tier (never evicted by the working-set manager)")
     sp.add_argument("--memory_mb", type=int, default=0,
                     help="posting-list memory budget; periodic rollup + "
-                         "cache drop keeps usage under it (0 = unbounded; "
-                         "the enforcement loop is the residency slice: "
-                         "any budget fails until then)")
+                         "cache drop keeps usage under it (0 = unbounded)")
     sp.add_argument("--default_timeout_ms", type=float, default=0,
                     help="end-to-end deadline budget for requests without "
                          "an explicit ?timeoutMs= — consumed at every wait "

@@ -31,12 +31,10 @@ tenant's DQL never sees the prefix, and namespace violations surface as
 
 Copy of dgraph_tpu/api/http.py for the PyTorch port, in front of the port's
 Node: the same routes, envelopes and status mapping. Where the port's Node
-waits for a later slice (POST /analytics, /admin/config/memory_mb, and
-?explain=true), its NotImplementedError names the slice and reaches the
-client as the usual 400 envelope. /debug/metrics keeps every section of the
-JAX server; `residency` reads {"enabled": false} and `tablet_load` {} until
-the residency and mesh slices bring the HBM working-set manager and the
-per-tablet load book.
+waits for a later slice (POST /analytics), its NotImplementedError names
+the slice and reaches the client as the usual 400 envelope. /debug/metrics
+keeps every section of the JAX server; `tablet_load` reads {} until the
+mesh slice brings the per-tablet load book.
 """
 
 from __future__ import annotations
@@ -367,9 +365,11 @@ def _serving_metrics(node: Node) -> dict:
         # and ran their traversals fully fused vs ones that recorded at
         # least one labeled fallback
         "mesh": _mesh_metrics(node),
-        # HBM working-set manager (storage/residency.py): the residency
-        # slice ports it; until then the section says it is off
-        "residency": {"enabled": False},
+        # HBM working-set manager (storage/residency.py): tier byte totals
+        # (hbm/warm/cold), admission/eviction/prefetch/thrash counters,
+        # pinned tablets, and the currently-resident buffer groups — the
+        # device-memory runbook's readout
+        "residency": node.residency.debug_snapshot(),
         # per-tablet load counters (coord/placement.py TabletLoadBook):
         # the mesh slice ports the book; until then no tablet has a row
         "tablet_load": {},
@@ -414,7 +414,7 @@ def _serving_metrics(node: Node) -> dict:
         # with bucket levels + exact cost totals, fair-scheduler vtimes,
         # and per-namespace storage accounting
         "tenancy": _tenancy_metrics(node),
-        # device-runtime observatory (obs/devprof.py, a later slice): XLA
+        # device-runtime observatory (obs/devprof.py): kernel-build
         # compile/retrace tracking, HBM high-water marks, and the
         # dispatch-timeline utilization meters — the full per-family
         # breakdown lives on /debug/compiles and /debug/timeline

@@ -20,25 +20,21 @@ the layers — first-committer-wins snapshot isolation
 
 Port of dgraph_tpu/api/server.py. The port's Node adds one argument,
 `device` (default "cuda", which raises without CUDA): every snapshot it
-assembles lives there. The seams that wait for later slices are OFF by
-default, and the argument or method that would turn one on raises
-NotImplementedError naming its slice:
+assembles lives there. It serves with the JAX Node's defaults: the
+cost-based planner (`planner=True`, query/planner.py), the device batcher
+(`batching=True`, query/batch.py), the device observatory (`devprof=True`,
+obs/devprof.py) and an HBM working-set manager that is always present
+(storage/residency.py; `device_budget_mb=0` means accounting only). The
+answers are the same with any of them off: the planner and the batcher
+change order and dispatch, never output, and a cold-tier tablet serves
+through the host-mirror path.
 
-  * residency and devprof: `device_budget_mb > 0`, `residency_pin`,
-    `devprof=True`, `set_memory_budget`, `enforce_memory`, `set_devprof`;
-  * planner and batching: `planner=True` (and `query(explain=True)`),
-    `batching=True`;
+The seams that wait for later slices raise NotImplementedError naming
+their slice:
+
   * vector: `vector_nprobe`, `vector_centroids >= 0`, `vector_ivf_min_rows`;
   * mesh: `mesh_devices != 0`, `analytics` (the per-tablet load book of
-    coord/placement.py waits there too).
-
-So `planner`, `batching` and `devprof` default to False here where the JAX
-Node defaults them to True. The answers are the same either way: the
-planner and the batcher change order and dispatch, never output. The
-attributes the wire's /debug/metrics reads of those seams (`batcher`,
-`devprof`, `mesh_exec`, `planner_enabled`) hold the JAX Node's values with
-the seams off. `memory_mb` (the paged store) works as in the JAX Node, and
-live queries (`subscribe`, the LiveManager over the delta journal) as well.
+    coord/placement.py waits there too, so `tablet_load` reads {}).
 """
 
 from __future__ import annotations
@@ -68,6 +64,10 @@ from dgraph_tpu_torch import tenancy as tnc
 from dgraph_tpu_torch.utils import deadline as dl
 from dgraph_tpu_torch.utils import metrics
 from dgraph_tpu_torch.utils.schema import parse_schema
+
+# the program families whose one build is the K1/K2 library
+# (ops/prefix.py): the /debug/compiles probe reports it for them
+_KERNEL_FAMILIES = frozenset({"pb.active_prefix", "pb.active_prefix_sparse"})
 
 
 @dataclass
@@ -108,7 +108,7 @@ class Node:
                  overlay_max_age_s: float | None = None,
                  background_rollup: bool = True,
                  fold_workers: int | None = None,
-                 planner: bool = False,
+                 planner: bool = True,
                  stats_top_k: int = 8,
                  span_sample: float = 0.01,
                  trace_rng=None,
@@ -120,7 +120,7 @@ class Node:
                  vector_nprobe: int = 0,
                  vector_centroids: int = -1,
                  vector_ivf_min_rows: int = 0,
-                 batching: bool = False,
+                 batching: bool = True,
                  batch_window_ms: float = 2.0,
                  batch_max: int = 16,
                  write_batch: bool = True,
@@ -135,27 +135,19 @@ class Node:
                  live_queue_max: int = 256,
                  live_idle_timeout_s: float = 300.0,
                  live_heartbeat_s: float = 15.0,
-                 devprof: bool = False,
+                 devprof: bool = True,
                  qos: bool = True,
                  tenants=None,
                  device: str = "cuda") -> None:
-        off = (("planner=True", planner, "planner"),
-               ("batching=True", batching and batch_max > 1, "batching"),
-               ("devprof=True", devprof, "devprof"),
-               ("device_budget_mb > 0", device_budget_mb > 0, "residency"),
-               ("residency_pin", bool(residency_pin), "residency"),
-               ("mesh_devices", bool(mesh_devices), "mesh"),
+        off = (("mesh_devices", bool(mesh_devices), "mesh"),
                ("vector_* knobs", bool(vector_nprobe or vector_centroids >= 0
                                        or vector_ivf_min_rows), "vector"))
         for what, on, slice_name in off:
             if on:
                 raise _unported(f"Node({what})", slice_name)
         self.device = resolve_device(device)
-        # the seams of later slices, as the JAX Node holds them when off
-        self.batcher = None
-        self.devprof = None
+        # the mesh seam, as the JAX Node holds it when off
         self.mesh_exec = None
-        self.planner_enabled = False
         # memory_mb enables the PAGED store: snapshot mmap'd, lists
         # materialize lazily, clean entries evict under the budget
         self.store = Store(dirpath,
@@ -167,6 +159,22 @@ class Node:
         # checkpoint/ingest gauges (peak transient bytes etc.) land in this
         # node's registry — they show on /metrics next to the query tiers
         self.store.metrics = self.metrics
+        # HBM working-set manager (storage/residency.py): owns the node's
+        # device-byte budget and the HBM ↔ host tiers. Folded tablets
+        # attach at build_pred/stamp_pred (store.residency), device uploads
+        # admit against the budget (evicting colder tablets by the
+        # placement controller's rate×log2(size) score), and COLD tablets
+        # (footprint > budget) serve through the host-cutover machinery.
+        # budget 0 = unbounded: accounting only.
+        from dgraph_tpu_torch.storage.residency import ResidencyManager
+
+        pins = residency_pin
+        if isinstance(pins, str):
+            pins = tuple(p.strip() for p in pins.split(",") if p.strip())
+        self.residency = ResidencyManager(
+            budget_bytes=int(device_budget_mb) << 20,
+            metrics=self.metrics, pins=tuple(pins))
+        self.store.residency = self.residency
         self.traces = metrics.TraceStore(fraction=trace_fraction,
                                          rng=trace_rng)
         # span tracing + device profiling (obs/otrace.py): root spans start
@@ -189,6 +197,19 @@ class Node:
                              if result_cache_mb > 0 else None)
         self.dispatch_gate = qcache.DispatchGate(dispatch_width,
                                                  self.metrics)
+        # device-dispatch batcher (query/batch.py): concurrent compatible
+        # device-class tasks — same predicate CSR object (which pins the
+        # snapshot), same kernel class — pack into ONE batched launch,
+        # amortizing the fixed dispatch+sync that otherwise serializes
+        # through the gate. --no_batch / batching=False restores exact
+        # per-task dispatch.
+        self.batcher = None
+        if batching and batch_max > 1:
+            from dgraph_tpu_torch.query.batch import DeviceBatcher
+
+            self.batcher = DeviceBatcher(self.dispatch_gate, self.metrics,
+                                         window_ms=batch_window_ms,
+                                         max_batch=batch_max)
         # group-commit write window (storage/writebatch.py):
         # concurrent committing txns form ONE batched oracle conflict
         # pass, ONE contiguous WAL append with ONE fsync, and ONE
@@ -202,6 +223,11 @@ class Node:
             self.write_batcher = WriteBatcher(
                 self.zero.oracle, self.store, self.metrics,
                 window_ms=write_window_ms, max_batch=write_batch_max)
+        # cost-based planner (query/planner.py) over the live cardinality
+        # stats (storage/stats.py). Order decisions only — disabling it
+        # (--no_planner) restores exact parse-order execution.
+        self.planner_enabled = planner
+        self.stats_top_k = int(stats_top_k)
         # request lifelines: a per-request deadline budget
         # (query/mutate timeout_ms arg, HTTP ?timeoutMs=, --default_
         # timeout_ms flag) consumed at the dispatch gate + task seams;
@@ -245,6 +271,8 @@ class Node:
         maxuid = self._max_uid_in_store()
         if maxuid:
             self.zero.uids.assign(maxuid)
+        self.memory_budget = 0          # 0 = unbounded
+        self._enforcer_started = False
         # per-request cost ledger + /debug/top profiler
         # (obs/costs.py): every query assembles one resource cost record
         # (device-kernel ms, transfer bytes, traversed edges, cache/batch/
@@ -262,6 +290,8 @@ class Node:
         # endpoint="live" in /debug/top.
         from dgraph_tpu_torch.live import LiveManager
 
+        # (the batcher is handed over: a live notifier re-evaluating a
+        # coalesced commit window hints a burst, so its re-evals pack)
         self.live = LiveManager(
             eval_fn=lambda q, v, ts, subs=(): self.query(
                 q, v, start_ts=ts, read_only=True,
@@ -295,10 +325,56 @@ class Node:
         self.zero.tenants = self.tenancy
         if tenants:
             self.configure_tenants(tenants)
+        # device-runtime observatory (obs/devprof.py): kernel-build
+        # tracking, device-memory telemetry and the dispatch timeline,
+        # attached at the gate seam plus the module fan-out for
+        # process-global build sites. --no_devprof never constructs it —
+        # the seams read one None attribute / one empty tuple.
+        self._device_budget_bytes = int(device_budget_mb) << 20
+        self.devprof = None
+        if devprof:
+            self._arm_devprof()
+
+    def _arm_devprof(self) -> None:
+        from dgraph_tpu_torch.obs import devprof as devprof_mod
+        from dgraph_tpu_torch.obs.devprof import DevProfiler
+
+        prof = DevProfiler(self.metrics, slow_log=self.slow_log,
+                           budget_bytes=self._device_budget_bytes,
+                           residency=self.residency, device=self.device)
+
+        def ops_programs():
+            # only modules ALREADY imported by an executed path — the
+            # probe must not import kernels on a scrape. A torch function
+            # holds no per-shape programs; the kernel families hold the
+            # one K1/K2 library once it is loaded (ops/prefix.py).
+            import sys
+
+            built = getattr(sys.modules.get("dgraph_tpu_torch.ops.prefix"),
+                            "programs_built", lambda: 0)()
+            out = {}
+            for name in ("segments", "pull_bfs", "traversal"):
+                m = sys.modules.get(f"dgraph_tpu_torch.ops.{name}")
+                for fam in getattr(m, "JIT_PROGRAMS", {}):
+                    out[fam] = built if fam in _KERNEL_FAMILIES else 0
+            return out
+
+        prof.add_cache_probe("ops.jit", ops_programs)
+        self.devprof = prof
+        self.dispatch_gate.profiler = prof
+        devprof_mod.register(prof)
 
     def set_devprof(self, on: bool) -> None:
-        """Arm/disarm the device-runtime observatory (devprof slice)."""
-        raise _unported("Node.set_devprof", "devprof")
+        """Arm/disarm the device-runtime observatory live (A/B runs toggle
+        this between battery passes)."""
+        from dgraph_tpu_torch.obs import devprof as devprof_mod
+
+        if on and self.devprof is None:
+            self._arm_devprof()
+        elif not on and self.devprof is not None:
+            devprof_mod.unregister(self.devprof)
+            self.dispatch_gate.profiler = None
+            self.devprof = None
 
     # -- multi-tenant QoS -----------------------------------------
 
@@ -377,8 +453,26 @@ class Node:
             self.tenancy.admit(tenant)
 
     def set_memory_budget(self, budget_bytes: int) -> None:
-        """The --memory_mb enforcement loop (residency slice)."""
-        raise _unported("Node.set_memory_budget", "residency")
+        """Install/retarget the memory budget and ensure the background
+        enforcement loop is running (admin.go live memory_mb reconfig —
+        the loop re-reads the budget each tick, so later changes stick)."""
+        self.memory_budget = int(budget_bytes)
+        if self._enforcer_started or budget_bytes <= 0:
+            return
+        self._enforcer_started = True
+
+        def loop():
+            while True:
+                time.sleep(10)
+                try:
+                    if self.memory_budget > 0:
+                        self.enforce_memory(self.memory_budget)
+                # dgraph: allow(except-seam) bg maintenance tick: next
+                # tick retries; a dead enforcer must not kill the loop
+                except Exception:
+                    pass
+        # dgraph: allow(ctxvar-copy) detached memory-enforcer bg loop
+        threading.Thread(target=loop, daemon=True).start()
 
     # value-posting slots (lang/value fingerprints) carry the 1<<60 / 1<<61
     # tag bits (storage/postings.py lang_uid/value_fingerprint) and must never
@@ -680,6 +774,18 @@ class Node:
             else float(timeout_ms)
         return dl.scope(ms / 1000.0 if ms and ms > 0 else None)
 
+    def _count_task(self, tq, res, dt: float) -> None:
+        """Executor on_task hook: per-tablet read accounting — feeds the
+        residency manager's admission/eviction scores (the JAX Node feeds
+        the placement controller's load book from the same hook; that book
+        waits for the mesh slice)."""
+        attr = tq.attr[1:] if tq.attr.startswith("~") else tq.attr
+        # tablet accounting keys on STORAGE attrs: a tenant's task carries
+        # its bare name, so translate before the residency touch (no-op
+        # for the default namespace)
+        attr = tnc.prefix(tnc.current(), attr)
+        self.residency.touch(attr)
+
     def query(self, q: str, variables: dict | None = None,
               start_ts: int | None = None,
               read_only: bool = False,
@@ -698,10 +804,10 @@ class Node:
         edge_limit overrides the process-default traversed-edge budget for
         THIS request only (the --query_edge_limit flag, now per-request).
 
-        explain=True (the plan tree with estimated vs actual cardinality)
-        raises until the planner slice."""
-        if explain:
-            raise _unported("Node.query(explain=True)", "planner")
+        explain=True adds an "explain" key to the returned dict: the
+        physical plan tree with estimated vs actual cardinality per step
+        (the ?explain=true HTTP surface). Explain requests bypass the
+        whole-query result cache so the actuals are real."""
         qtitle = q.strip().splitlines()[0][:120] if q.strip() else ""
         tr = self.traces.start("query", qtitle)
         sp = self._span("query", query=qtitle)
@@ -753,6 +859,24 @@ class Node:
             schema = self._schema_view()
             sp.set(read_ts=int(read_ts))
             tr.printf("snapshot at ts %d (%d preds)", read_ts, len(snap.preds))
+            pf_attrs = None
+            if not req.mutations:
+                # plan-driven FOLD prefetch: pending lazy folds of the
+                # plan's read set resolve on the shared fold pool BEFORE
+                # the result-token computation, so the cache-key walk below
+                # JOINS in-flight folds instead of folding serially. Issued
+                # only when something is actually pending — a warm result
+                # cache hit must stay free of prefetch work (the upload leg
+                # runs after the cache miss, below)
+                pf_attrs = qcache.plan_attrs(req)
+                is_pending = getattr(snap.preds, "is_pending", None)
+                if pf_attrs and is_pending is not None:
+                    # ONLY the pending attrs: the early call must not run
+                    # the upload leg for folded tablets a cache hit never
+                    # needs (and the miss-path call below would re-submit)
+                    pend = [a for a in pf_attrs if is_pending(a)]
+                    if pend:
+                        self.residency.prefetch(pend, snap)
             # whole-query result tier: keyed on (plan key, per-predicate
             # token tuple of the plan's read set, edge budget). A commit to
             # predicate P rotates only P's PredData token, so replays that
@@ -761,7 +885,8 @@ class Node:
             # key on the snapshot object and rotate on every commit /
             # alter / drop / txn-overlay version bump as before
             rkey = None
-            if self.result_cache is not None and not req.mutations:
+            if self.result_cache is not None and not req.mutations \
+                    and not explain:
                 pk = qcache.plan_key(q, variables, tenant)
                 if pk is not None:
                     # the EFFECTIVE budget is part of the key: a shrunk
@@ -779,12 +904,58 @@ class Node:
                         sp.set(result_cache="hit")
                         costs.note("result_cache_hit")
                         return cached, TxnContext(start_ts=read_ts)
+            # cost-based plan (order decisions only): cached alongside the
+            # AST, keyed on the per-predicate stats tokens of the plan's
+            # read set — a commit to P rebuilds only plans that read P
+            plan = None
+            recorder = {} if explain else None
+            if self.planner_enabled and not req.mutations:
+                from dgraph_tpu_torch.query import planner as plmod
+
+                def build():
+                    return plmod.build_plan(req, snap, schema,
+                                            metrics=self.metrics,
+                                            top_k=self.stats_top_k,
+                                            trace=tr)
+                try:
+                    plan = (self.plan_cache.plan(q, variables, req, snap,
+                                                 build, ns=tenant)
+                            if self.plan_cache is not None else build())
+                except Exception:
+                    # stats/planner trouble must never fail a query —
+                    # parse-order execution is always available
+                    self.metrics.counter(
+                        "dgraph_planner_fallbacks_total").inc()
+                    plan = None
+                if plan is not None and sp:
+                    # compact decision summary for the slow-query log;
+                    # per-step est-vs-actual rides Plan.record span events
+                    sp.set(plan={
+                        "root_swaps": len(plan.root_swap),
+                        "filter_reorders": len(plan.and_order),
+                        "sibling_reorders": len(plan.child_order),
+                        "cutover_overrides": len(plan.cutover)})
+            if self.residency.enabled and pf_attrs:
+                # warm→HBM UPLOAD prefetch: after the result cache missed,
+                # start async uploads for the read set so the transfer
+                # overlaps the preceding host work / device step
+                self.residency.prefetch(pf_attrs, snap)
             out = Executor(snap, schema,
                            cache=self.task_cache, gate=self.dispatch_gate,
-                           edge_limit=edge_limit).execute(req)
+                           edge_limit=edge_limit, plan=plan,
+                           explain=recorder,
+                           batcher=self.batcher,
+                           on_task=self._count_task).execute(req)
             tr.printf("executed")
             if rkey is not None:
                 self.result_cache.put(rkey, out)
+            if explain:
+                from dgraph_tpu_torch.query import planner as plmod
+
+                out = dict(out)
+                out["explain"] = (plmod.render_explain(plan, recorder)
+                                  if plan is not None
+                                  else {"planner": "off"})
             return out, TxnContext(start_ts=read_ts)
         except BaseException as e:
             # EVERY failure shape finishes the breadcrumb trace with its
@@ -895,7 +1066,9 @@ class Node:
                         snap = self._ns_view(snap, tenant)
                     ex = Executor(snap, self._schema_view(),
                                   cache=self.task_cache,
-                                  gate=self.dispatch_gate)
+                                  gate=self.dispatch_gate,
+                                  batcher=self.batcher,
+                                  on_task=self._count_task)
                     out = ex.execute(self._parse(q, variables))
                     vars_map = ex.vars
                 uid_map: dict = {}
@@ -1138,8 +1311,88 @@ class Node:
     # -- memory management ---------------------------------------------------
 
     def enforce_memory(self, budget_bytes: int) -> dict:
-        """Bring host and device memory under budget (residency slice)."""
-        raise _unported("Node.enforce_memory", "residency")
+        """Bring host posting-list memory under budget (the --memory_mb
+        contract; reference posting/lists.go:123-180 periodic commit +
+        LRU eviction under AllottedMemory).
+
+        Levers, cheapest first:
+        1. roll up the layer-heaviest lists below the min-pending watermark
+           (folds Python layer dicts into the packed numpy base — the same
+           compaction the reference's periodic commit achieves);
+        2. drop task-result cache entries (pure recompute cost, no
+           correctness state);
+        3. drop cached device snapshots and the predicate build cache
+           (rebuilt read-through on the next query).
+        Never touches uncommitted layers or layers a live txn could read.
+        """
+        stats = self.store.memory_stats()
+        rolled = 0
+        if stats["bytes"] > budget_bytes and stats["layers"]:
+            pend = self.zero.oracle.min_pending()
+            upto = self.store.max_seen_commit_ts if pend is None \
+                else min(pend - 1, self.store.max_seen_commit_ts)
+            if upto > 0:
+                with self.store._lock:
+                    pls = list(self.store.lists.values())
+                pls.sort(key=lambda p: p.layer_count(), reverse=True)
+                for pl in pls:
+                    if pl.layer_count() == 0:
+                        break
+                    pl.rollup(upto)
+                    rolled += 1
+                    if rolled % 256 == 0 and \
+                            self.store.memory_stats()["bytes"] <= budget_bytes:
+                        break
+                stats = self.store.memory_stats()
+        cache_evicted = 0
+        cache_bytes = (self.task_cache.bytes if self.task_cache else 0) + \
+            (self.result_cache.bytes if self.result_cache else 0)
+        if cache_bytes and stats["bytes"] + cache_bytes > budget_bytes:
+            over = stats["bytes"] + cache_bytes - budget_bytes
+            if self.result_cache is not None:
+                cache_evicted += self.result_cache.evict_to(
+                    max(0, self.result_cache.bytes - over))
+                over = stats["bytes"] + \
+                    (self.task_cache.bytes if self.task_cache else 0) - \
+                    budget_bytes
+            if self.task_cache is not None and over > 0:
+                cache_evicted += self.task_cache.evict_to(
+                    max(0, self.task_cache.bytes - over))
+        # overlay rows are pure acceleration state: force-compact them back
+        # into folded bases before the invalidate hammer (keeps cache heat)
+        compacted = 0
+        overlay_bytes = self._assembler.overlay_bytes()
+        if overlay_bytes and stats["bytes"] + overlay_bytes > budget_bytes:
+            compacted = self._assembler.compact(self._lock, force=True)
+            overlay_bytes = self._assembler.overlay_bytes()
+        # device-byte accounting routes through the ResidencyManager:
+        # fold_bytes is the HOST footprint of every live folded PredData —
+        # CSR columns, value tables and token indexes. The manager also
+        # re-enforces its own device budget here.
+        fold_bytes = self.residency.host_bytes()
+        res_evicted = 0
+        if self.residency.enabled:
+            res_evicted = self.residency.evict_to(self.residency.budget)
+        dropped_snaps = 0
+        if stats["bytes"] + fold_bytes > budget_bytes:
+            with self._lock:
+                dropped_snaps = self._assembler.invalidate()
+            # dropped PredData frees its device buffers too (weakref
+            # entries unregister as the folds are collected); make any
+            # survivors' device bytes visible immediately. fold_bytes
+            # stays the MEASURED value — the number that triggered the
+            # drop, not the post-drop remainder.
+            self.residency.usage()
+        self.metrics.counter("dgraph_memory_bytes").set(stats["bytes"])
+        return {"bytes": stats["bytes"], "lists": stats["lists"],
+                "layers": stats["layers"], "rolled_up": rolled,
+                "dropped_caches": dropped_snaps,
+                "task_cache_evicted": cache_evicted,
+                "overlay_bytes": overlay_bytes,
+                "overlays_compacted": compacted,
+                "fold_bytes": fold_bytes,
+                "residency_evicted": res_evicted,
+                "residency": self.residency.usage()}
 
     # -- live queries --------------------------------------------------------
 
@@ -1166,6 +1419,11 @@ class Node:
         live = getattr(self, "live", None)
         if live is not None:
             live.close()
+        if getattr(self, "devprof", None) is not None:
+            from dgraph_tpu_torch.obs import devprof as devprof_mod
+
+            devprof_mod.unregister(self.devprof)
         self._rollup_stop.set()
         self.slow_log.close()
+        self.residency.close()
         self.store.close()

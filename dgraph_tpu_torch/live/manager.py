@@ -1,10 +1,10 @@
 """Live queries: standing subscriptions with O(Δ) re-evaluation.
 
-Copy of dgraph_tpu/live/manager.py for the PyTorch port. The port's Node
-passes no batcher (batching is a later slice), so re-evaluations of one
-window run on the eval pool's threads without a burst hint; a
-re-evaluation that reaches K1/K2 launches them from a pool thread, on the
-default stream.
+Copy of dgraph_tpu/live/manager.py for the PyTorch port. The Node hands
+over its device batcher: the notifier hints a burst before re-evaluating a
+coalesced commit window, so compatible re-evaluations pack into one
+batched run; a re-evaluation that reaches K1/K2 launches them from a pool
+thread (or the batch leader's), on the default stream.
 
 The reference streams its commit log to consumers; here the analogous seam
 is the per-predicate delta journal + the commit window. A subscription is

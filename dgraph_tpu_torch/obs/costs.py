@@ -1,11 +1,10 @@
 """Per-request resource cost ledger + the /debug/top sliding-window profiler.
 
-Copy of dgraph_tpu/obs/costs.py for the PyTorch port. Two differences: the
-port compiles nothing per request (its kernels build once per process), so
-`compile_ms` stays 0 — the JAX ledger books XLA compiles from a
-jax.monitoring listener — and the device observatory's program-family
-stack (obs/devprof.py) waits for the residency/devprof slice, so kernel
-windows push no family.
+Copy of dgraph_tpu/obs/costs.py for the PyTorch port. One difference: the
+port compiles nothing per request (its torch ops run eagerly and its
+kernels build once per process), so `compile_ms` books the kernel library
+builds a request triggers (obs/devprof.note_compile), where the JAX ledger
+books XLA compiles from a jax.monitoring listener.
 
 The observability gap: device time, transfer bytes, and
 traversed edges existed only as GLOBAL counters (utils/metrics.py) and
@@ -45,6 +44,7 @@ import threading
 import time
 from collections import deque
 
+from . import devprof
 
 # gRPC trailing-metadata key for the shipped record (-bin carries bytes)
 WIRE_KEY = "dgt-cost-bin"
@@ -127,7 +127,7 @@ class CostLedger:
         self.rows = 0                 # value/index rows scanned host-side
         self.tasks = 0                # dispatched tasks
         self.gate_wait_ms = 0.0       # dispatch-gate queueing
-        self.compile_ms = 0.0         # XLA compiles this request triggered
+        self.compile_ms = 0.0         # kernel builds this request triggered
         self.subs: tuple = ()         # subscription ids (endpoint="live")
         self.outcomes: dict[str, int] = {}
         # attr -> [device_ms, edges, bytes, tasks]
@@ -208,8 +208,8 @@ class CostLedger:
             self.gate_wait_ms += ms
 
     def add_compile(self, ms: float) -> None:
-        """XLA compile wall ms this request triggered (the devprof
-        jax.monitoring listener books it) — kept SEPARATE from device_ms
+        """Kernel-build wall ms this request triggered (devprof.note_compile
+        books it) — kept SEPARATE from device_ms
         so a first-touch compile doesn't poison the shape's EWMA
         regression baseline, while /debug/top?by=compile_ms still ranks
         the shapes paying for retraces."""
@@ -400,7 +400,7 @@ class _KernelTimer:
     clamped at zero against concurrent hedge-thread waits)."""
 
     __slots__ = ("_lg", "_kernel", "_attr", "_t0", "_gw0", "h2d", "d2h",
-                 "ms")
+                 "ms", "_pushed")
 
     def __init__(self, kernel: str, attr: str | None = None) -> None:
         self._lg = _current.get()
@@ -409,6 +409,7 @@ class _KernelTimer:
         self.h2d = 0
         self.d2h = 0
         self.ms = 0.0          # charged wall ms, readable after exit
+        self._pushed = False
 
     def __enter__(self):
         lg = self._lg
@@ -416,6 +417,14 @@ class _KernelTimer:
             with lg._lock:
                 lg._kernel_depth += 1
                 self._gw0 = lg.gate_wait_ms
+            # devprof armed: the kernel name IS the program family — the
+            # thread-local stack lets the dispatch timeline and the build
+            # observatory attribute their records to "pb.recurse_fused" /
+            # "csr.expand" instead of the coarse gate class. One empty-
+            # tuple truthiness check when the observatory is off.
+            if devprof._PROFILERS:
+                devprof.push_family(self._kernel)
+                self._pushed = True
             self._t0 = time.perf_counter()
         return self
 
@@ -427,6 +436,8 @@ class _KernelTimer:
         lg = self._lg
         if lg is not None:
             dt = (time.perf_counter() - self._t0) * 1e3
+            if self._pushed:
+                devprof.pop_family()
             with lg._lock:
                 lg._kernel_depth -= 1
                 waited = lg.gate_wait_ms - self._gw0

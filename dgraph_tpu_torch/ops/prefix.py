@@ -29,6 +29,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 import torch
@@ -51,11 +52,19 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _lib = None
 _lib_lock = threading.Lock()
 _tile = 0          # edges per kernel tile (dg_tile_edges), read at load
+_count_lock = threading.Lock()
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _count_lock:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+
+
+def _count(name: str) -> None:
+    # the batcher's leader thread and solo queries launch concurrently
+    with _count_lock:
+        LAUNCHES[name] += 1
 
 
 def _nvcc() -> str:
@@ -96,6 +105,7 @@ def _load():
     global _lib, _tile
     with _lib_lock:
         if _lib is None:
+            t0 = time.perf_counter()
             path, _ = build()
             lib = ctypes.CDLL(str(path))
             ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -112,7 +122,19 @@ def _load():
             if EDGE_BLOCK % _tile:
                 raise RuntimeError("kernel tile does not divide EDGE_BLOCK")
             _lib = lib
+            # the process's one build of K1/K2 (nvcc, or the load of the
+            # hashed library a build left): a compile on the observatory
+            from dgraph_tpu_torch.obs import devprof
+
+            devprof.note_compile("pb.active_prefix",
+                                 (time.perf_counter() - t0) * 1e3)
     return _lib
+
+
+def programs_built() -> int:
+    """Programs this module holds built: 1 once the K1/K2 library is
+    loaded (the /debug/compiles probe of the kernel families)."""
+    return int(_lib is not None)
 
 
 # ---------------------------------------------------------------------------
@@ -209,7 +231,7 @@ def active_prefix(words: torch.Tensor, src_pad: torch.Tensor,
     lib = _load()
     out = _launch(lib.dg_active_prefix, src_pad, words.data_ptr(),
                   chunks * 8)
-    LAUNCHES["active_prefix"] += 1
+    _count("active_prefix")
     return out
 
 
@@ -233,5 +255,5 @@ def active_prefix_sparse(ftab: torch.Tensor,
         return torch.empty_like(src_pad)
     lib = _load()
     out = _launch(lib.dg_active_prefix_sparse, src_pad, ftab.data_ptr())
-    LAUNCHES["active_prefix_sparse"] += 1
+    _count("active_prefix_sparse")
     return out

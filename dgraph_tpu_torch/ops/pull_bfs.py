@@ -398,31 +398,77 @@ def recurse_step(in_src_pad, in_iptr_rank, subjects, in_subjects,
     return pack_words(dest, pack_chunks(num_nodes)), trav, seen2, fresh
 
 
+def _recurse_fused_levels(in_src_pad, in_src_pad_d, in_iptr_rank, subjects,
+                          in_subjects, seeds_masks, *, depth: int,
+                          chunks: int, chunks_d: int, allow_loop: bool):
+    """The level loop shared by recurse_fused (B = 1) and
+    recurse_fused_multi (pallas_bfs._recurse_fused_levels). It runs
+    level-major: at each level the B frontiers' popcounts are stacked and
+    read in one host sync, then each slice goes to K2 (at most SPARSE_MAX
+    set bits) or K1 as _prefix_for routes it. Level 1 reads seed bits in
+    src-rank space, later levels the previous level's reached dst-rank mask
+    against the dst-rank stream. Each query keeps its own seen-edge mask and
+    every op is integer or boolean, so slice b depends on seeds_masks[b]
+    alone. Returns (masks_p [B, D, Cd*8, 128], traversed int32[B, D], fresh
+    bool[B, D, E_pad])."""
+    nb = seeds_masks.shape[0]
+    nd = in_subjects.shape[0]
+    dev = seeds_masks.device
+    e_pad = in_src_pad.shape[0]
+    seen = [torch.zeros((e_pad,), dtype=torch.bool, device=dev)
+            for _ in range(nb)]
+    masks = [[] for _ in range(nb)]
+    travs = [[] for _ in range(nb)]
+    freshes = [[] for _ in range(nb)]
+    fronts = seeds_masks[:, subjects.to(torch.int64)]    # src ranks, level 1
+    for i in range(depth):
+        stream, n_chunks = (in_src_pad, chunks) if i == 0 \
+            else (in_src_pad_d, chunks_d)
+        counts = fronts.sum(dim=1).tolist()               # the level's read
+        reached = []
+        for b in range(nb):
+            prefix = _prefix_for(fronts[b], stream, n_chunks, counts[b])
+            r, trav, seen[b], fresh = _recurse_tail(prefix, in_iptr_rank,
+                                                    seen[b], allow_loop)
+            reached.append(r)
+            masks[b].append(r)
+            travs[b].append(trav)
+            freshes[b].append(fresh)
+        fronts = torch.stack(reached)
+    return (pack_words(torch.stack([torch.stack(m) for m in masks]),
+                       pack_chunks(nd)),
+            torch.stack([torch.stack(t) for t in travs]),
+            torch.stack([torch.stack(f) for f in freshes]))
+
+
 def recurse_fused(in_src_pad, in_src_pad_d, in_iptr_rank, subjects,
                   in_subjects, seeds_mask, *, depth: int, chunks: int,
                   chunks_d: int, allow_loop: bool):
-    """All `depth` levels in one call: level 1 reads seed bits in src-rank
-    space, later levels the previous level's fresh dst-rank mask against the
-    dst-rank stream. Returns (dest words [D, Cd*8, 128] packed dst-rank
-    masks, traversed int32[D], fresh bool[D, E_pad] kept on the device)."""
-    nd = in_subjects.shape[0]
-    dev = seeds_mask.device
-    seen = torch.zeros((in_src_pad.shape[0],), dtype=torch.bool, device=dev)
-    reached = torch.zeros((nd,), dtype=torch.bool, device=dev)
-    masks, travs, freshes = [], [], []
-    for i in range(depth):
-        if i == 0:
-            prefix = _prefix_for(seeds_mask[subjects.to(torch.int64)],
-                                 in_src_pad, chunks)
-        else:
-            prefix = _prefix_for(reached, in_src_pad_d, chunks_d)
-        reached, trav, seen, fresh = _recurse_tail(prefix, in_iptr_rank,
-                                                   seen, allow_loop)
-        masks.append(reached)
-        travs.append(trav)
-        freshes.append(fresh)
-    return (pack_words(torch.stack(masks), pack_chunks(nd)),
-            torch.stack(travs), torch.stack(freshes))
+    """All `depth` levels of one query in one call, one popcount read a
+    level. Returns (dest words [D, Cd*8, 128] packed dst-rank masks,
+    traversed int32[D], fresh bool[D, E_pad] kept on the device)."""
+    masks_p, trav, fresh = _recurse_fused_levels(
+        in_src_pad, in_src_pad_d, in_iptr_rank, subjects, in_subjects,
+        seeds_mask[None], depth=depth, chunks=chunks, chunks_d=chunks_d,
+        allow_loop=allow_loop)
+    return masks_p[0], trav[0], fresh[0]
+
+
+def recurse_fused_multi(in_src_pad, in_src_pad_d, in_iptr_rank, subjects,
+                        in_subjects, seeds_masks, *, depth: int, chunks: int,
+                        chunks_d: int, allow_loop: bool):
+    """Multi-source recurse: seeds_masks [B, num_nodes] stacks B concurrent
+    queries' seed masks (the batched-dispatch tier, query/batch.py). The
+    JAX version maps the level body over the batch in one dispatch; here
+    the shared level loop reads the B popcounts of a level in one host
+    sync, so a batch pays `depth` reads instead of B x depth, and slice b
+    is bit-identical to a solo recurse_fused call with seeds_masks[b].
+    Returns (masks_p [B, D, Cd*8, 128], traversed int32[B, D], fresh
+    bool[B, D, E_pad])."""
+    return _recurse_fused_levels(
+        in_src_pad, in_src_pad_d, in_iptr_rank, subjects, in_subjects,
+        seeds_masks, depth=depth, chunks=chunks, chunks_d=chunks_d,
+        allow_loop=allow_loop)
 
 
 # ---------------------------------------------------------------------------
@@ -522,3 +568,20 @@ def shortest_bfs(g: PullGraph, src: int, dst: int, max_hops: int):
         path.append(int(sub_uids[u_rank]))
         v_rank = int(map_s2d[u_rank])
     return path[::-1]
+
+
+# device-runtime observatory (obs/devprof.py): the module's entry points by
+# program family, under the JAX package's names. Nothing here compiles per
+# shape: /debug/compiles probes each for the programs it holds built, which
+# is the one nvcc library of K1/K2 for the kernel families (prefix.py) and
+# none for the torch-op functions.
+JIT_PROGRAMS = {
+    "pb.active_prefix": active_prefix,
+    "pb.active_prefix_sparse": active_prefix_sparse,
+    "pb.k_hop": _k_hop_impl,
+    "pb.pack_mask": pack_mask,
+    "pb.recurse_step": recurse_step,
+    "pb.bfs_dist": bfs_dist,
+    "pb.recurse_fused": recurse_fused,
+    "pb.recurse_fused_multi": recurse_fused_multi,
+}

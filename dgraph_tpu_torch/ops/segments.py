@@ -261,3 +261,14 @@ def rank_in_table(table: np.ndarray, values: np.ndarray,
     pos = np.searchsorted(table, values)
     posc = np.minimum(pos, len(table) - 1)
     return posc.astype(np.int64), table[posc] == values
+
+
+# device-runtime observatory (obs/devprof.py): the module's entry points by
+# program family, under the JAX package's names. They are torch ops, which
+# build no program per shape, so /debug/compiles probes each at 0.
+JIT_PROGRAMS = {
+    "segments.reduce": segment_reduce,
+    "segments.sum_count": _sum_count,
+    "segments.lens_reduce": _lens_reduce,
+    "segments.rank_kernel": _rank_kernel,
+}

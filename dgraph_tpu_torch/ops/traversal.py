@@ -251,3 +251,14 @@ def reverse_csr(subjects: np.ndarray, indptr: np.ndarray,
     np.cumsum(counts, out=in_indptr[1:])
     return (in_subjects.astype(np.int32), in_indptr.astype(np.int32),
             src_sorted.astype(np.int32))
+
+
+# device-runtime observatory (obs/devprof.py): the module's entry points by
+# program family, under the JAX package's names; torch ops, probed at 0
+# programs on /debug/compiles (see ops/segments.py).
+JIT_PROGRAMS = {
+    "traversal.k_hop": k_hop,
+    "traversal.sssp": sssp,
+    "traversal.k_hop_dense": k_hop_dense,
+    "traversal.k_hop_pull": k_hop_pull,
+}

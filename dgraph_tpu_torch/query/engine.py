@@ -16,11 +16,13 @@ orderasc/orderdesc (index-ordered for a bounded single key), pagination,
 @cascade, @recurse, shortest paths (query/shortest.py) and @groupby
 (query/groupby.py). The serving seams of the JAX Executor are here: the
 task dispatcher, the task-result cache, the dispatch gate (`gated`), the
-per-request edge limit, the per-task deadline check, otrace spans and
-cost-ledger attribution (`_traced_dispatch`), and the per-task hook
-(`on_task`). The planner (`plan`, `explain`), the mesh and the device
-batcher wait for their slices: passing one raises NotImplementedError
-naming it. similar_to (in query/task.py) names the vector slice.
+device batcher (`batcher`, query/batch.py, and `batched_recurse`), the
+planner's physical plan (`plan`, query/planner.py) and its EXPLAIN
+recorder (`explain`), the per-request edge limit, the per-task deadline
+check, otrace spans and cost-ledger attribution (`_traced_dispatch`), and
+the per-task hook (`on_task`). The mesh waits for its slice: passing one
+raises NotImplementedError naming it. similar_to (in query/task.py) names
+the vector slice.
 """
 
 from __future__ import annotations
@@ -91,16 +93,6 @@ class SubGraph:
     traversed: int = 0
 
 
-def kernel_klass(q) -> str:
-    """Coarse kernel class of one TaskQuery for the gate's per-class EWMA
-    (root functions and frontier expands have very different step
-    times). The JAX package keeps this in query/batch.py, which waits for
-    the batching slice."""
-    if q.frontier is None:
-        return "root"
-    return "expand"
-
-
 class Executor:
     """Executes one parsed request against a snapshot; the device is the
     snapshot's.
@@ -115,15 +107,16 @@ class Executor:
                  edge_limit: int | None = None,
                  plan=None, explain: dict | None = None,
                  mesh=None, batcher=None, on_task=None):
-        for name, arg, slice_name in (("plan", plan, "planner"),
-                                      ("explain", explain, "planner"),
-                                      ("mesh", mesh, "mesh"),
-                                      ("batcher", batcher, "batching")):
-            if arg is not None:
-                raise _unported(f"Executor({name}=...)", slice_name)
+        if mesh is not None:
+            raise _unported("Executor(mesh=...)", "mesh")
         self.snap = snap
         self.schema = schema
-        self.plan = None               # read by groupby (planner slice)
+        # physical plan (query/planner.py): order decisions only — root
+        # source selection, AND-filter order, sibling order, dispatch
+        # cutover. None = parse-order execution. `explain` is a per-query
+        # {step id: actual cardinality} recorder feeding EXPLAIN.
+        self.plan = plan
+        self.explain = explain
         self.vars: dict[str, VarValue] = {}
         self.traversed_edges = 0
         # per-request edge budget override; None = module default (read
@@ -137,10 +130,27 @@ class Executor:
         raw = dispatch or (
             lambda q: process_task(self.snap, q, self.schema))
         if gate is not None:
+            from dgraph_tpu_torch.query.batch import kernel_klass
+
             inner = raw
+            # klass hint: the batcher refines the coarse kernel_klass with
+            # its classification (host-path fallbacks feed the gate's
+            # "host" EWMA class, not the device-class estimates)
             raw = lambda q, klass=None: gate.run(
                 lambda: inner(q),
                 klass=klass if klass is not None else kernel_klass(q))
+        # device-dispatch batcher (query/batch.py): between the
+        # singleflight tier (which dedupes IDENTICAL tasks — only flight
+        # leaders reach this seam) and the gate, DISTINCT compatible
+        # device-class tasks from concurrent queries pack into ONE batched
+        # launch. Local snapshots only.
+        self.batcher = batcher if dispatch is None else None
+        if self.batcher is not None:
+            ungated = raw
+            solo = raw if gate is not None else (
+                lambda q, klass=None: ungated(q))
+            raw = lambda q: self.batcher.dispatch(self.snap, self.schema,
+                                                  q, solo)
         if cache is not None:
             from dgraph_tpu_torch.query.qcache import task_token
 
@@ -228,6 +238,18 @@ class Executor:
         return self.gate.run(fn, klass=klass) if self.gate is not None \
             else fn()
 
+    def batched_recurse(self, g, seeds_mask, depth: int, allow_loop: bool,
+                        solo):
+        """Fused-recurse seam of the dispatch batcher: compatible
+        concurrent traversals (same PullGraph object — which pins tablet
+        and snapshot — same depth and loop rule) stack their seed masks
+        into one multi-source run (ops/pull_bfs.recurse_fused_multi)
+        instead of serializing through the gate one fused recurse each."""
+        if self.batcher is not None:
+            return self.batcher.dispatch_recurse(g, seeds_mask, depth,
+                                                 allow_loop, solo)
+        return self.gated(solo, klass="recurse")
+
     # ------------------------------------------------------------------ API
 
     def execute(self, req: dql.ParsedRequest) -> dict:
@@ -295,12 +317,24 @@ class Executor:
             elif vv is not None and not vv.is_uid:
                 uids.append(np.asarray(sorted(vv.vals.keys()), dtype=np.int64))
         if gq.func is not None:
-            uids.append(self._run_root_func(gq.func))
+            fn = gq.func
+            if self.plan is not None:
+                sw = self.plan.root_swap.get(id(gq))
+                if sw is not None:
+                    # planner root-source swap: the selective index probe
+                    # runs as the root; the demoted root function re-enters
+                    # at the probe's old filter position (_eval_filter)
+                    fn = sw.new_func
+            uids.append(self._run_root_func(fn))
         if not uids:
+            if self.plan is not None:
+                self.plan.record(gq, 0, self.explain)
             return np.zeros(0, np.int64)
         out = uids[0]
         for u in uids[1:]:
             out = us.union_host(out, u)
+        if self.plan is not None:
+            self.plan.record(gq, len(out), self.explain)
         return out
 
     def _run_root_func(self, fn: dql.Function) -> np.ndarray:
@@ -332,7 +366,10 @@ class Executor:
         uidMatrix row (the reference's applyPagination works per row)."""
         gq = sg.gq
         if is_root:
-            sg.dest_uids = self._apply_filter(gq.filter, sg.dest_uids)
+            swap = self.plan.root_swap.get(id(gq)) \
+                if self.plan is not None else None
+            sg.dest_uids = self._apply_filter(gq.filter, sg.dest_uids,
+                                              swap=swap)
         if gq.groupby is not None:
             from dgraph_tpu_torch.query.groupby import process_groupby
 
@@ -365,20 +402,35 @@ class Executor:
         sg.dest_uids = u
 
     def _process_children(self, sg: SubGraph) -> None:
-        """Expand each child over this level's DestUIDs, one task each."""
+        """Expand each child over this level's DestUIDs, one task each.
+
+        With a plan, independent siblings expand cheapest-estimate-first
+        (the planner guarantees no sibling defines or reads a var); result
+        slots are restored to declaration order so output encoding — which
+        walks sg.children — is byte-identical either way."""
         gq = sg.gq
         frontier = np.sort(sg.dest_uids)
-        for cgq in self._effective_children(gq, frontier):
+        eff = self._effective_children(gq, frontier)
+        order = None
+        if self.plan is not None:
+            order = self.plan.child_order.get(id(gq))
+            if order is not None and len(order) != len(eff):
+                order = None    # expand() reshaped the list: declaration order
+        slots: list[SubGraph | None] = [None] * len(eff)
+        seq = [(i, eff[i]) for i in order] if order is not None \
+            else list(enumerate(eff))
+        for slot, cgq in seq:
             if cgq.is_uid_node or cgq.attr in ("val", "math") or \
                cgq.attr.startswith("__agg_"):
                 child = SubGraph(gq=cgq, attr=cgq.attr, src_uids=frontier)
                 self._compute_virtual_child(sg, child, frontier)
-                sg.children.append(child)
+                slots[slot] = child
                 continue
             child = self._run_child_task(cgq, frontier)
-            sg.children.append(child)
+            slots[slot] = child
             if cgq.children or cgq.cascade:
                 self._finish_level(child, is_root=False)
+        sg.children.extend(c for c in slots if c is not None)
 
     def _run_child_task(self, cgq: dql.GraphQuery,
                         frontier: np.ndarray) -> SubGraph:
@@ -390,7 +442,13 @@ class Executor:
         if cgq.facets is not None:
             # every facet comes back; the encoder keeps the asked keys
             tq.facet_keys = [k for _, k in cgq.facets.keys] or ["__all__"]
+        if self.plan is not None:
+            # estimated-frontier-size-driven host/device dispatch
+            # cutover (0 = the static task.HOST_EXPAND_MAX default)
+            tq.cutover = self.plan.cutover.get(id(cgq), 0)
         res = self._dispatch(tq)
+        if self.plan is not None:
+            self.plan.record(cgq, res.traversed_edges, self.explain)
         self.traversed_edges += res.traversed_edges
         if self.traversed_edges > self.edge_budget():
             raise QueryError("query exceeded edge budget (ErrTooBig)")
@@ -504,16 +562,42 @@ class Executor:
     # ---------------------------------------------------------------- filters
 
     def _apply_filter(self, ft: dql.FilterTree | None,
-                      frontier: np.ndarray) -> np.ndarray:
+                      frontier: np.ndarray, swap=None) -> np.ndarray:
         if ft is None or len(frontier) == 0:
             return frontier
-        return self._eval_filter(ft, frontier)
+        return self._eval_filter(ft, frontier, swap)
 
-    def _eval_filter(self, ft: dql.FilterTree,
-                     frontier: np.ndarray) -> np.ndarray:
+    def _eval_filter(self, ft: dql.FilterTree, frontier: np.ndarray,
+                     swap=None) -> np.ndarray:
         if ft.func is not None:
-            return self._eval_filter_func(ft.func, frontier)
-        parts = [self._eval_filter(c, frontier) for c in ft.children]
+            fn = ft.func
+            if swap is not None and id(ft) == swap.leaf_id:
+                # this leaf's probe was promoted to the root; the demoted
+                # root function evaluates here instead (root ∩ filters is
+                # symmetric — every filter function is pointwise)
+                fn = swap.orig_func
+            out = self._eval_filter_func(fn, frontier)
+            if self.plan is not None:
+                self.plan.record(ft, len(out), self.explain,
+                                 bound=len(frontier))
+            return out
+        if ft.op == "and":
+            order = self.plan.and_order.get(id(ft)) \
+                if self.plan is not None else None
+            if order is not None:
+                # planned: most-selective-first with short-circuit
+                # frontier intersection. Every filter function evaluates
+                # pointwise (result ⊆ frontier, membership of u depends
+                # only on u), so evaluating child k over the frontier
+                # already narrowed by children 0..k-1 yields exactly the
+                # parse-order intersection.
+                out = frontier
+                for i in order:
+                    if len(out) == 0:
+                        break
+                    out = self._eval_filter(ft.children[i], out, swap)
+                return out
+        parts = [self._eval_filter(c, frontier, swap) for c in ft.children]
         if ft.op == "and":
             out = parts[0]
             for p in parts[1:]:

@@ -14,7 +14,8 @@ smaller sets and string/datetime keys. The device functions run on
 
 `fused` (a whole-plan mesh terminal, engine._mesh_fused_plan in the JAX
 package) is None until the mesh slice; its cross-checks stay so that slice
-plugs in unchanged. `ex.plan` stays None until the planner slice.
+plugs in unchanged. With a plan (query/planner.py) the @groupby step
+records its group count for EXPLAIN.
 """
 
 from __future__ import annotations

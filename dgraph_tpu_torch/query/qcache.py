@@ -572,6 +572,9 @@ class DispatchGate:
         self._acquire(klass)
         self._inflight.inc()
         t0 = time.perf_counter()
+        # device interval of this dispatch: CUDA events around fn on a
+        # CUDA profiler, resolved when the timeline is read (never here)
+        dev0 = prof.begin_device() if prof is not None else None
         try:
             # device.step fires while HOLDING the slot: a slow device
             # program (or the distributed configs' fixed relay sync),
@@ -586,6 +589,7 @@ class DispatchGate:
             return fn()
         finally:
             dt = time.perf_counter() - t0
+            dev = prof.end_device(dev0) if prof is not None else None
             self._step_ewma = dt if not self._step_ewma else (
                 (1 - self._EWMA_ALPHA) * self._step_ewma
                 + self._EWMA_ALPHA * dt)
@@ -610,7 +614,8 @@ class DispatchGate:
                 b1 = (blg.h2d_bytes + blg.d2h_bytes) \
                     if blg is not None else 0
                 prof.record_dispatch(klass, tf, t0, t0 + dt,
-                                     bytes_moved=max(b1 - b0, 0))
+                                     bytes_moved=max(b1 - b0, 0),
+                                     device=dev)
 
 
 # ---------------------------------------------------------------------------

@@ -14,7 +14,9 @@ edges (:129-141) unless `loop: true`; bounded by the edge budget (:167).
     A single uid child with no filter and no value children runs every
     level in one recurse_fused call; other shapes take one recurse_step per
     level and fetch their value children at every level. uidMatrix rows
-    stay deferred (LazyRecurseMatrix).
+    stay deferred (LazyRecurseMatrix). Concurrent compatible fused
+    recurses pack into one multi-source run through the device batcher
+    (Executor.batched_recurse, query/batch.py).
   * Small CSRs keep the vectorized host-mirror gather. (Tablet-routed
     predicates, which expand over the wire with (attr, from, to) edge-key
     dedup, wait for the cluster slice.)
@@ -306,14 +308,20 @@ def _recurse_fused_path(ex, sg: SubGraph, cgq, csr, depth: int,
     g = pb.pull_graph_for(csr)
     seeds = np.sort(np.asarray(sg.dest_uids, dtype=np.int64))
     seeds_mask = _seeds_mask(seeds, g.num_nodes, g.device)
-    with costs.kernel("pb.recurse_fused", attr=cgq.attr):
-        masks_p, trav, fresh = ex.gated(
-            lambda: pb.recurse_fused(
+
+    # batched-dispatch seam (query/batch.py): compatible concurrent
+    # traversals stack their seed masks into one multi-source run; without
+    # a batcher this is the gated solo call
+    def _solo_fused():
+        with costs.kernel("pb.recurse_fused", attr=cgq.attr):
+            return pb.recurse_fused(
                 g.in_src_pad, g.in_src_pad_d, g.in_iptr_rank, g.subjects,
                 g.in_subjects, seeds_mask,
                 depth=depth, chunks=g.chunks, chunks_d=g.chunks_d,
-                allow_loop=allow_loop),
-            klass="recurse")
+                allow_loop=allow_loop)
+
+    masks_p, trav, fresh = ex.batched_recurse(
+        g, seeds_mask, depth, allow_loop, _solo_fused)
     # one fetch for the whole traversal, bit-packed in dst-rank space (fresh
     # flags stay on the device until a uidMatrix is materialized)
     masks_h, trav_h = masks_p.cpu().numpy(), trav.cpu().numpy()

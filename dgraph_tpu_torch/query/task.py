@@ -33,6 +33,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from dgraph_tpu_torch.obs import otrace
 from dgraph_tpu_torch.ops import csr as csrops
 from dgraph_tpu_torch.ops import uidset as us
 from dgraph_tpu_torch.storage.csr_build import (GraphSnapshot, PredCSR,
@@ -40,6 +41,7 @@ from dgraph_tpu_torch.storage.csr_build import (GraphSnapshot, PredCSR,
 from dgraph_tpu_torch.storage.delta import (OverlayCSR, csr_subjects_degrees,
                                             csr_subjects_host)
 from dgraph_tpu_torch.utils import geo as geomod
+from dgraph_tpu_torch.utils.faults import FaultError
 from dgraph_tpu_torch.utils import tok as tokmod
 from dgraph_tpu_torch.utils.schema import SchemaState
 from dgraph_tpu_torch.utils.types import (TypeID, Val, compare_vals, convert,
@@ -93,6 +95,31 @@ def rows_for_uids(csr: PredCSR, uids: np.ndarray) -> np.ndarray:
     return us.host_rank_of(subjects, uids, us.SENTINEL32).astype(np.int32)
 
 
+def _frontier_degrees(csr, uids: np.ndarray):
+    """(rows, indptr_h, deg, need) for a frontier over one adjacency's host
+    mirrors — the shared first pass of every size-adaptive expand branch
+    (and of the batcher's classification)."""
+    rows = rows_for_uids(csr, uids)
+    indptr_h = csr.host_arrays()[1]
+    rc = np.clip(rows, 0, max(len(indptr_h) - 2, 0))
+    ok = rows != us.SENTINEL32
+    deg = np.where(ok, indptr_h[rc + 1] - indptr_h[rc], 0)
+    return rows, indptr_h, deg, int(deg.sum())
+
+
+def _host_expand_matrix(indptr_h: np.ndarray, indices_h: np.ndarray,
+                        rows: np.ndarray, deg: np.ndarray, uids: np.ndarray,
+                        need: int, cutover: int) -> list[np.ndarray]:
+    """Below-cutover (or cold-tier) uidMatrix straight from the host
+    mirrors."""
+    otrace.event("host_expand", need=need,
+                 cutover=int(cutover or HOST_EXPAND_MAX))
+    offs = np.zeros(len(uids) + 1, dtype=np.int64)
+    np.cumsum(deg, out=offs[1:])
+    targets = _gather_rows_host(indptr_h, indices_h, rows, deg, offs)
+    return [targets[offs[i]: offs[i + 1]] for i in range(len(uids))]
+
+
 def _gather_rows_host(indptr_h: np.ndarray, indices_h: np.ndarray,
                       rows: np.ndarray, deg: np.ndarray,
                       offs: np.ndarray) -> np.ndarray:
@@ -105,12 +132,39 @@ def _gather_rows_host(indptr_h: np.ndarray, indices_h: np.ndarray,
     return indices_h[pos].astype(np.int64)
 
 
+def _tier_prefer_host(csr) -> bool:
+    """Residency tier consult (storage/residency.py): True when the tablet
+    is COLD — its device footprint exceeds the node's whole device budget —
+    so the read takes the host-mirror path at any size. Unmanaged owners
+    never prefer host. This sits at the serve sites (expand, overlay,
+    index union), so a True counts one cold serve; consult-only callers
+    (the batcher's classification) use owner.prefer_host() directly."""
+    f = getattr(csr, "prefer_host", None)
+    if f is None or not f():
+        return False
+    mgr = getattr(csr, "_res", None)
+    if mgr is not None:
+        mgr.note_cold_serve()
+    return True
+
+
+def _upload_fault_fallback(csr) -> None:
+    """An injected residency.h2d_upload fault surfaced mid-expand: count it
+    and let the caller serve the byte-identical host gather. Only the
+    injected faults.FaultError reaches here: a real CUDA error or an
+    out-of-memory on upload raises to the caller."""
+    mgr = getattr(csr, "_res", None)
+    if mgr is not None:
+        mgr.metrics.counter(
+            "dgraph_residency_host_fallbacks_total").inc()
+
+
 def _expand_overlay(ov, uids: np.ndarray,
                     cutover: int = 0) -> tuple[list[np.ndarray], int]:
     """Merge-on-read expand over an OverlayCSR (storage/delta.py): gather
     the untouched rows from the unchanged base (host mirror at or below
-    HOST_EXPAND_MAX edges, ops/csr.expand_masked on the base's device
-    tensors above it) and splice the overlay's replacement rows per
+    the cutover or on a cold base, ops/csr.expand_masked on the base's
+    device tensors above it) and splice the overlay's replacement rows per
     frontier slot — O(frontier + Δ), never a merge of the tablet. The base
     tensors keep identity: a commit costs its delta, not a re-upload."""
     rb, ro, deg_b, deg_o = ov.frontier_plan(uids)
@@ -121,18 +175,30 @@ def _expand_overlay(ov, uids: np.ndarray,
     base = ov.base
     if base is None or need_base == 0:
         base_targets = np.zeros(0, np.int64)
-    elif need_base <= (cutover or HOST_EXPAND_MAX):
+    elif need_base <= (cutover or HOST_EXPAND_MAX) \
+            or _tier_prefer_host(base):
         _, indptr_h, indices_h = base.host_arrays()
         base_targets = _gather_rows_host(indptr_h, indices_h, rb, deg_b,
                                          offs)
     else:
         cap = 1 << max(int(np.ceil(np.log2(need_base + 1))), 4)
-        res = csrops.expand_masked(
-            base.indptr, base.indices,
-            torch.from_numpy(rb).to(base.device),
-            torch.from_numpy(ro >= 0).to(base.device), out_cap=cap)
-        base_targets = res.targets[:need_base].cpu().numpy().astype(
-            np.int64)
+        try:
+            indptr_d, indices_d = base.indptr, base.indices
+        except FaultError:
+            # injected residency.h2d_upload fault: the host gather is
+            # byte-identical by the size-adaptive-strategy contract
+            _upload_fault_fallback(base)
+            indptr_d = None
+        if indptr_d is None:
+            _, indptr_h, indices_h = base.host_arrays()
+            base_targets = _gather_rows_host(indptr_h, indices_h, rb,
+                                             deg_b, offs)
+        else:
+            res = csrops.expand_masked(
+                indptr_d, indices_d, torch.from_numpy(rb).to(base.device),
+                torch.from_numpy(ro >= 0).to(base.device), out_cap=cap)
+            base_targets = res.targets[:need_base].cpu().numpy().astype(
+                np.int64)
     matrix = [base_targets[offs[i]: offs[i + 1]] for i in range(len(uids))]
     for i in np.flatnonzero(ro >= 0).tolist():
         matrix[i] = ov.delta.rows[ro[i]]
@@ -142,36 +208,41 @@ def _expand_overlay(ov, uids: np.ndarray,
 def _expand_csr(csr: PredCSR, uids: np.ndarray, first: int = 0,
                 cutover: int = 0) -> tuple[list[np.ndarray], int]:
     """uidMatrix for a frontier over one adjacency: exact degree sum counted
-    on the host indptr mirror, then the host gather (small) or one device
-    gather at a pow2 capacity class (large); both give the same matrix. An
-    overlaid adjacency (OverlayCSR) merges on read (_expand_overlay)."""
+    on the host indptr mirror, then the host gather (small, or a cold
+    tablet) or one device gather at a pow2 capacity class (large); both
+    give the same matrix. An overlaid adjacency (OverlayCSR) merges on read
+    (_expand_overlay).
+
+    cutover: the planner's override of the host/device switch point (0 =
+    HOST_EXPAND_MAX)."""
     if len(uids) == 0 or csr is None:
         return [np.zeros(0, np.int64) for _ in range(len(uids))], 0
     if isinstance(csr, OverlayCSR):
         matrix, total = _expand_overlay(csr, uids, cutover)
         return apply_first(matrix, first), total
-    rows = rows_for_uids(csr, uids)
-    _, indptr_h, indices_h = csr.host_arrays()
-    rc = np.clip(rows, 0, max(len(indptr_h) - 2, 0))
-    ok = rows != us.SENTINEL32
-    deg = np.where(ok, indptr_h[rc + 1] - indptr_h[rc], 0)
-    need = int(deg.sum())
-    if need <= (cutover or HOST_EXPAND_MAX):
-        offs = np.zeros(len(uids) + 1, dtype=np.int64)
-        np.cumsum(deg, out=offs[1:])
-        targets = _gather_rows_host(indptr_h, indices_h, rows, deg, offs)
-        matrix = [targets[offs[i]: offs[i + 1]] for i in range(len(uids))]
-        total = need
-    else:
-        cap = 1 << max(int(np.ceil(np.log2(need + 1))), 4)
-        rows_d = torch.from_numpy(rows).to(csr.device)
-        res = csrops.expand(csr.indptr, csr.indices, rows_d, out_cap=cap)
-        total = int(res.total)                       # device sync point
-        targets = res.targets[:total].cpu().numpy().astype(np.int64)
-        counts = res.counts.cpu().numpy()[: len(uids)]
-        offs = np.zeros(len(uids) + 1, dtype=np.int64)
-        np.cumsum(counts, out=offs[1:])
-        matrix = [targets[offs[i]: offs[i + 1]] for i in range(len(uids))]
+    rows, indptr_h, deg, need = _frontier_degrees(csr, uids)
+    if need <= (cutover or HOST_EXPAND_MAX) or _tier_prefer_host(csr):
+        matrix = _host_expand_matrix(indptr_h, csr.host_arrays()[2], rows,
+                                     deg, uids, need, cutover)
+        return apply_first(matrix, first), need
+    try:
+        indptr_d, indices_d = csr.indptr, csr.indices
+    except FaultError:
+        # injected residency.h2d_upload fault: the host gather is
+        # byte-identical, the read never fails
+        _upload_fault_fallback(csr)
+        matrix = _host_expand_matrix(indptr_h, csr.host_arrays()[2], rows,
+                                     deg, uids, need, cutover)
+        return apply_first(matrix, first), need
+    cap = 1 << max(int(np.ceil(np.log2(need + 1))), 4)
+    rows_d = torch.from_numpy(rows).to(csr.device)
+    res = csrops.expand(indptr_d, indices_d, rows_d, out_cap=cap)
+    total = int(res.total)                       # device sync point
+    targets = res.targets[:total].cpu().numpy().astype(np.int64)
+    counts = res.counts.cpu().numpy()[: len(uids)]
+    offs = np.zeros(len(uids) + 1, dtype=np.int64)
+    np.cumsum(counts, out=offs[1:])
+    matrix = [targets[offs[i]: offs[i + 1]] for i in range(len(uids))]
     return apply_first(matrix, first), total
 
 
@@ -196,19 +267,29 @@ def _merge_matrix(matrix: list[np.ndarray]) -> np.ndarray:
 
 def _index_uids_for_rows(ti: TokenIndex, rows: list[int]) -> np.ndarray:
     """Union of the uid lists of the chosen token rows: a host merge at or
-    below HOST_EXPAND_MAX uids, one expand_dest on the index's device
-    above it."""
+    below HOST_EXPAND_MAX uids (or on a cold-tier index), one expand_dest on
+    the index's device above it."""
     if not rows:
         return np.zeros(0, np.int64)
     indptr_h, uids_h = ti.host_arrays()
     total = int(sum(indptr_h[r + 1] - indptr_h[r] for r in rows))
-    if total <= HOST_EXPAND_MAX:
+
+    def host_union():
         parts = [uids_h[indptr_h[r]: indptr_h[r + 1]] for r in rows]
         return np.unique(np.concatenate(parts))
+
+    if total <= HOST_EXPAND_MAX or _tier_prefer_host(ti):
+        return host_union()
+    try:
+        indptr_d, uids_d = ti.indptr, ti.uids
+    except FaultError:
+        # injected residency.h2d_upload fault: host merge, byte-identical
+        _upload_fault_fallback(ti)
+        return host_union()
     rows_arr = us.make_set(np.asarray(rows, dtype=np.int32),
                            capacity=len(rows), device=ti.device)
     cap = int(indptr_h[-1]) or 1
-    dest, _total = csrops.expand_dest(ti.indptr, ti.uids, rows_arr,
+    dest, _total = csrops.expand_dest(indptr_d, uids_d, rows_arr,
                                       out_cap=cap)
     # the union is at most the whole index (cap), so it is complete; the
     # sentinel tail stays on the device

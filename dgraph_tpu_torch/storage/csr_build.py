@@ -48,7 +48,19 @@ MAX_DEVICE_UID = 2**31 - 2  # int32 space, sentinel-exclusive
 class PredCSR:
     """Adjacency of one predicate: row r = subjects[r] →
     indices[indptr[r]:indptr[r+1]], int32 host columns; device columns on
-    `device`, uploaded at first access."""
+    `device`, uploaded at first access.
+
+    The host numpy columns are the authoritative fold; the device columns
+    are a droppable cache that uploads on first kernel access and — when
+    a ResidencyManager is attached at fold time (storage/residency.py) —
+    admits against the node's device-byte budget (evicting colder
+    tablets) and can be demoted back to the warm host tier without
+    touching this object's identity."""
+
+    # residency owner protocol (set by ResidencyManager.adopt_pred)
+    _res = None
+    _res_attr = ""
+    _res_kind = "csr"
 
     def __init__(self, subjects, indptr, indices,
                  device: str | torch.device = "cuda") -> None:
@@ -61,21 +73,33 @@ class PredCSR:
             if len(a) and (int(a.max()) > MAX_DEVICE_UID or int(a.min()) < 0):
                 raise ValueError(f"{name}: uid outside the device uid space "
                                  f"[0, {MAX_DEVICE_UID}]")
-        self._dev: tuple | None = None
+        self._dev: tuple | None = None            # droppable device cache
+        self._max_degree: int | None = None
+
+    @property
+    def num_subjects(self) -> int:
+        return int(self._subjects_h.shape[0])
 
     @property
     def num_edges(self) -> int:
         return int(self._indices_h.shape[0])
 
-    def device_arrays(self) -> tuple:
-        """(subjects, indptr, indices) as int32 tensors on self.device."""
-        if self._dev is None:
-            self._dev = tuple(
+    # -- device tier ----------------------------------------------------------
+
+    def device_arrays(self, prefetch: bool = False) -> tuple:
+        """(subjects, indptr, indices) as int32 tensors on self.device,
+        uploaded on first access through the residency seam (budget
+        admission + the residency.h2d_upload fault point) when managed."""
+        from dgraph_tpu_torch.storage import residency as resmod
+
+        return resmod.ensure_device(
+            self, "_dev",
+            lambda: tuple(
                 torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(
                     self.device)
                 for a in (self._subjects_h, self._indptr_h,
-                          self._indices_h))
-        return self._dev
+                          self._indices_h)),
+            prefetch=prefetch)
 
     @property
     def subjects(self) -> torch.Tensor:
@@ -89,9 +113,45 @@ class PredCSR:
     def indices(self) -> torch.Tensor:
         return self.device_arrays()[2]
 
+    def device_resident(self) -> bool:
+        return self._dev is not None
+
+    def drop_device(self) -> None:
+        """Demote to the warm tier: drop the device tensors, keep the host
+        fold. A kernel already enqueued keeps its own references; the next
+        device access re-uploads byte-identical columns."""
+        self._dev = None
+
+    def device_nbytes(self) -> int:
+        """The int32 device columns' bytes."""
+        return 4 * int(len(self._subjects_h) + len(self._indptr_h)
+                       + len(self._indices_h))
+
+    def host_nbytes(self) -> int:
+        return int(self._subjects_h.nbytes + self._indptr_h.nbytes
+                   + self._indices_h.nbytes)
+
+    def prefer_host(self) -> bool:
+        """Tier consult for the query layer: True = COLD (footprint
+        exceeds the whole device budget) — serve via the host-cutover
+        machinery instead of uploading."""
+        from dgraph_tpu_torch.storage import residency as resmod
+
+        return resmod.prefer_host(self)
+
+    # -- host tier ------------------------------------------------------------
+
     def host_arrays(self) -> tuple:
         """(subjects, indptr, indices) as numpy — the host truth."""
         return (self._subjects_h, self._indptr_h, self._indices_h)
+
+    def max_degree(self) -> int:
+        """Largest row length, cached."""
+        if self._max_degree is None:
+            ptr = self._indptr_h
+            self._max_degree = int(np.max(ptr[1:] - ptr[:-1])) \
+                if len(ptr) > 1 else 0
+        return self._max_degree
 
 
 def transpose_csr(subjects, indptr, indices) -> tuple:
@@ -111,7 +171,12 @@ class TokenIndex:
     """token→uid CSR for one (predicate, tokenizer): row r holds the sorted
     uids of term terms[r] (terms sorted, stored without the tokenizer's
     ident byte). Host columns are the truth; device columns are uploaded to
-    `device` at first use (the union of many rows, task._index_uids_for_rows)."""
+    `device` at first use (the union of many rows, task._index_uids_for_rows)
+    through the residency seam, as PredCSR's are."""
+
+    _res = None
+    _res_attr = ""
+    _res_kind = "index"
 
     def __init__(self, terms: list[bytes], indptr, uids,
                  device: str | torch.device = "cuda") -> None:
@@ -128,14 +193,17 @@ class TokenIndex:
         i = bisect.bisect_left(self.terms, term)
         return i if i < len(self.terms) and self.terms[i] == term else -1
 
-    def device_arrays(self) -> tuple:
+    def device_arrays(self, prefetch: bool = False) -> tuple:
         """(indptr, uids) as int32 tensors on self.device."""
-        if self._dev is None:
-            self._dev = tuple(
+        from dgraph_tpu_torch.storage import residency as resmod
+
+        return resmod.ensure_device(
+            self, "_dev",
+            lambda: tuple(
                 torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(
                     self.device)
-                for a in (self._indptr_h, self._uids_h))
-        return self._dev
+                for a in (self._indptr_h, self._uids_h)),
+            prefetch=prefetch)
 
     @property
     def indptr(self) -> torch.Tensor:
@@ -144,6 +212,23 @@ class TokenIndex:
     @property
     def uids(self) -> torch.Tensor:
         return self.device_arrays()[1]
+
+    def device_resident(self) -> bool:
+        return self._dev is not None
+
+    def drop_device(self) -> None:
+        self._dev = None
+
+    def device_nbytes(self) -> int:
+        return 4 * int(len(self._indptr_h) + len(self._uids_h))
+
+    def host_nbytes(self) -> int:
+        return int(self._indptr_h.nbytes + self._uids_h.nbytes)
+
+    def prefer_host(self) -> bool:
+        from dgraph_tpu_torch.storage import residency as resmod
+
+        return resmod.prefer_host(self)
 
     def host_arrays(self) -> tuple[np.ndarray, np.ndarray]:
         """(indptr, uids int64) host mirrors: index sorts and bucket walks

@@ -110,6 +110,13 @@ class OverlayCSR:
     `device` is the base's; a base-less overlay (a tablet born from deltas)
     takes the snapshot's."""
 
+    # residency owner protocol (storage/residency.py): the overlay's
+    # merged device view is the droppable buffer group; the base PredCSR
+    # is adopted separately and keeps its own entry
+    _res = None
+    _res_attr = ""
+    _res_kind = "csr:merged"
+
     def __init__(self, base, delta: OverlayRows,
                  device: str | torch.device | None = None) -> None:
         # stacking overlays would hide the true base: the assembler always
@@ -162,9 +169,7 @@ class OverlayCSR:
         return int(self.subjects_degrees_host()[1].sum())
 
     def approx_nbytes(self) -> int:
-        base = 0
-        if self.base is not None:
-            base = sum(int(a.nbytes) for a in self.base.host_arrays())
+        base = self.base.host_nbytes() if self.base is not None else 0
         return base + self.delta.nbytes()
 
     # -- hot-path merge plan (task._expand_overlay) --------------------------
@@ -227,13 +232,16 @@ class OverlayCSR:
         """The merged CSR as a PredCSR on the base's device, built at first
         device access (on the reading thread)."""
         if self._merged_dev is None:
+            from dgraph_tpu_torch.storage import residency as resmod
             from dgraph_tpu_torch.storage.csr_build import PredCSR
 
-            subs, indptr, indices = self.host_arrays()
-            self._merged_dev = PredCSR(subs.astype(np.int32),
-                                       indptr.astype(np.int32),
-                                       indices.astype(np.int32),
-                                       self.device)
+            def build():
+                subs, indptr, indices = self.host_arrays()
+                return PredCSR(subs.astype(np.int32),
+                               indptr.astype(np.int32),
+                               indices.astype(np.int32), self.device)
+
+            resmod.ensure_device(self, "_merged_dev", build)
         return self._merged_dev
 
     def device_arrays(self) -> tuple:
@@ -244,6 +252,18 @@ class OverlayCSR:
 
     def drop_device(self) -> None:
         self._merged_dev = None
+
+    def device_nbytes(self) -> int:
+        return self.approx_nbytes()
+
+    def prefer_host(self) -> bool:
+        from dgraph_tpu_torch.storage import residency as resmod
+
+        # the hot expand path merges on read against the base's device
+        # tensors: the overlay defers to the base's tier for that decision
+        if self.base is not None:
+            return self.base.prefer_host()
+        return resmod.prefer_host(self)
 
     @property
     def subjects(self) -> torch.Tensor:
@@ -282,7 +302,12 @@ class LazyTokenIndex:
     """TokenIndex duck-type over merged host columns: the terms list and
     host mirrors are exact at stamp time (inequality walks, sorts, and the
     host union path never touch the device); the int32 device columns
-    upload to `device` at the first large union."""
+    upload to `device` at the first large union, through the residency
+    seam when a manager is attached."""
+
+    _res = None
+    _res_attr = ""
+    _res_kind = "index:merged"
 
     def __init__(self, terms: list[bytes], indptr: np.ndarray,
                  uids: np.ndarray,
@@ -306,13 +331,28 @@ class LazyTokenIndex:
     def drop_device(self) -> None:
         self._dev = None
 
-    def device_arrays(self) -> tuple:
+    def device_nbytes(self) -> int:
+        # int32 device columns (half the int64 host mirror width)
+        return int(self._indptr_h.nbytes + self._uids_h.nbytes) // 2
+
+    def host_nbytes(self) -> int:
+        return int(self._indptr_h.nbytes + self._uids_h.nbytes)
+
+    def prefer_host(self) -> bool:
+        from dgraph_tpu_torch.storage import residency as resmod
+
+        return resmod.prefer_host(self)
+
+    def device_arrays(self, prefetch: bool = False) -> tuple:
         """(indptr, uids) as int32 tensors on self.device."""
-        if self._dev is None:
-            self._dev = tuple(
+        from dgraph_tpu_torch.storage import residency as resmod
+
+        return resmod.ensure_device(
+            self, "_dev",
+            lambda: tuple(
                 torch.from_numpy(a.astype(np.int32)).to(self.device)
-                for a in (self._indptr_h, self._uids_h))
-        return self._dev
+                for a in (self._indptr_h, self._uids_h)),
+            prefetch=prefetch)
 
     @property
     def indptr(self) -> torch.Tensor:

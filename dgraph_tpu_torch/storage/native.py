@@ -20,6 +20,7 @@ import hashlib
 import os
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 import numpy as np
@@ -45,9 +46,14 @@ def _build(path: Path) -> bool:
     tmp = path.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
     try:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        t0 = time.perf_counter()
         subprocess.run(["g++", *CXX_FLAGS, "-o", str(tmp), str(_SRC)],
                        check=True, capture_output=True, timeout=120)
         os.replace(tmp, path)
+        from dgraph_tpu_torch.obs import devprof
+
+        devprof.note_compile("storage.native",
+                             (time.perf_counter() - t0) * 1e3)
         return True
     except (OSError, subprocess.SubprocessError):
         try:

@@ -7,7 +7,10 @@ tests/golden/expected.json), and /admin/shutdown, after which the process
 exits 0; `export` over a posting directory, equal to the JAX package's
 `export` of the same directory; `serve` without `--device` on a machine
 without CUDA, and a flag of a later slice, each failing with the slice or
-the device named; and a subprocess guard that the wire modules load
+the device named; `serve` with the serving-seam flags (`--no_batch`,
+`--no_planner`, `--no_devprof`, `--device_budget_mb`, `--residency_pin`,
+`--memory_mb`), each acting as on a JAX Node with the same setting; and a
+subprocess guard that the wire modules load
 neither jax nor the JAX package. Every read of the server's output and
 every request has a timeout, and every process is killed in a `finally`.
 """
@@ -158,15 +161,64 @@ def test_serve_without_device_needs_cuda():
 
 @pytest.mark.parametrize("flags,slice_name", [
     (["--mesh"], "mesh"),
-    (["--memory_mb", "64"], "residency"),
     (["--vector_nprobe", "4"], "vector"),
-], ids=["mesh", "memory_mb", "vector"])
+], ids=["mesh", "vector"])
 def test_later_slice_flag_fails_naming_it(flags, slice_name):
     proc = _cli("serve", "--device", "cpu", "--port", "0", "--grpc_port",
                 "0", *flags)
     assert proc.returncode != 0
     assert f"{slice_name} slice" in proc.stderr
     assert "serving" not in proc.stdout
+
+
+@pytest.mark.parametrize("flags,kw", [
+    (["--no_batch", "--no_planner", "--no_devprof"],
+     dict(batching=False, planner=False, devprof=False)),
+    (["--device_budget_mb", "1", "--residency_pin", "friend",
+      "--memory_mb", "64"],
+     dict(device_budget_mb=1, residency_pin="friend", memory_mb=64)),
+], ids=["seams_off", "budget_pin_memory"])
+def test_serving_seam_flags_act(flags, kw, tmp_path):
+    """The flags reach the Node: its /debug/metrics sections read as a JAX
+    Node's with the same settings."""
+    from dgraph_tpu.api.http import _serving_metrics
+
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "dgraph_tpu_torch", "serve", "--device", "cpu",
+         "--port", "0", "--grpc_port", "0", "-p", str(tmp_path / "p"),
+         *flags],
+        cwd=REPO, env=ENV, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+    lines: queue.Queue = queue.Queue()
+    reader = threading.Thread(
+        target=lambda: [lines.put(ln) for ln in proc.stdout], daemon=True)
+    reader.start()
+    j = JNode(dirpath=str(tmp_path / "j"), **kw)
+    try:
+        if "memory_mb" in kw:
+            j.set_memory_budget(kw["memory_mb"] << 20)
+        port = None
+        while port is None:
+            m = re.match(r"serving HTTP on [\d.]+:(\d+)",
+                         lines.get(timeout=START_S))
+            port = int(m.group(1)) if m else None
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{port}/debug/metrics", timeout=10) as r:
+            t = json.loads(r.read())
+        want = _serving_metrics(j)
+        assert t["batching"]["enabled"] is want["batching"]["enabled"]
+        assert t["planner"]["enabled"] is want["planner"]["enabled"]
+        assert t["devprof"]["enabled"] is want["devprof"]["enabled"]
+        for k in ("budget_mb", "enabled", "pinned"):
+            assert t["residency"][k] == want["residency"][k], k
+        assert _post(port, "/admin/shutdown", "")["code"] == "Success"
+        assert proc.wait(timeout=30) == 0
+    finally:
+        j.close()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=10)
+        reader.join(timeout=5)
 
 
 _GUARD = """

@@ -4,16 +4,19 @@ A JAX Node behind the JAX `make_server` and a port Node(device="cpu")
 behind the port's `make_server` run side by side (the `Pair`) and get the
 same requests. Equality is byte-identical bodies and equal statuses, with
 one exception: `extensions.server_latency.total_ns` is a clock reading, so
-it is zeroed on both sides before the bytes are compared. The JAX Node runs
-with its planner, batcher and device observatory off, the port's defaults,
-so timestamps, uids and counters line up.
+it is zeroed on both sides before the bytes are compared. Both Nodes run
+with their planner, batcher and device observatory off, so timestamps,
+uids and counters line up; the `pair_defaults` cases run both at the
+defaults they share (planner, batcher and observatory on, an HBM
+working-set manager, EXPLAIN over ?explain=true, POST
+/admin/config/memory_mb).
 
 Covered: /alter, /mutate in RDF and in JSON, commitNow, /commit and /abort
 with startTs, a conflicting pair (409), a namespace violation (403), an
 upsert block, all 38 golden queries over /query (equal to
 tests/golden/expected.json as well), a bad query, /health, /state, /metrics (parsed as Prometheus text), /debug and
 /debug/metrics, /admin/export, /admin/tenant with X-Dgraph-Tenant
-requests, /admin/shutdown, the routes whose Node method waits for a later
+requests, /admin/shutdown, the route whose Node method waits for a later
 slice (a 400 envelope naming the slice), and HTTPS.
 
 The reference records an endpoint's meter and latency after the response
@@ -95,10 +98,10 @@ def _call(port, method, path, body=None, headers=None, tls=None):
 class Pair:
     """A JAX server and a port server, each over its own Node."""
 
-    def __init__(self, **kw):
-        self.nodes = (JNode(planner=False, batching=False, devprof=False,
-                            **kw),
-                      TNode(device="cpu", **kw))
+    def __init__(self, seams_on=False, **kw):
+        if not seams_on:
+            kw.update(planner=False, batching=False, devprof=False)
+        self.nodes = (JNode(**kw), TNode(device="cpu", **kw))
         self.srvs = (jhttp.make_server(self.nodes[0], port=0),
                      thttp.make_server(self.nodes[1], port=0))
         self.threads = [threading.Thread(target=s.serve_forever, daemon=True)
@@ -137,6 +140,15 @@ class Pair:
 @pytest.fixture
 def pair():
     p = Pair()
+    try:
+        yield p
+    finally:
+        p.close()
+
+
+@pytest.fixture
+def pair_defaults():
+    p = Pair(seams_on=True)
     try:
         yield p
     finally:
@@ -287,12 +299,11 @@ def test_metrics_parse_and_cover_the_jax_names(pair):
     for want in ("dgraph_num_queries_total", "dgraph_query_latency_s_bucket",
                  "dgraph_http_query_latency_s_count", "dgraph_endpoint_qps"):
         assert want in tnames
-    # every series the JAX server exports, the port exports too, but those
-    # of the HBM working-set manager (the residency slice of the port) and
-    # of the per-tablet load book (the mesh slice)
-    later = {n for n in jnames - tnames
-             if n.startswith("dgraph_residency_") or n == "dgraph_tablet_load"}
+    # every series the JAX server exports, the port exports too, but the
+    # per-tablet load book's (the mesh slice)
+    later = {n for n in jnames - tnames if n == "dgraph_tablet_load"}
     assert jnames - tnames == later, sorted(jnames - tnames)
+    assert any(n.startswith("dgraph_residency_") for n in tnames)
     # OpenMetrics on request, as the JAX server negotiates it
     (_, hj, bj), (_, ht, bt) = pair.both(
         "GET", "/metrics", headers={"Accept": "application/openmetrics-text"})
@@ -314,7 +325,15 @@ def test_debug_metrics_sections(pair):
     assert t["planner"]["enabled"] is j["planner"]["enabled"] is False
     assert t["mesh"]["enabled"] is j["mesh"]["enabled"] is False
     assert t["devprof"] == j["devprof"] == {"enabled": False}
-    assert t["residency"] == {"enabled": False}
+    # the HBM working-set manager is always present, unbounded here: the
+    # same section; its byte totals differ by design (the port's PredData
+    # keeps int64/float64 host mirrors, the JAX one int32/float32 device
+    # columns), every counter is equal
+    assert list(t["residency"]) == list(j["residency"])
+    for k in ("budget_mb", "enabled", "admissions", "evictions",
+              "prefetch_hits", "prefetch_wasted", "thrash", "cold_serves",
+              "upload_failures", "budget_overruns", "pinned"):
+        assert t["residency"][k] == j["residency"][k], k
     assert t["tablet_load"] == {}
     writes = [_poll(lambda: json.loads(_call(p, "GET", "/debug/metrics")[2])
                     ["endpoints"]["mutate"]["latency"]["count"], 1)
@@ -390,10 +409,7 @@ def test_admin_shutdown_stops_the_server():
 
 @pytest.mark.parametrize("method,path,body,slice_name", [
     ("POST", "/analytics", {"kind": "pagerank", "pred": "friend"}, "mesh"),
-    ("POST", "/admin/config/memory_mb", "64", "residency"),
-    ("POST", "/query?explain=true", "{ q(func: has(name)) { name } }",
-     "planner"),
-], ids=["analytics", "memory_mb", "explain"])
+], ids=["analytics"])
 def test_later_slice_routes_name_their_slice(pair, method, path, body,
                                               slice_name):
     st, _, raw = _call(pair.port, method, path, body)
@@ -401,6 +417,65 @@ def test_later_slice_routes_name_their_slice(pair, method, path, body,
     err = json.loads(raw)["errors"][0]
     assert err["code"] == "ErrorInvalidRequest"
     assert f"{slice_name} slice" in err["message"]
+
+
+# ---------------------------------------------------------------------------
+# the shared defaults: planner, batcher, observatory, working-set manager
+# ---------------------------------------------------------------------------
+
+def test_golden_battery_with_the_defaults(pair_defaults):
+    p = pair_defaults
+    p.same("POST", "/alter", GOLDEN.SCHEMA)
+    p.same("POST", "/mutate?commitNow=true",
+           "{ set {\n" + GOLDEN._dataset() + "\n} }")
+    for name, q in GOLDEN.QUERIES:
+        assert p.same("POST", "/query", q)["data"] == EXPECTED[name], name
+    j, t = (json.loads(_call(port, "GET", "/debug/metrics")[2])
+            for port in p.ports)
+    assert list(t) == list(j)
+    for sec in ("batching", "planner", "devprof", "residency", "dispatch",
+                "caches"):
+        assert list(t[sec]) == list(j[sec]), sec
+    assert t["batching"]["enabled"] is j["batching"]["enabled"] is True
+    assert t["planner"]["enabled"] is j["planner"]["enabled"] is True
+    for k in ("plans_built", "root_swaps", "filter_reorders",
+              "sibling_reorders", "host_expands", "device_expands",
+              "fallbacks"):
+        assert t["planner"][k] == j["planner"][k], k
+    assert t["devprof"]["enabled"] is j["devprof"]["enabled"] is True
+    assert t["devprof"]["dispatches"] > 0
+    assert t["residency"]["enabled"] is j["residency"]["enabled"] is False
+    jnames, tnames = (set(tprom.parse(_call(port, "GET", "/metrics")[2]
+                                      .decode())) for port in p.ports)
+    assert jnames - tnames <= {"dgraph_tablet_load"}, \
+        sorted(jnames - tnames)
+    for prefix in ("dgraph_residency_", "dgraph_batch_", "dgraph_planner_",
+                   "dgraph_devprof_"):
+        want = {n for n in jnames if n.startswith(prefix)}
+        assert want and want <= tnames, prefix
+
+
+def test_explain_over_http(pair_defaults):
+    p = pair_defaults
+    _seed(p)
+    q = '{ q(func: has(name)) @filter(eq(name, "bob")) { name friend ' \
+        '{ name } } }'
+    out = p.same("POST", "/query?explain=true", q)
+    ex = out["extensions"]["explain"]
+    assert ex["planner"] == "on"
+    assert set(ex["decisions"]) == {"root_swaps", "filter_reorders",
+                                    "sibling_reorders", "cutover_overrides"}
+    assert ex["blocks"][0]["root"]["actual"] is not None
+    assert "explain" not in out["data"]
+
+
+def test_admin_memory_budget(pair_defaults):
+    p = pair_defaults
+    _seed(p)
+    assert p.same("POST", "/admin/config/memory_mb", "64")["code"] == \
+        "Success"
+    assert [n.memory_budget for n in p.nodes] == [64 << 20] * 2
+    p.same("POST", "/admin/config/memory_mb", "nope", status=400)
 
 
 # ---------------------------------------------------------------------------

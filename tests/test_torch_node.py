@@ -10,9 +10,16 @@ same assigned uids — blank nodes, deletes and `S * *` deletes, a
 conflicting pair of transactions, upserts with @if, read-your-writes in an
 open transaction, alter(drop_attr=), a deadline that runs out, result and
 task cache hits and their invalidation by a commit to one predicate, two
-tenants, a slow-log entry and the /debug/top rows of the cost ledger. The
-JAX Node runs with its planner, batcher and device observatory off, the
-port's defaults, so that span trees and cost records line up.
+tenants, a slow-log entry and the /debug/top rows of the cost ledger. Both
+Nodes of the Twin run with their planner, batcher and device observatory
+off, so that span trees and cost records line up.
+
+The serving seams that default on in both packages (the planner, the
+batcher, the device observatory, the HBM working-set manager under a
+budget and pins) and the methods behind them (set_memory_budget,
+enforce_memory, set_devprof, query(explain=True), Executor(plan=,
+explain=, batcher=)) each answer as the JAX Node's do with the same
+setting; only the mesh and vector seams still raise naming their slice.
 
 The paged store: Node(dirpath, memory_mb=) in the port answers as an eager
 port Node and as the JAX paged Node, and Store(memory_budget=) folds equal
@@ -124,11 +131,6 @@ def test_node_default_device_raises_without_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("kw,slice_name", [
-    ({"planner": True}, "planner"),
-    ({"batching": True}, "batching"),
-    ({"devprof": True}, "devprof"),
-    ({"device_budget_mb": 64}, "residency"),
-    ({"residency_pin": "friend"}, "residency"),
     ({"mesh_devices": -1}, "mesh"),
     ({"vector_nprobe": 4}, "vector"),
     ({"vector_centroids": 16}, "vector"),
@@ -140,30 +142,122 @@ def test_off_seams_raise_naming_their_slice(kw, slice_name):
 
 
 @pytest.mark.parametrize("call,slice_name", [
-    (lambda n: n.set_memory_budget(1 << 20), "residency"),
-    (lambda n: n.enforce_memory(1 << 20), "residency"),
-    (lambda n: n.set_devprof(True), "devprof"),
     # subscribe works since the wire slice; a standing query over a later
     # slice's path raises at registration, naming that slice
     (lambda n: n.subscribe('{ q(func: similar_to(emb, 2, "[1.0, 1.0]")) '
                            '{ uid } }'), "vector"),
     (lambda n: n.analytics("pagerank", "friend"), "mesh"),
-    (lambda n: n.query("{ q(func: has(name)) { name } }", explain=True),
-     "planner"),
-], ids=["set_memory_budget", "enforce_memory", "set_devprof", "subscribe",
-        "analytics", "explain"])
+], ids=["subscribe", "analytics"])
 def test_off_methods_raise_naming_their_slice(nodes, call, slice_name):
     n = _port_node(nodes)
     with pytest.raises(NotImplementedError, match=f"{slice_name} slice"):
         call(n)
 
 
-@pytest.mark.parametrize("kw,slice_name", [
-    ({"plan": object()}, "planner"), ({"explain": {}}, "planner"),
-    ({"mesh": object()}, "mesh"), ({"batcher": object()}, "batching")])
+@pytest.mark.parametrize("kw,slice_name", [({"mesh": object()}, "mesh")])
 def test_executor_off_seams_raise(kw, slice_name):
     with pytest.raises(NotImplementedError, match=f"{slice_name} slice"):
         teng.Executor(tcb.GraphSnapshot(1, device="cpu"), None, **kw)
+
+
+# ---------------------------------------------------------------------------
+# the serving seams that default on, each equal to the JAX Node's
+# ---------------------------------------------------------------------------
+
+SEAM_READS = [
+    '{ q(func: has(name)) @filter(eq(city, "ams") AND ge(age, 30)) '
+    '{ name age friend { name } } }',
+    '{ q(func: eq(name, "p0")) @recurse(depth: 3) { name friend } }',
+    '{ q(func: ge(age, 40), orderdesc: age, first: 5) { name ~friend '
+    '{ name } } }',
+]
+
+
+def _seam_pair(nodes, **kw):
+    """A port Node and a JAX Node with the same seam setting, over the
+    same seeded data."""
+    t = _port_node(nodes, **kw)
+    j = nodes(JNode, **kw)
+    for n in (t, j):
+        n.alter(schema_text=SCHEMA)
+        n.mutate(set_nquads=_seed_quads(), commit_now=True)
+    return t, j
+
+
+def _same_reads(t, j, reads=SEAM_READS):
+    for q in reads:
+        assert json.dumps(t.query(q)[0], default=str) == \
+            json.dumps(j.query(q)[0], default=str), q
+
+
+@pytest.mark.parametrize("kw,check", [
+    ({"planner": True},
+     lambda n: n.planner_enabled and n.metrics.counter(
+         "dgraph_planner_plans_total").value > 0),
+    ({"batching": True}, lambda n: n.batcher is not None),
+    ({"devprof": True},
+     lambda n: n.dispatch_gate.profiler is n.devprof and n.metrics.counter(
+         "dgraph_devprof_dispatches_total").value > 0),
+    ({"device_budget_mb": 64},
+     lambda n: n.residency.budget == 64 << 20 and n.residency.enabled),
+    ({"residency_pin": "friend"},
+     lambda n: n.residency.pins == {"friend"}),
+], ids=["planner", "batching", "devprof", "device_budget_mb",
+        "residency_pin"])
+def test_seams_work_and_equal_jax(nodes, kw, check):
+    t, j = _seam_pair(nodes, **kw)
+    _same_reads(t, j)
+    assert check(t) and check(j)
+
+
+@pytest.mark.parametrize("call", [
+    lambda n: n.set_memory_budget(1 << 20) or n.memory_budget,
+    lambda n: sorted(n.enforce_memory(1 << 20)),
+    lambda n: (n.set_devprof(False), n.devprof, n.dispatch_gate.profiler,
+               n.set_devprof(True), n.devprof is not None)[1:3] + (
+                  n.dispatch_gate.profiler is n.devprof,),
+    lambda n: n.query('{ q(func: has(name)) @filter(eq(city, "ber")) '
+                      '{ name } }', explain=True)[0],
+], ids=["set_memory_budget", "enforce_memory", "set_devprof", "explain"])
+def test_methods_work_and_equal_jax(nodes, call):
+    t, j = _seam_pair(nodes)
+    got, want = call(t), call(j)
+    assert json.dumps(got, default=str) == json.dumps(want, default=str)
+    _same_reads(t, j)
+
+
+@pytest.mark.parametrize("seam", ["plan", "explain", "batcher"])
+def test_executor_seams_work(nodes, seam):
+    """Executor(plan=, explain=, batcher=): the same JSON as a plain
+    Executor and as the JAX Executor with the same seam."""
+    from dgraph_tpu.query import batch as jbatch
+    from dgraph_tpu.query import engine as jeng
+    from dgraph_tpu.query import planner as jplanner
+    from dgraph_tpu_torch.query import batch as tbatch
+    from dgraph_tpu_torch.query import planner as tplanner
+
+    t, j = _seam_pair(nodes, planner=False, batching=False)
+    q = SEAM_READS[0]
+    outs = []
+    for n, eng, pl, bt, parse in ((t, teng, tplanner, tbatch, t._parse),
+                                  (j, jeng, jplanner, jbatch, j._parse)):
+        snap, schema = n.snapshot(), n.store.schema
+        req = parse(q, None)
+        kw = {}
+        if seam in ("plan", "explain"):
+            kw["plan"] = pl.build_plan(req, snap, schema)
+        if seam == "explain":
+            kw["explain"] = {}
+        if seam == "batcher":
+            kw["batcher"] = bt.DeviceBatcher(n.dispatch_gate, n.metrics)
+        got = eng.Executor(snap, schema, gate=n.dispatch_gate,
+                           **kw).execute(req)
+        assert got == eng.Executor(snap, schema).execute(req)
+        if seam == "explain":
+            got = pl.render_explain(kw["plan"], kw["explain"])
+            assert any(v is not None for v in kw["explain"].values())
+        outs.append(json.dumps(got, default=str))
+    assert outs[0] == outs[1]
 
 
 # ---------------------------------------------------------------------------
@@ -184,7 +278,8 @@ class Twin:
 
     def __init__(self, make, **kw):
         self.j = _jax_node(make, **kw)
-        self.t = _port_node(make, **kw)
+        self.t = _port_node(make, planner=False, batching=False,
+                            devprof=False, **kw)
 
     def both(self, fn, may_raise=False):
         """fn(node, package) on each side → (JAX result, port result),
