@@ -120,7 +120,33 @@ it:
      (d) /debug/timeline (recurse and expand records with CUDA-event device
      intervals), /debug/compiles (the port's families), the HBM high-water
      mark from torch.cuda.memory_stats and the device busy share in [0, 1];
-  12. prints the card line, a {"kernels": [...]} line and the final
+  12. vectors at ANN-Benchmarks sift-128-euclidean's shape: VEC_N rows of
+     128 float32 dims (a seeded Gaussian mixture with VEC_PLANTED identical
+     rows planted) on uids of the headline graph, loaded into the port's
+     Store and folded (a brute-force tablet), in one snapshot with phase
+     4's `friend`: (a) similar_to probes equal to a numpy float64 exact
+     scan, the planted tie decided for the smallest uids; (b) a burst of
+     VEC_BURST requests in one batch.vector_topk, each JSON equal to its
+     solo JSON; (c) the fused ANN -> friend hop as one vector.ann_expand
+     span, equal to JSON from (a)'s answers over phase 2's host CSR; (d) a
+     commit of new rows and deletions stamped as a VecOverlay, equal to a
+     from-scratch fold; (e) similar_to feeding @recurse(depth: 2) over
+     friend, K1 or K2 launched (`launches_vector`), byte-identical to the
+     host-mirror route; (f) IVF with VEC_IVF_CENTROIDS lists over the
+     first VEC_IVF_ROWS rows: the device stage equal to the float64
+     re-rank of the probed rows, recall@10 >= VEC_RECALL_MIN; (g) a cold
+     tablet serving by host scan; the fold's seconds, the probe, burst and
+     fused times, the candidate stage's CUDA-event time beside its bytes
+     bound and a probe's torch.profiler trace;
+  13. the loader chain users run, each a subprocess of the port's CLI:
+     ldbc_gen (LDBC-SNB SF LDBC_SF), convert --ldbc, bulk, then serve -p
+     over the output: the 3-hop friends-of-friends @recurse over `knows`
+     from the hub person (K1/K2 launched, read from the server's /metrics:
+     `launches_loader`), IS3 and the longest reply chain, each held to
+     numpy over the CSVs and to the host-mirror route; export equal to the
+     input N-Quads under the xid map; live of a LIVE_PREFIX prefix equal to
+     bulk of it; ops/packed_decode over the knows tablet's bp128 lists;
+  14. prints the card line, a {"kernels": [...]} line and the final
      {"ok": true, "device": {...}} line.
 Any mismatch raises and the script exits non-zero. It never imports jax or
 the JAX package.
@@ -196,6 +222,36 @@ BURST_MIN_ROWS, BURST_MAX_ROWS = 2_000, 2_000_000
 EXPAND_SLICES = 4
 PLANNER_QUERY = "{ q(func: has(friend)) @filter(eq(age, 42)) { uid age } }"
 BUDGET_FIT, BUDGET_COLD = 1.5, 0.5
+# phase 12: vectors at ANN-Benchmarks sift-128-euclidean's shape (1,000,000
+# base vectors of 128 float32 dims, metric l2, k = 10) on uids 1..VEC_N of
+# the headline graph. The data is a mixture of VEC_CLUSTERS Gaussian
+# components (centres N(0, 1), spread VEC_NOISE about them) from
+# default_rng(VEC_SEED); VEC_PLANTED identical rows of small integers at
+# scattered uids make a tie past k' = k_capacity(10, 2^20) = 32. Two cuts
+# of (f), the IVF index: VEC_IVF_CENTROIDS lists, as the automatic count
+# (1,000) would make the kept JAX k-means build an 8 GB distance matrix
+# every Lloyd iteration; and the first VEC_IVF_ROWS rows, as that k-means
+# over all 1,000,000 rows took about 45 s of the script's time limit on an
+# H100 host
+VEC_N, VEC_DIM, VEC_K, VEC_SEED = 1_000_000, 128, 10, 17
+VEC_CLUSTERS, VEC_NOISE, VEC_PLANTED = 1024, 0.1, 40
+VEC_QUERIES, VEC_BURST = 100, 16
+VEC_OVERLAY_SET, VEC_OVERLAY_DEL = 900, 100
+VEC_IVF_CENTROIDS, VEC_IVF_ROWS, VEC_RECALL_MIN = 256, 250_000, 0.95
+# (f) holds the device stage to a float64 re-rank of all probed rows (tens
+# of MB of float64 a query) for the first VEC_IVF_RERANKS queries
+VEC_IVF_RERANKS = 20
+VEC_RECURSE_MAX_ROWS = 200_000
+VEC_SCHEMA = "emb: float32vector @index(vector(dim: 128, metric: l2)) ."
+# phase 13: the loader chain at LDBC-SNB scale factor LDBC_SF (a cut from
+# SF 1, the smallest official scale, to keep the script well inside its
+# time limit on slower hosts), then live of the first LIVE_PREFIX N-Quads
+# against bulk of the same prefix
+LDBC_SF, LDBC_SEED, LIVE_PREFIX = 0.2, 20260804, 5000
+# bulk runs its out-of-core tier (the one an SF 100 load needs; its output
+# is byte-identical to the in-RAM tier's), which logs the map and the reduce
+LDBC_SPILL_MB = 512
+LDBC_PARSE_WORKERS = 4     # the export check's parse (bulk's map stage)
 
 
 def host_3hop(subjects, indptr, indices, seeds, hops=3):
@@ -357,6 +413,29 @@ def golden_battery():
     return ns["SCHEMA"], ns["_dataset"](), ns["QUERIES"], expected
 
 
+def timed(fn, calls=20, reps=5, warm=3):
+    """Median over `reps` runs of CUDA-event ms per call, each run `calls`
+    calls back to back, so the device's time and not the host's enqueue is
+    read. calls=1 times one call with the device idle before it: the host's
+    launch overhead included."""
+    import torch
+
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(calls):
+            fn()
+        b.record()
+        b.synchronize()
+        ts.append(a.elapsed_time(b) / calls)
+    return float(np.median(ts))
+
+
 def band(samples):
     s = sorted(samples)
     return {"min": s[0], "median": s[len(s) // 2], "max": s[-1]}
@@ -433,26 +512,6 @@ def main() -> int:
 
     # ---- 2. kernel parity + timing at full-size shapes ---------------------
     rng = np.random.default_rng(11)
-
-    def timed(fn, calls=20, reps=5, warm=3):
-        """Median over `reps` runs of CUDA-event ms per call, each run
-        `calls` calls back to back, so the device's time and not the host's
-        enqueue is read. calls=1 times one call with the device idle before
-        it: the host's launch overhead included."""
-        for _ in range(warm):
-            fn()
-        sync()
-        ts = []
-        for _ in range(reps):
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            for _ in range(calls):
-                fn()
-            b.record()
-            b.synchronize()
-            ts.append(a.elapsed_time(b) / calls)
-        return float(np.median(ts))
 
     def held(name, kfn, pfn, label):
         """One kernel call, held to its plain version exactly (int32)."""
@@ -805,7 +864,7 @@ def main() -> int:
         say("storage_phase", seconds=time.perf_counter() - t0,
             script_seconds=time.perf_counter() - t_start)
 
-        # ---- 9. serving through the Node, and 10. the wire -------------------
+        # ---- 9. serving through the Node, and 10. the wire ------------------
         def wire(node):
             """Phases 10 and 11, run inside phase 9 over its Node's state:
             11 (a) and (c) before phase 10's commits, (b) and (d) over
@@ -845,7 +904,24 @@ def main() -> int:
         say("serve_phase", seconds=time.perf_counter() - t0,
             script_seconds=time.perf_counter() - t_start)
 
-    # ---- 12. summary lines -------------------------------------------------
+    # ---- 12. vectors at sift-128-euclidean's shape --------------------------
+    t0 = time.perf_counter()
+    vector_launches = vector_phase(snap, (subjects, indptr, indices), dev)
+    for name, n in vector_launches.items():
+        kernels[name]["launches_vector"] = n
+    torch.cuda.empty_cache()
+    say("vector_phase_done", seconds=time.perf_counter() - t0,
+        script_seconds=time.perf_counter() - t_start)
+
+    # ---- 13. the loader chain, then serve -----------------------------------
+    t0 = time.perf_counter()
+    loader_launches = loader_phase(dev)
+    for name, n in loader_launches.items():
+        kernels[name]["launches_loader"] = n
+    say("loader_phase_done", seconds=time.perf_counter() - t0,
+        script_seconds=time.perf_counter() - t_start)
+
+    # ---- 14. summary lines -------------------------------------------------
     kern_line = {"kernels": [
         {k: v for k, v in kernels[n].items() if k not in ("e_pad", "stream")}
         for n in ("active_prefix", "active_prefix_sparse")]}
@@ -1859,9 +1935,9 @@ class CliServer:
     --device at its default, its output read by a thread that stamps each
     line's arrival. Started before phase 9 opens its Node, so its start
     (torch import, CUDA context) overlaps that open; stop() kills it if it
-    is still running."""
+    is still running. `args` go after serve's own (phase 13: -p DIR)."""
 
-    def __init__(self):
+    def __init__(self, *args):
         import queue
         import socket
         import threading
@@ -1872,7 +1948,7 @@ class CliServer:
         self.t0 = time.perf_counter()
         self.proc = subprocess.Popen(
             [sys.executable, "-m", "dgraph_tpu_torch", "serve", "--port", "0",
-             "--grpc_port", str(self.gport)],
+             "--grpc_port", str(self.gport), *args],
             cwd=Path(__file__).resolve().parent, stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True)
         self.lines: queue.Queue = queue.Queue()
@@ -2637,7 +2713,7 @@ def planner_devprof_phase(node, port) -> None:
         planned_ms=planned_ms, plain_ms=plain_ms,
         plans_built=node.metrics.counter("dgraph_planner_plans_total").value)
 
-    # ---- (d) the device observatory ------------------------------------------
+    # ---- (d) the device observatory -----------------------------------------
     recs = get("/debug/timeline?view=raw&n=4096")
     by = {}
     for r in recs:
@@ -2713,10 +2789,842 @@ def record_dispatch_cost(node, n: int = 4096) -> dict:
             "util_refresh": DevProfiler.UTIL_REFRESH}
 
 
-def profile_query(run) -> dict:
-    """One run under torch.profiler: wall ms, summed device-kernel ms (the
-    device's busy time; idle share = 1 - busy / wall) and the top kernels."""
+def vec_text(q) -> str:
+    """A similar_to literal that parses back to the same float32 values."""
+    return "[" + ", ".join(repr(float(x)) for x in q) + "]"
+
+
+def exact_topk(vecs64, nx2, uids, Q64, k):
+    """Per query of Q64, the k (uid, distance) of the float64 exact scan
+    ranked by (distance, uid): the reference every path is held to.
+    Ties at the k-th distance are all kept before the uid order cuts."""
+    out = []
+    for q in Q64:
+        d = nx2 - 2.0 * (vecs64 @ q) + float(q @ q)
+        thr = np.partition(d, k - 1)[k - 1]
+        sel = np.nonzero(d <= thr)[0]
+        order = np.lexsort((uids[sel], d[sel]))[:k]
+        out.append((uids[sel][order], d[sel][order]))
+    return out
+
+
+def same_ranking(got_uids, got_d, want_uids, want_d) -> bool:
+    """Equal uids in rank order, distances equal to float64 rounding (the
+    re-rank scores a candidate subset with the same formula as the
+    reference; a BLAS product over another row set may round its last bit
+    differently): |a - b| <= 1e-9 * max(1, |b|)."""
+    return (np.array_equal(np.asarray(got_uids), np.asarray(want_uids))
+            and np.allclose(got_d, want_d, rtol=1e-9, atol=1e-9))
+
+
+def vector_phase(snap4, csr, dev, n=VEC_N, n_queries=VEC_QUERIES) -> dict:
+    """Phase 12: vectors at sift-128-euclidean's shape. `n` float32 rows of
+    VEC_DIM dims from a seeded Gaussian mixture (VEC_PLANTED identical
+    rows of small integers planted at scattered uids) go into the port's
+    Store as `emb` values on uids 1..n of the headline graph (bulk_install,
+    as phase 8 installs `age`), fold through a SnapshotAssembler with
+    VectorKnobs(ivf_min_rows > n) (a brute-force tablet), and join phase
+    4's carried `friend` in one snapshot. Over it: (a) solo probes equal
+    to a numpy float64 exact scan, the planted tie decided by the uid rule;
+    (b) a burst of VEC_BURST through one DeviceBatcher batch, each JSON
+    byte-identical to its solo JSON; (c) the fused ANN -> friend hop as one
+    vector.ann_expand span, equal to JSON built from (a)'s uids and phase
+    2's host CSR; (d) a commit of VEC_OVERLAY_SET new rows and
+    VEC_OVERLAY_DEL deletions stamped as a VecOverlay, its answers equal
+    to a from-scratch fold's; (e) similar_to ... @recurse(depth: 2) over
+    friend with K1 or K2 launched, byte-identical to the host-mirror
+    route; (f) an IVF index of VEC_IVF_CENTROIDS lists over the first
+    VEC_IVF_ROWS rows, its device stage equal to the float64 re-rank of the
+    same probed rows and its recall@10 against a float64 exact scan of
+    those rows at least VEC_RECALL_MIN; (g) a COLD tablet under a budget
+    below its footprint serving two probes by host scan, no upload.
+    Returns the K1/K2 launches of (e)."""
+    import threading
+
     import torch
+
+    from dgraph_tpu_torch.obs import otrace
+    from dgraph_tpu_torch.ops import prefix as px
+    from dgraph_tpu_torch.ops import vector as vops
+    from dgraph_tpu_torch.query import batch as batchmod
+    from dgraph_tpu_torch.query import dql, mutation, rdf
+    from dgraph_tpu_torch.query import engine as eng
+    from dgraph_tpu_torch.query.qcache import DispatchGate
+    from dgraph_tpu_torch.storage import keys as K
+    from dgraph_tpu_torch.storage import native
+    from dgraph_tpu_torch.storage import residency as resmod
+    from dgraph_tpu_torch.storage import vecindex as vx
+    from dgraph_tpu_torch.storage.csr_build import (
+        GraphSnapshot, PredData, SnapshotAssembler, build_pred)
+    from dgraph_tpu_torch.storage.postings import (
+        VALUE_UID, Op, Posting, PostingList)
+    from dgraph_tpu_torch.storage.store import Store
+    from dgraph_tpu_torch.utils.metrics import Registry
+    from dgraph_tpu_torch.utils.schema import (SchemaState, VectorSpec,
+                                               parse_schema)
+    from dgraph_tpu_torch.utils.types import TypeID, Val
+
+    subjects, indptr, indices = csr
+    sync = torch.cuda.synchronize
+    t_phase = time.perf_counter()
+    steps = {}
+
+    def fail(what, msg):
+        raise SystemExit(f"vector {what}: {msg}")
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("precision", "TF32 is on: the candidate stage must be fp32")
+
+    # ---- data: a seeded Gaussian mixture, built in place in float32 -------
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(VEC_SEED)
+    centres = rng.standard_normal((VEC_CLUSTERS, VEC_DIM), dtype=np.float32)
+    vecs = rng.standard_normal((n, VEC_DIM), dtype=np.float32)
+    vecs *= VEC_NOISE
+    vecs += centres[rng.integers(0, VEC_CLUSTERS, n)]
+    uids = np.arange(1, n + 1, dtype=np.int64)
+    planted_vec = rng.integers(3, 7, VEC_DIM).astype(np.float32)
+    planted = np.sort(rng.choice(n, VEC_PLANTED, replace=False))
+    vecs[planted] = planted_vec
+    picks = rng.integers(0, VEC_CLUSTERS, n_queries)
+    Q = (centres[picks] + VEC_NOISE * rng.standard_normal(
+        (n_queries, VEC_DIM), dtype=np.float32)).astype(np.float32)
+    steps["data"] = time.perf_counter() - t0
+
+    # ---- the reference: a float64 exact scan of every query ---------------
+    t0 = time.perf_counter()
+    vecs64 = vecs.astype(np.float64)
+    nx2 = np.einsum("ij,ij->i", vecs64, vecs64)
+    ref = exact_topk(vecs64, nx2, uids,
+                     np.vstack([Q, planted_vec[None]]).astype(np.float64),
+                     VEC_K)
+    ref_planted = ref.pop()
+    del vecs64, nx2
+    want_planted = uids[planted][:VEC_K]
+    if not np.array_equal(ref_planted[0], want_planted) or \
+            np.any(ref_planted[1] != 0.0):
+        fail("reference", f"the planted query's exact scan is not its "
+                          f"{VEC_K} smallest uids at distance 0")
+    steps["reference"] = time.perf_counter() - t0
+
+    # ---- load through the Store (bulk_install) and fold -------------------
+    t0 = time.perf_counter()
+    if not native.available():
+        fail("load", "the native codec did not build")
+    store = Store()
+    for e in parse_schema(VEC_SCHEMA):
+        store.set_schema(e)
+    store.vector_knobs = vx.VectorKnobs(ivf_min_rows=n + 1)
+    rows = [tuple(r) for r in vecs.tolist()]
+    # data keys as phase 8 builds them: the key's head once, then the uid
+    # as 8 big-endian bytes (checked against storage/keys.py)
+    head = K.data_key("emb", 0).encode()[:-8]
+    raw = uids.astype(">u8").tobytes()
+    keys = [head + raw[i: i + 8] for i in range(0, len(raw), 8)]
+    if keys[-1] != K.data_key("emb", int(uids[-1])).encode():
+        fail("load", "key layout differs from storage/keys.py")
+    # every data key holds the one value slot: one packed list, shared (a
+    # PackedUidList is immutable)
+    pu = native.pack_many([np.asarray([VALUE_UID], np.uint64)])[0]
+    lists = {}
+    for kb, row in zip(keys, rows):
+        pl = PostingList()
+        pl.base_ts = 1
+        pl.base_packed = pu
+        pl.base_postings = {VALUE_UID: Posting(
+            VALUE_UID, Op.SET, Val(TypeID.VECTOR, row))}
+        lists[kb] = pl
+    store.bulk_install(lists, 1)
+    del rows, keys, lists
+    steps["load"] = time.perf_counter() - t0
+    # (d)'s commit touches VEC_OVERLAY_SET + VEC_OVERLAY_DEL keys: the
+    # stamp bound is raised to that (serve --overlay_max_keys; the default
+    # 512 would fold it inline instead of stamping)
+    asm = SnapshotAssembler(store, device=dev,
+                            overlay_max_keys=VEC_OVERLAY_SET + VEC_OVERLAY_DEL)
+    t0 = time.perf_counter()
+    pd = asm.snapshot(1).pred("emb")
+    fold_s = time.perf_counter() - t0
+    vi = pd.vecindex
+    if vi is None or vi.is_overlay or vi.ivf is not None or vi.n != n:
+        fail("fold", f"not a brute-force index of {n} rows: {vi}")
+    if not (np.array_equal(vi.subjects, uids) and
+            np.array_equal(vi.vecs, vecs)):
+        fail("fold", "the folded matrix differs from the input rows")
+    R = vops.row_capacity(n)
+    footprint = vi.device_nbytes()
+    if footprint != R * (VEC_DIM * 4 + 4 + 4):
+        fail("fold", f"device footprint {footprint}")
+    t0 = time.perf_counter()
+    vi.device()
+    sync()
+    upload_s = time.perf_counter() - t0
+
+    schema = SchemaState()
+    for e in parse_schema("friend: [uid] @reverse .\n" + VEC_SCHEMA):
+        schema.set(e)
+    metrics = Registry()
+
+    def joined(emb_pd):
+        """Phase 4's friend and ~friend with `emb` of this Store."""
+        s = GraphSnapshot(2, device=dev)
+        for attr in ("friend", "~friend"):
+            if snap4.pred(attr) is not None:
+                s.preds[attr] = snap4.pred(attr)
+        s.preds["emb"] = emb_pd
+        s.metrics = metrics
+        return s
+
+    snap = joined(pd)
+    c = lambda name: metrics.counter(name).value
+    solo_text = "{ q(func: similar_to(emb, \"%s\", %d)) " \
+                "{ uid d : val(vector_distance) } }"
+
+    def execute(s, text, **kw):
+        return eng.Executor(s, schema, **kw).execute(dql.parse(text))
+
+    def ranked(out):
+        """(uids, distances) of a solo answer, in the reference's order."""
+        rows_ = out.get("q", [])
+        u = np.asarray([int(r["uid"], 16) for r in rows_], np.int64)
+        d = np.asarray([r["d"] for r in rows_], np.float64)
+        o = np.lexsort((u, d))
+        return u[o], d[o]
+
+    # ---- (a) solo probes ---------------------------------------------------
+    t0 = time.perf_counter()
+    texts = [solo_text % (vec_text(q), VEC_K) for q in Q]
+    solo_json = []
+    for i, text in enumerate(texts):
+        out = execute(snap, text)
+        solo_json.append(json.dumps(out))
+        if not same_ranking(*ranked(out), *ref[i]):
+            fail("solo", f"query {i}: {ranked(out)} != exact {ref[i]}")
+    out = execute(snap, solo_text % (vec_text(planted_vec), VEC_K))
+    if not same_ranking(*ranked(out), *ref_planted):
+        fail("tie", f"the planted tie kept {ranked(out)[0]}, not the "
+                    f"{VEC_K} smallest uids {want_planted}")
+    if c("dgraph_vector_searches_total") != n_queries + 1:
+        fail("solo", f"{c('dgraph_vector_searches_total')} searches")
+    steps["solo"] = time.perf_counter() - t0
+    probe = lambda q: vx.search(vi, q, VEC_K)
+    samples = []
+    for q in Q[:20]:
+        t1 = time.perf_counter()
+        probe(q)
+        samples.append((time.perf_counter() - t1) * 1e3)
+    solo_prof = profile_query(lambda: probe(Q[0]))
+    if not solo_prof["device_busy_ms"]:
+        fail("profile", "the trace of a device probe shows no device time")
+    # the candidate stage alone (the matrix product and the top-k) by CUDA
+    # events: one call, and back to back (the device's time per probe, the
+    # share of the bytes bound is read from it). The trace above gives the
+    # breakdown by kernel; in a process that has traced before, it can miss
+    # kernels (its busy time then falls below the bound: flagged)
+    mat, norms, _subs = vi.device()
+    qd = torch.from_numpy(Q[0]).to(dev)
+    nodead = torch.zeros(0, dtype=torch.int32)
+    stage = lambda: vops.topk_candidates(mat, norms, qd, n, nodead,
+                                         k=vops.k_capacity(VEC_K, R),
+                                         metric="l2")
+    stage_ms = {"one_call": timed(stage, calls=1, reps=20),
+                "back_to_back": timed(stage)}
+    bound_ms = footprint / HBM_BYTES_PER_S * 1e3
+    if stage_ms["back_to_back"] < bound_ms:
+        fail("timing", f"the candidate stage {stage_ms} is below its bound "
+                       f"{bound_ms} ms")
+    say("vector_solo", queries=n_queries, k=VEC_K,
+        kprime=vops.k_capacity(VEC_K, R), planted=VEC_PLANTED,
+        planted_uids=[int(u) for u in ranked(out)[0]],
+        probe_ms=band(samples), candidate_stage_ms=stage_ms,
+        bytes_bound_ms=bound_ms,
+        share_of_bytes_bound=bound_ms / stage_ms["back_to_back"],
+        trace_below_bound=solo_prof["device_busy_ms"] < bound_ms,
+        profile=solo_prof, seconds=steps["solo"])
+
+    # ---- (b) a burst through one batch -------------------------------------
+    t0 = time.perf_counter()
+    gate = DispatchGate(width=4, metrics=metrics)
+    batcher = batchmod.DeviceBatcher(gate, metrics,
+                                     window_ms=BURST_WINDOW_MS,
+                                     max_batch=VEC_BURST, idle_fire=False)
+    burst_texts = texts[:VEC_BURST]
+    outs, errs = [None] * VEC_BURST, [None] * VEC_BURST
+    barrier = threading.Barrier(VEC_BURST)
+    shapes = []
+    real = vops.topk_candidates_batch
+
+    def spy(*a, **k):
+        shapes.append(tuple(a[2].shape))
+        return real(*a, **k)
+
+    def go(i):
+        barrier.wait(timeout=60)
+        try:
+            outs[i] = json.dumps(execute(snap, burst_texts[i], gate=gate,
+                                         batcher=batcher))
+        except BaseException as e:           # surfaced below
+            errs[i] = e
+
+    threads = [threading.Thread(target=go, args=(i,))
+               for i in range(VEC_BURST)]
+    vops.topk_candidates_batch = spy
+    try:
+        t1 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        sync()
+        burst_s = time.perf_counter() - t1
+    finally:
+        vops.topk_candidates_batch = real
+    if any(t.is_alive() for t in threads) or any(errs):
+        fail("burst", f"a request did not finish or raised: {errs}")
+    for i, (a, w) in enumerate(zip(outs, solo_json)):
+        if a != w:
+            fail("burst", f"request {i}: the batched JSON differs from its "
+                          f"solo JSON")
+    formed = c("dgraph_batch_formed_total")
+    if shapes != [(VEC_BURST, VEC_DIM)] or formed != 1:
+        fail("burst", f"not one batch.vector_topk of {VEC_BURST}: "
+                      f"{shapes}, {formed} batches")
+    say("vector_burst", requests=VEC_BURST, batches=formed,
+        stacked=list(shapes[0]), burst_seconds=burst_s,
+        seconds=time.perf_counter() - t0)
+
+    # ---- (c) the fused ANN -> friend hop ------------------------------------
+    t0 = time.perf_counter()
+    fused_text = ("{ q(func: similar_to(emb, \"%s\", %d)) "
+                  "{ uid friend { uid } } }")
+    pos = np.clip(np.searchsorted(subjects, ref[0][0]), 0, len(subjects) - 1)
+    want = {"q": []}
+    for u, p in zip(ref[0][0].tolist(), pos.tolist()):
+        row = {"uid": hex(u)}
+        if subjects[p] == u and indptr[p + 1] > indptr[p]:
+            row["friend"] = [{"uid": hex(int(v))}
+                             for v in indices[indptr[p]: indptr[p + 1]]]
+        want["q"].append(row)
+    want["q"].sort(key=lambda r: int(r["uid"], 16))
+    tracer = otrace.Tracer(fraction=1.0, proc="chip_smoke")
+    f0 = c("dgraph_vector_fused_pipelines_total")
+    with tracer.root("query"):
+        got = execute(snap, fused_text % (vec_text(Q[0]), VEC_K))
+    if json.dumps(got) != json.dumps(want):
+        fail("fused", "the fused JSON differs from (a)'s uids over phase 2's "
+                      "host CSR")
+    rec = tracer.sink.get(tracer.sink.index()[0]["trace_id"])
+    names = [(s["name"], s["attrs"].get("kernel")) for s in rec["spans"]]
+    kernels_ = [k for nm, k in names if nm == "device_kernel"]
+    if kernels_ != ["vector.ann_expand"] or \
+            any(nm.startswith("task:") for nm, _ in names) or \
+            c("dgraph_vector_fused_pipelines_total") != f0 + 1:
+        fail("fused", f"not one vector.ann_expand dispatch: {names}")
+    samples = []
+    for q in Q[1:6]:
+        t1 = time.perf_counter()
+        execute(snap, fused_text % (vec_text(q), VEC_K))
+        samples.append((time.perf_counter() - t1) * 1e3)
+    say("vector_fused", json_bytes=len(json.dumps(got)), spans=names,
+        request_ms=band(samples), seconds=time.perf_counter() - t0)
+
+    # ---- (e) similar_to feeding @recurse over friend (K1/K2) ----------------
+    t0 = time.perf_counter()
+    deg = np.diff(indptr).astype(np.int64)
+    hit_pos = np.clip(np.searchsorted(subjects, indices), 0, len(subjects) - 1)
+    two = np.where(subjects[hit_pos] == indices, deg[hit_pos], 0)
+    cs = np.concatenate([[0], np.cumsum(two)])
+    s2 = cs[indptr[1:]] - cs[indptr[:-1]]
+    del hit_pos, two, cs
+
+    def est(u_set):
+        p = np.clip(np.searchsorted(subjects, u_set), 0, len(subjects) - 1)
+        ok = subjects[p] == u_set
+        return int((deg[p] + s2[p])[ok].sum())
+
+    pick = next((i for i in range(n_queries)
+                 if 200 <= est(ref[i][0]) <= VEC_RECURSE_MAX_ROWS), None)
+    if pick is None:
+        fail("recurse", "no query's answers render a depth-2 tree of "
+                        f"200..{VEC_RECURSE_MAX_ROWS} rows")
+    rtext = ("{ q(func: similar_to(emb, \"%s\", %d)) @recurse(depth: 2) "
+             "{ friend } }" % (vec_text(Q[pick]), VEC_K))
+    host = on_host(lambda: json.dumps(execute(snap, rtext)))
+    sync()
+    px.reset_launches()
+    got = json.dumps(execute(snap, rtext))
+    sync()
+    launches = dict(px.LAUNCHES)
+    if got != host:
+        fail("recurse", "the kernel-path JSON differs from the host-mirror "
+                        "route's")
+    if not any(launches.values()):
+        fail("recurse", f"K1/K2 never launched: {launches}")
+    say("vector_recurse", query=pick, est_rows=est(ref[pick][0]),
+        json_bytes=len(got), launches=launches,
+        seconds=time.perf_counter() - t0)
+
+    # ---- (d) an overlay: new rows and deletions through the Store ----------
+    t0 = time.perf_counter()
+    touched_u = rng.choice(uids, VEC_OVERLAY_SET + VEC_OVERLAY_DEL,
+                           replace=False)
+    set_u, del_u = touched_u[:VEC_OVERLAY_SET], touched_u[VEC_OVERLAY_SET:]
+    newv = (centres[rng.integers(0, VEC_CLUSTERS, VEC_OVERLAY_SET)]
+            + VEC_NOISE * rng.standard_normal((VEC_OVERLAY_SET, VEC_DIM),
+                                              dtype=np.float32))
+    set_nq = "\n".join(f'<{hex(int(u))}> <emb> "{vec_text(v)}" .'
+                       for u, v in zip(set_u, newv.astype(np.float32)))
+    del_nq = "\n".join(f"<{hex(int(u))}> <emb> * ." for u in del_u)
+    edges = (mutation.to_edges(rdf.parse(set_nq), {}, Op.SET)
+             + mutation.to_edges(rdf.parse(del_nq), {}, Op.DEL))
+    touched = mutation.apply_mutations(store, edges, 2)[0]
+    store.commit(2, 3, touched)
+    t1 = time.perf_counter()
+    pd3 = asm.snapshot(3).pred("emb")
+    stamp_ms = (time.perf_counter() - t1) * 1e3
+    vo = pd3.vecindex
+    if not getattr(vo, "is_overlay", False) or vo.base is not vi:
+        fail("overlay", f"the commit was not stamped over the base: {vo}")
+    if len(vo.dead_rows) != len(touched_u) or \
+            vo.n != n - VEC_OVERLAY_DEL:
+        fail("overlay", f"dead rows {len(vo.dead_rows)}, n {vo.n}")
+    t1 = time.perf_counter()
+    fresh = build_pred(store, "emb", 3, device=dev).vecindex
+    refold_s = time.perf_counter() - t1
+    if fresh.is_overlay or fresh.n != vo.n:
+        fail("overlay", "the from-scratch fold is not a plain index")
+    snap3 = joined(pd3)
+    dead = set(del_u.tolist())
+    for i, q in enumerate(Q):
+        a = vx.search(vo, q, VEC_K)
+        b = vx.search(fresh, q, VEC_K)
+        if not same_ranking(a[0], a[1], b[0], b[1]):
+            fail("overlay", f"query {i}: overlay {a} != fold {b}")
+        if dead & set(a[0].tolist()):
+            fail("overlay", f"query {i} returned a deleted uid")
+        out = execute(snap3, texts[i])
+        if not same_ranking(*ranked(out), *b):
+            fail("overlay", f"query {i}: the request over the overlay "
+                            f"differs from the fold")
+    if not vi.device_resident():
+        fail("overlay", "the overlay's base scan left the card")
+    fresh.drop_device()
+    del fresh
+    say("vector_overlay", set=VEC_OVERLAY_SET, deleted=VEC_OVERLAY_DEL,
+        dead_rows=int(len(vo.dead_rows)), stamp_ms=stamp_ms,
+        refold_seconds=refold_s, seconds=time.perf_counter() - t0)
+
+    # ---- (f) IVF over the first VEC_IVF_ROWS rows -------------------------
+    t0 = time.perf_counter()
+    spec = VectorSpec(dim=VEC_DIM, metric="l2")
+    m = min(n, VEC_IVF_ROWS)
+    t1 = time.perf_counter()
+    ivf = vx._build_ivf(vecs[:m], "l2", VEC_IVF_CENTROIDS)
+    ivf_build_s = time.perf_counter() - t1
+    vi_ivf = vx.VectorIndex("emb", spec, uids[:m], vecs[:m], ivf,
+                            device=dev)
+    sub64 = vecs[:m].astype(np.float64)
+    ref_ivf = exact_topk(sub64, np.einsum("ij,ij->i", sub64, sub64),
+                         uids[:m], Q.astype(np.float64), VEC_K)
+    del sub64
+    hits = 0
+    cands = []
+    for i, q in enumerate(Q):
+        q64 = q.astype(np.float64)
+        rows_ = vx._ivf_candidate_rows(vi_ivf, q64, vx.VECTOR_NPROBE)
+        cands.append(len(rows_))
+        dev_rows = vx._ivf_device_stage(vi_ivf, q, rows_, VEC_K)
+        su, sd = vx._rescore(vi_ivf, dev_rows, q64)
+        got_u, got_d = vx._rank(sd, su, VEC_K)
+        if i < VEC_IVF_RERANKS:
+            hu, hd = vx._rescore(vi_ivf, rows_, q64)
+            want_u, want_d = vx._rank(hd, hu, VEC_K)
+            if not same_ranking(got_u, got_d, want_u, want_d):
+                fail("ivf", f"query {i}: the device stage {got_u} differs "
+                            f"from the float64 re-rank of the probed rows "
+                            f"{want_u}")
+        auto_u, _ = vx.search(vi_ivf, q, VEC_K)
+        if not np.array_equal(auto_u, got_u):
+            fail("ivf", f"query {i}: search() took another route")
+        hits += len(set(got_u.tolist()) & set(ref_ivf[i][0].tolist()))
+    recall = hits / (VEC_K * n_queries)
+    if recall < VEC_RECALL_MIN:
+        fail("ivf", f"recall@{VEC_K} {recall} < {VEC_RECALL_MIN}")
+    vi_ivf.drop_device()
+    say("vector_ivf", rows=m, centroids=ivf.n_lists, nprobe=vx.VECTOR_NPROBE,
+        reranked=min(VEC_IVF_RERANKS, n_queries),
+        build_seconds=ivf_build_s, candidates=band(cands),
+        recall_at_10=recall, seconds=time.perf_counter() - t0)
+
+    # ---- (g) the cold tier: a budget below the footprint -------------------
+    t0 = time.perf_counter()
+    mgr = resmod.ResidencyManager(budget_bytes=footprint // 2,
+                                  metrics=Registry())
+    vi_cold = vx.VectorIndex("emb", spec, uids, vecs, device=dev)
+    holder = PredData("emb", TypeID.VECTOR)
+    holder.vecindex = vi_cold
+    mgr.adopt_pred(holder)
+    alloc0 = torch.cuda.memory_allocated()
+    for i in range(2):
+        u, d = vx.search(vi_cold, Q[i], VEC_K)
+        if not same_ranking(u, d, *ref[i]):
+            fail("cold", f"query {i}: the host scan differs from (a)")
+    cold = mgr.metrics.counter("dgraph_residency_cold_serves_total").value
+    if cold < 1 or vi_cold.device_resident() or \
+            torch.cuda.memory_allocated() != alloc0:
+        fail("cold", f"cold serves {cold}, resident "
+                     f"{vi_cold.device_resident()}")
+    say("vector_cold", budget=footprint // 2, footprint=footprint,
+        cold_serves=cold, seconds=time.perf_counter() - t0)
+
+    vi.drop_device()
+    say("vector_phase", rows=n, dim=VEC_DIM, fold_seconds=fold_s,
+        upload_seconds=upload_s, steps=steps,
+        seconds=time.perf_counter() - t_phase)
+    return launches
+
+
+def read_csv(path) -> list[list[str]]:
+    """Rows of one LDBC CSV (pipe-separated, one header row)."""
+    with open(path, encoding="utf-8") as f:
+        return [ln.rstrip("\n").split("|") for ln in f][1:]
+
+
+def cli_start(*args) -> subprocess.Popen:
+    """`python -m dgraph_tpu_torch <args>` started; cli_wait reads it."""
+    return subprocess.Popen(
+        [sys.executable, "-m", "dgraph_tpu_torch", *args],
+        cwd=Path(__file__).resolve().parent, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+
+
+def cli_wait(p: subprocess.Popen, timeout=600) -> str:
+    """stdout of a started CLI run; a non-zero exit fails the phase with
+    the tail of its output (the process is killed at the timeout)."""
+    try:
+        out, err = p.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        p.kill()
+        p.communicate()
+        raise SystemExit(f"loader cli {p.args[3]}: no end in {timeout} s")
+    if p.returncode != 0:
+        raise SystemExit(f"loader cli {p.args[3]}: exit {p.returncode}: "
+                         f"{(out + err)[-2000:]}")
+    return out
+
+
+def cli(*args, timeout=600) -> tuple[float, str]:
+    """(seconds, stdout) of `python -m dgraph_tpu_torch <args>` run to its
+    end."""
+    t0 = time.perf_counter()
+    out = cli_wait(cli_start(*args), timeout)
+    return time.perf_counter() - t0, out
+
+
+def kernel_launches(port) -> dict:
+    """The server's own K1/K2 launch counts, from its /metrics."""
+    from dgraph_tpu_torch.obs import prom
+
+    st, body = http_call(port, "GET", "/metrics")
+    if st != 200:
+        raise SystemExit(f"loader metrics: status {st}")
+    series = prom.parse(body.decode()).get("dgraph_kernel_launches", [])
+    out = {"active_prefix": 0, "active_prefix_sparse": 0}
+    for labels, v in series:
+        out[labels.get("kernel", "")] = int(v)
+    return out
+
+
+def loader_phase(dev, sf=LDBC_SF) -> dict:
+    """Phase 13: the loader chain users run, each step a subprocess of the
+    port's CLI: `ldbc_gen --sf sf`, `convert --ldbc`, `bulk`, then `serve
+    -p` over the bulk output (started as phase 10 starts the CLI). Over its
+    HTTP: the 3-hop friends-of-friends @recurse over `knows` from the
+    person with the most `knows` edges (K1 or K2 launched, read from the
+    server's own /metrics), IS3 (a person's friends, both directions) and
+    the longest reply chain, each held to numpy over the generated CSVs;
+    after the server stops, each is held to the host-mirror route through
+    a Node on the same directory. Then `export -p` equals the input
+    N-Quads under the bulk load's xid map; `live` of a LIVE_PREFIX-quad
+    prefix into a fresh directory exports equal to `bulk` of the same
+    prefix; and ops/packed_decode decodes every bp128 list of the `knows`
+    tablet on the card, equal to the host codec. Returns the server's
+    K1/K2 launches over the requests."""
+    import gzip
+    from collections import Counter
+
+    from dgraph_tpu_torch.api.server import Node
+    from dgraph_tpu_torch.coord.zero import UidLease
+    from dgraph_tpu_torch.loader import bulk
+    from dgraph_tpu_torch.loader.xidmap import XidMap
+    from dgraph_tpu_torch.ops import packed_decode as pdec
+    from dgraph_tpu_torch.storage import keys as K
+    from dgraph_tpu_torch.storage import packed
+    from dgraph_tpu_torch.storage.store import Store
+    from dgraph_tpu_torch.utils.schema import parse_schema
+    from dgraph_tpu_torch.utils.types import convert
+
+    t_phase = time.perf_counter()
+    secs = {}
+
+    def fail(what, msg):
+        raise SystemExit(f"loader {what}: {msg}")
+
+    with tempfile.TemporaryDirectory(prefix="dgt-ldbc-") as tmp:
+        tmp = Path(tmp)
+        dump, quads, post = tmp / "csv", tmp / "q.rdf.gz", tmp / "p"
+        schema_path = Path(f"{quads}.schema")
+        secs["ldbc_gen"], _ = cli("ldbc_gen", "--sf", str(sf), "--seed",
+                                  str(LDBC_SEED), "--out", str(dump))
+        secs["convert"], _ = cli("convert", "--ldbc", str(dump), "--out",
+                                 str(quads))
+        t_bulk = time.time()
+        secs["bulk"], out = cli("bulk", "-f", str(quads), "-s",
+                                str(schema_path), "-o", str(post),
+                                "--spill_mb", str(LDBC_SPILL_MB),
+                                "--log_json")
+        events = {e.get("event"): e for e in map(json.loads, (
+            ln for ln in out.splitlines() if ln.startswith("{")))}
+        if not {"map done", "reduce done", "bulk load done"} <= set(events):
+            fail("bulk", f"log events {sorted(events)}")
+        secs["map"] = events["map done"]["ts"] - t_bulk
+        secs["reduce"] = events["reduce done"]["ts"] - \
+            events["map done"]["ts"]
+        done = events["bulk load done"]
+
+        # ---- numpy over the CSVs --------------------------------------------
+        knows = np.asarray([(int(a), int(b)) for a, b, _ in read_csv(
+            next(dump.glob("person_knows_person_*.csv")))], np.int64)
+        persons = {int(r[0]): r for r in read_csv(
+            next(dump.glob("person_[0-9]*.csv")))}
+        out_deg = np.bincount(knows[:, 0])
+        hub = int(np.argmax(out_deg))
+        adj = {}
+        for a, b in knows.tolist():
+            adj.setdefault(a, []).append(b)
+        reach, frontier = {hub}, {hub}
+        for _ in range(3):
+            frontier = {v for u in frontier for v in adj.get(u, ())} - reach
+            reach |= frontier
+        # IS3 reads both directions of knows: a pair listed each way
+        # counts once per direction
+        friend_of = sorted(set(knows[knows[:, 0] == hub, 1].tolist())) + \
+            sorted(set(knows[knows[:, 1] == hub, 0].tolist()))
+        friend_of.sort()
+        reply = dict((int(a), int(b)) for a, b in read_csv(
+            next(dump.glob("comment_replyOf_comment_*.csv"))))
+        to_post = dict((int(a), int(b)) for a, b in read_csv(
+            next(dump.glob("comment_replyOf_post_*.csv"))))
+
+        def chain(cid):
+            out_ = [cid]
+            while out_[-1] in reply:
+                out_.append(reply[out_[-1]])
+            return out_
+
+        longest = max(reply, key=lambda cid: (len(chain(cid)), -cid))
+        want_chain = chain(longest)
+        want_post = to_post[want_chain[-1]]
+
+        requests = {
+            "fof3": "{ q(func: eq(person.id, %d)) @recurse(depth: 3) "
+                    "{ person.id knows } }" % hub,
+            "is3": "{ q(func: eq(person.id, %d)) { knows { person.id "
+                   "firstName lastName } ~knows { person.id firstName "
+                   "lastName } } }" % hub,
+            "reply_chain": "{ q(func: eq(comment.id, %d)) "
+                           "@recurse(depth: %d) { comment.id post.id "
+                           "replyOf } }" % (longest, len(want_chain) + 1),
+        }
+
+        def check(name, data):
+            if name == "fof3":
+                ids = set()
+
+                def walk(rows):
+                    for r in rows:
+                        ids.add(r["person.id"])
+                        walk(r.get("knows", []))
+                walk(data["q"])
+                if ids != reach:
+                    fail(name, f"{len(ids)} persons != the BFS's "
+                               f"{len(reach)}")
+            elif name == "is3":
+                row = data["q"][0]
+                got = sorted(r["person.id"] for r in
+                             row.get("knows", []) + row.get("~knows", []))
+                if got != friend_of:
+                    fail(name, "the friends differ from the CSV")
+                for r in row.get("knows", []) + row.get("~knows", []):
+                    p = persons[r["person.id"]]
+                    if (r["firstName"], r["lastName"]) != (p[1], p[2]):
+                        fail(name, f"names of {r['person.id']}")
+            else:
+                ids, node = [], data["q"][0]
+                while True:
+                    ids.append(node.get("comment.id", node.get("post.id")))
+                    nxt = node.get("replyOf", [])
+                    if not nxt:
+                        break
+                    node = nxt[0]
+                if ids != want_chain + [want_post]:
+                    fail(name, f"chain {ids} != {want_chain + [want_post]}")
+
+        # ---- serve -p over the bulk output ----------------------------------
+        server = CliServer("-p", str(post))
+        served, timings = {}, {}
+        try:
+            banners = {}
+            while len(banners) < 2:
+                t_line, ln = server.lines.get(timeout=300)
+                if ln is None:
+                    fail("serve", f"exited: {''.join(server.log)[-2000:]}")
+                for role in ("gRPC", "HTTP"):
+                    if ln.startswith(f"serving {role} on "):
+                        banners[role] = ln
+            secs["serve_open"] = t_line - server.t0
+            port = int(banners["HTTP"].split()[3].rsplit(":", 1)[1])
+            if f"device={dev}" not in banners["HTTP"].split():
+                fail("serve", f"not on {dev}: {banners['HTTP']}")
+            before = kernel_launches(port)
+            for name, text in requests.items():
+                t0 = time.perf_counter()
+                st, body = http_call(port, "POST", "/query", text)
+                timings[name] = (time.perf_counter() - t0) * 1e3
+                if st != 200:
+                    fail(name, f"status {st}: {body[:300]!r}")
+                served[name] = json.loads(body)["data"]
+                check(name, served[name])
+                if name == "fof3":
+                    fof_launches = {k: v - before[k] for k, v in
+                                    kernel_launches(port).items()}
+            secs["first_query"] = timings["fof3"] / 1e3
+            if not any(fof_launches.values()):
+                fail("fof3", f"K1/K2 never launched: {fof_launches}")
+            st, _ = http_call(port, "POST", "/admin/shutdown")
+            if st != 200 or server.proc.wait(timeout=120) != 0:
+                fail("serve", "the server did not stop cleanly")
+        finally:
+            server.stop()
+
+        # ---- the host-mirror route over the same directory ------------------
+        node = Node(dirpath=str(post), device=dev)
+        try:
+            for name, text in requests.items():
+                host = on_host(lambda: node.query(text)[0])
+                if host != served[name]:
+                    fail(name, "the served data differs from the host-mirror "
+                               "route's")
+        finally:
+            node.close()
+
+        # ---- export -p equals the input N-Quads under the xid map -----------
+        t0 = time.perf_counter()
+        exported = tmp / "export.rdf.gz"
+        export_proc = cli_start("export", "-p", str(post), "-o",
+                                str(exported))
+        schema = {e.predicate: e.type_id
+                  for e in parse_schema(schema_path.read_text())}
+        xm = XidMap(UidLease(), dirpath=str(post / "xidmap"))
+        n_xids = len(xm)
+
+        def facts(path, mapped):
+            """The multiset of (subject uid, predicate, object uid or
+            (type id, value) converted to the schema's type), parsed by the
+            bulk loader's map stage (its spawned parse workers)."""
+            out_ = []
+            for s_, p_, oid, val, _lang, _fac, _star in bulk.iter_quads(
+                    [str(path)], LDBC_PARSE_WORKERS):
+                s_ = xm.uid(s_) if mapped else int(s_, 16)
+                if oid:
+                    o = xm.uid(oid) if mapped else int(oid, 16)
+                else:
+                    v = convert(val, schema[p_])
+                    o = (int(v.tid), v.value)
+                out_.append((s_, p_, o))
+            return Counter(out_)
+
+        want_facts = facts(quads, True)
+        cli_wait(export_proc)
+        got_facts = facts(exported, False)
+        if len(xm) != n_xids:
+            fail("export", "an input xid is missing from the bulk xid map")
+        if got_facts != want_facts:
+            fail("export", "the export differs from the input N-Quads")
+        secs["export"] = time.perf_counter() - t0
+
+        # ---- live of a prefix against bulk of the same prefix ---------------
+        t0 = time.perf_counter()
+        lines = gzip.decompress(quads.read_bytes()).decode().splitlines()
+        prefix = tmp / "prefix.rdf"
+        prefix.write_text("\n".join(lines[:LIVE_PREFIX]) + "\n")
+        # live and bulk of the prefix side by side, then both exports
+        for p in [cli_start("live", "-f", str(prefix), "-s",
+                            str(schema_path), "-p", str(tmp / "live")),
+                  cli_start("bulk", "-f", str(prefix), "-s",
+                            str(schema_path), "-o", str(tmp / "bulk_prefix"))]:
+            cli_wait(p)
+        for p in [cli_start("export", "-p", str(tmp / src), "-o",
+                            str(tmp / f"{src}.gz"))
+                  for src in ("live", "bulk_prefix")]:
+            cli_wait(p)
+        dumps = [sorted(gzip.decompress((tmp / f"{src}.gz").read_bytes())
+                        .splitlines()) for src in ("live", "bulk_prefix")]
+        if dumps[0] != dumps[1] or len(dumps[0]) < LIVE_PREFIX // 2:
+            fail("live", "live's export differs from bulk's of the prefix")
+        secs["live_vs_bulk"] = time.perf_counter() - t0
+
+        # ---- packed decode of the knows tablet on the card ------------------
+        t0 = time.perf_counter()
+        store = Store(str(post))
+        try:
+            kbs = store.keys_of(K.KeyKind.DATA, "knows")
+            pls = [pl.base_packed for pl in store.tablet_lists(
+                int(K.KeyKind.DATA), "knows", kbs)
+                if pl.base_packed is not None]
+        finally:
+            store.close()
+        # the tablet's lists as one block stream (each block decodes from
+        # its own first uid and word offset): one upload, one decode
+        offs = np.concatenate([[0], np.cumsum([len(pu.words) for pu in pls])])
+        tablet = packed.PackedUidList(
+            count=sum(pu.count for pu in pls),
+            block_first=np.concatenate([pu.block_first for pu in pls]),
+            block_last=np.concatenate([pu.block_last for pu in pls]),
+            block_count=np.concatenate([pu.block_count for pu in pls]),
+            block_width=np.concatenate([pu.block_width for pu in pls]),
+            block_off=np.concatenate([pu.block_off + o
+                                      for pu, o in zip(pls, offs)]),
+            words=np.concatenate([pu.words for pu in pls]))
+        got = pdec.unpack_device(pdec.to_device(tablet, device=dev))
+        got = got.cpu().numpy()
+        want = np.concatenate([packed.unpack(pu) for pu in pls])
+        if not np.array_equal(got[got != 2**31 - 1].astype(np.int64),
+                              want.astype(np.int64)):
+            fail("packed", "unpack_device differs from packed.unpack")
+        decoded = len(want)
+        if decoded != int(len(knows)):
+            fail("packed", f"{decoded} uids decoded, {len(knows)} knows rows")
+        secs["packed_decode"] = time.perf_counter() - t0
+
+    say("loader_phase", sf=sf, persons=len(persons), knows=int(len(knows)),
+        hub=hub, reach3=len(reach), nquads=len(lines),
+        bulk=dict(nodes=done.get("nodes"), uid_edges=done.get("uid_edges"),
+                  values=done.get("values")),
+        launches=fof_launches, request_ms=timings, lists=len(pls),
+        step_seconds=secs, seconds=time.perf_counter() - t_phase)
+    return fof_launches
+
+
+def profile_query(run) -> dict:
+    """One run under torch.profiler: wall ms, summed device-activity ms (the
+    device's busy time; idle share = 1 - busy / wall) and the top kernels.
+    Only the device's own rows (kernels, copies, memsets) are summed: an
+    operator row (aten::mm, aten::topk) carries the time of the kernels it
+    launched as its self device time, so summing it too counts them
+    twice."""
+    import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -2729,6 +3637,8 @@ def profile_query(run) -> dict:
     for e in prof.key_averages():
         if "DtoH" in e.key:
             dtoh += e.count         # device-to-host copies: the host syncs
+        if e.device_type != DeviceType.CUDA:
+            continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = getattr(e, "self_cuda_time_total", 0)

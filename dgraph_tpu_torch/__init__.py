@@ -13,12 +13,14 @@ device="cpu", and then each kernel wrapper uses its plain PyTorch version.
 
 from __future__ import annotations
 
-import torch
 
-
-def resolve_device(device: str | torch.device = "cuda") -> torch.device:
+def resolve_device(device="cuda"):
     """The torch.device an entry point runs on; raises rather than falling
-    back to the CPU when CUDA is asked for and missing."""
+    back to the CPU when CUDA is asked for and missing. torch is imported
+    here, not with the package, so that host-only processes (the bulk
+    loader's spawned parse workers) never load it."""
+    import torch
+
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

@@ -1,6 +1,7 @@
 """CLI of the PyTorch port: `python -m dgraph_tpu_torch <subcommand>`.
 
-Port of dgraph_tpu/__main__.py's `serve`, `version` and `export`. `serve`
+Port of dgraph_tpu/__main__.py's `serve`, `version`, `export`, `bulk`,
+`live`, `ldbc_gen` and `convert`. `serve`
 starts the port's Node behind the HTTP API (api/http.py) and the gRPC
 api.Dgraph service (api/grpc_server.py), on the card by default: `--device`
 is "cuda" unless given, and raises without CUDA (`--device cpu` runs the
@@ -11,10 +12,15 @@ As the JAX server, it serves with batching, the planner and the device
 observatory on (`--no_batch`, `--no_planner` and `--no_devprof` turn each
 off), an HBM working-set manager under `--device_budget_mb` (0 =
 accounting only) with `--residency_pin` floors, and the `--memory_mb`
-enforcement loop. Flags that ask for a later slice reach the Node and
-raise naming it: `--mesh`, `--mesh_devices` and the `--vector_*` flags.
-The `bulk`, `live`, `worker`, `zero`, `ldbc_gen` and `convert`
-subcommands wait for the loaders and mesh slices.
+enforcement loop, and the `--vector_*` IVF knobs. `--mesh` and
+`--mesh_devices` reach the Node and raise naming the mesh slice; the
+`worker` and `zero` subcommands wait for it.
+
+The loader chain users run: `ldbc_gen` writes an LDBC-SNB-shaped CSV dump,
+`convert --ldbc` maps it to N-Quads plus a schema, `bulk` writes a posting
+directory that `serve -p` answers from. `bulk`, `ldbc_gen` and `convert`
+are host work; `live` loads through a Node on `--device` (cuda unless
+given, like `serve`).
 """
 
 from __future__ import annotations
@@ -130,6 +136,94 @@ def cmd_export(args) -> int:
         store.close()
     log.get_logger("export").info("export done", quads=stats.quads,
                                   predicates=stats.predicates, out=args.out)
+    return 0
+
+
+def cmd_bulk(args) -> int:
+    from dgraph_tpu_torch.loader.bulk import bulk_load
+
+    lg = log.get_logger("bulk")
+    schema = ""
+    if args.schema:
+        with open(args.schema) as f:
+            schema = f.read()
+    stats = bulk_load(args.files, schema, args.out, workers=args.workers,
+                      spill_mb=args.spill_mb or None,
+                      xidmap_cache=_xidmap_entries(args.xidmap_cache_mb),
+                      progress=lambda n: lg.info("parsing", quads=n))
+    fields = dict(postings=stats.edges, uid_edges=stats.uid_edges,
+                  values=stats.values, nodes=stats.nodes,
+                  predicates=stats.predicates,
+                  seconds=round(stats.seconds, 1), out=args.out)
+    if args.spill_mb:
+        fields.update(spill_runs=stats.spill_runs,
+                      spill_mb=round(stats.spill_bytes / (1 << 20), 1),
+                      merge_fanin=stats.merge_fanin,
+                      xidmap_hit_rate=round(stats.xidmap_hit_rate, 4))
+    lg.info("bulk load done", **fields)
+    return 0
+
+
+def _xidmap_entries(cache_mb) -> int | None:
+    """--xidmap_cache_mb → resident-entry bound (~96B per mapping: short
+    key string + dict slot + uid)."""
+    if not cache_mb:
+        return None
+    return max(1, int(cache_mb * (1 << 20)) // 96)
+
+
+def cmd_live(args) -> int:
+    from dgraph_tpu_torch.api.server import Node
+    from dgraph_tpu_torch.loader.live import live_load
+
+    lg = log.get_logger("live")
+    node = Node(dirpath=args.postings, device=args.device)
+    if args.schema:
+        with open(args.schema) as f:
+            node.alter(schema_text=f.read())
+    try:
+        stats = live_load(node, args.files, batch=args.batch,
+                          xidmap_path=args.xidmap,
+                          xidmap_cache=_xidmap_entries(args.xidmap_cache_mb),
+                          progress=lambda n: lg.info("loading", quads=n))
+    finally:
+        node.close()
+    lg.info("live load done", quads=stats.quads, txns=stats.txns,
+            retried_aborts=stats.aborts, postings=args.postings)
+    return 0
+
+
+def cmd_ldbc_gen(args) -> int:
+    """Deterministic LDBC-SNB-shaped synthetic CSV dump:
+    `ldbc_gen --sf 1 --out dump/` then `convert --ldbc dump/` then
+    `bulk -f` is the scale battery's zero-dependency ingest path."""
+    from dgraph_tpu_torch.models.ldbc import generate_ldbc
+
+    lg = log.get_logger("ldbc_gen")
+    st = generate_ldbc(args.out, sf=args.sf, seed=args.seed)
+    lg.info("ldbc_gen done", sf=st.sf, persons=st.persons, knows=st.knows,
+            posts=st.posts, comments=st.comments, edges=st.edges,
+            out=args.out)
+    return 0
+
+
+def cmd_convert(args) -> int:
+    lg = log.get_logger("convert")
+    if args.ldbc:
+        from dgraph_tpu_torch.loader.convert import convert_ldbc
+
+        stats = convert_ldbc(args.ldbc, args.out)
+        lg.info("ldbc convert done", persons=stats.persons,
+                knows=stats.knows, posts=stats.posts,
+                triples=stats.triples, out=args.out)
+        return 0
+    if not args.geo:
+        raise SystemExit("convert needs --geo <file> or --ldbc <dir>")
+    from dgraph_tpu_torch.loader.convert import convert_geojson
+
+    stats = convert_geojson(args.geo, args.out, geopred=args.geopred)
+    lg.info("convert done", features=stats.features,
+            triples=stats.triples, out=args.out)
     return 0
 
 
@@ -264,15 +358,13 @@ def build_parser() -> argparse.ArgumentParser:
                          "the classic path (0 = default 65536)")
     sp.add_argument("--vector_nprobe", type=int, default=0,
                     help="IVF coarse lists scanned per similar_to probe "
-                         "(vector slice: any value fails until then)")
+                         "(0 = default 8; higher = recall, lower = speed)")
     sp.add_argument("--vector_centroids", type=int, default=-1,
                     help="IVF centroid count built at snapshot fold "
-                         "(-1 = auto; vector slice: any other value fails "
-                         "until then)")
+                         "(-1 = auto ~sqrt(rows), clamped to [8, 1024])")
     sp.add_argument("--vector_ivf_min_rows", type=int, default=0,
                     help="embedding tablets below this row count stay "
-                         "brute-force exact (vector slice: any value fails "
-                         "until then)")
+                         "brute-force exact (0 = default 4096)")
     sp.add_argument("--device_budget_mb", type=int, default=0,
                     help="device (HBM) byte budget for the working-set "
                          "manager; tablets admit/evict by load score and "
@@ -315,13 +407,69 @@ def build_parser() -> argparse.ArgumentParser:
     vp = sub.add_parser("version", help="print version")
     vp.set_defaults(fn=cmd_version)
 
+    bp = sub.add_parser("bulk", help="offline bulk load RDF(.gz) -> snapshot")
+    bp.add_argument("-f", "--files", nargs="+", required=True)
+    bp.add_argument("-s", "--schema", default=None)
+    bp.add_argument("-o", "--out", required=True, help="output posting dir")
+    bp.add_argument("-j", "--workers", type=int, default=None)
+    bp.add_argument("--spill_mb", type=float, default=0,
+                    help="out-of-core map buffer budget in MB: mapped edges "
+                         "spill as sorted runs and the reduce streams a "
+                         "k-way merge — peak RAM stops scaling with graph "
+                         "size, output byte-identical (0 = all in RAM)")
+    bp.add_argument("--xidmap_cache_mb", type=float, default=0,
+                    help="resident bound for the sharded xid→uid map; "
+                         "cold shards page to disk (0 = unbounded)")
+    bp.set_defaults(fn=cmd_bulk)
+
     ep = sub.add_parser("export", help="export a posting dir to RDF(.gz)")
     ep.add_argument("-p", "--postings", required=True)
     ep.add_argument("-o", "--out", required=True)
     ep.add_argument("--out-schema", default=None)
     ep.set_defaults(fn=cmd_export)
 
-    for sp_ in (sp, ep):
+    lp = sub.add_parser("live", help="online load RDF through transactions")
+    lp.add_argument("-f", "--files", nargs="+", required=True)
+    lp.add_argument("-s", "--schema", default=None)
+    lp.add_argument("-p", "--postings", required=True,
+                    help="durable posting dir (an in-memory load would be "
+                         "discarded at exit)")
+    lp.add_argument("--batch", type=int, default=1000)
+    lp.add_argument("--xidmap", default=None,
+                    help="crash-resumable identity log: re-running an "
+                         "interrupted load reuses already-assigned uids")
+    lp.add_argument("--xidmap_cache_mb", type=float, default=0,
+                    help="resident bound for the sharded xid→uid map "
+                         "(needs --xidmap; cold shards page to "
+                         "<xidmap>.shards/; 0 = unbounded)")
+    lp.add_argument("--device", default="cuda",
+                    help="torch device the loading Node's snapshots live "
+                         "on (default cuda, which fails without CUDA)")
+    lp.set_defaults(fn=cmd_live)
+
+    gp = sub.add_parser("ldbc_gen",
+                        help="deterministic LDBC-SNB-shaped synthetic "
+                             "CSV dump (feed to `convert --ldbc`)")
+    gp.add_argument("--sf", type=float, default=0.1,
+                    help="scale factor (persons ~ 10000*sf^0.85)")
+    gp.add_argument("--out", required=True, help="output CSV dump dir")
+    gp.add_argument("--seed", type=int, default=20260804,
+                    help="generator seed (same sf+seed => same bytes)")
+    gp.set_defaults(fn=cmd_ldbc_gen)
+
+    cp = sub.add_parser("convert",
+                        help="GeoJSON or LDBC-SNB CSV -> RDF (.rdf.gz)")
+    cp.add_argument("--geo", default=None,
+                    help="GeoJSON file (optionally .gz)")
+    cp.add_argument("--ldbc", default=None,
+                    help="LDBC-SNB interactive CSV dump dir (persons/"
+                         "knows/posts subset mapped to N-Quads)")
+    cp.add_argument("--out", default="output.rdf.gz")
+    cp.add_argument("--geopred", default="loc",
+                    help="predicate for geometries")
+    cp.set_defaults(fn=cmd_convert)
+
+    for sp_ in (sp, bp, ep, lp, cp):
         sp_.add_argument("--log_json", action="store_true",
                          help="structured single-line JSON logs instead of "
                               "text (log shippers ingest these directly)")

@@ -34,13 +34,16 @@ Node: the same routes, envelopes and status mapping. Where the port's Node
 waits for a later slice (POST /analytics), its NotImplementedError names
 the slice and reaches the client as the usual 400 envelope. /debug/metrics
 keeps every section of the JAX server; `tablet_load` reads {} until the
-mesh slice brings the per-tablet load book.
+mesh slice brings the per-tablet load book. /metrics adds one port-only
+series, `dgraph_kernel_launches{kernel=...}`: the K1/K2 launches this
+process has made.
 """
 
 from __future__ import annotations
 
 import json
 import re
+import sys
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -517,6 +520,16 @@ class _Handler(BaseHTTPRequestHandler):
             # exemplar scraping is on; so do Grafana agents)
             from dgraph_tpu_torch.obs import prom
 
+            # the hand kernels' launches in this process (ops/prefix.py's
+            # LAUNCHES), copied at scrape time into a port-only labeled
+            # series, so a client of the server can see that a request ran
+            # K1/K2 (nothing is copied before the kernels' module loads)
+            px = sys.modules.get("dgraph_tpu_torch.ops.prefix")
+            if px is not None:
+                g = self.node.metrics.keyed("dgraph_kernel_launches",
+                                            labels=("kernel",))
+                for name, n in px.LAUNCHES.items():
+                    g.set(name, n)
             body, ctype = prom.negotiated(
                 self.headers.get("Accept"),
                 lambda ex: prom.render(self.node.metrics, exemplars=ex))

@@ -29,12 +29,11 @@ answers are the same with any of them off: the planner and the batcher
 change order and dispatch, never output, and a cold-tier tablet serves
 through the host-mirror path.
 
-The seams that wait for later slices raise NotImplementedError naming
-their slice:
-
-  * vector: `vector_nprobe`, `vector_centroids >= 0`, `vector_ivf_min_rows`;
-  * mesh: `mesh_devices != 0`, `analytics` (the per-tablet load book of
-    coord/placement.py waits there too, so `tablet_load` reads {}).
+The vector-index knobs (`vector_nprobe`, `vector_centroids`,
+`vector_ivf_min_rows`) ride this Node's Store into the fold. The seams that
+wait for the mesh slice raise NotImplementedError naming it:
+`mesh_devices != 0` and `analytics` (the per-tablet load book of
+coord/placement.py waits there too, so `tablet_load` reads {}).
 """
 
 from __future__ import annotations
@@ -139,12 +138,8 @@ class Node:
                  qos: bool = True,
                  tenants=None,
                  device: str = "cuda") -> None:
-        off = (("mesh_devices", bool(mesh_devices), "mesh"),
-               ("vector_* knobs", bool(vector_nprobe or vector_centroids >= 0
-                                       or vector_ivf_min_rows), "vector"))
-        for what, on, slice_name in off:
-            if on:
-                raise _unported(f"Node({what})", slice_name)
+        if mesh_devices:
+            raise _unported("Node(mesh_devices)", "mesh")
         self.device = resolve_device(device)
         # the mesh seam, as the JAX Node holds it when off
         self.mesh_exec = None
@@ -154,6 +149,17 @@ class Node:
                            memory_budget=(memory_mb * (1 << 20))
                            if memory_mb else None,
                            max_delta_keys=delta_journal_max_keys)
+        # vector-index IVF knobs (--vector_nprobe / --vector_centroids /
+        # --vector_ivf_min_rows): per-node — they ride this node's Store
+        # into the fold (storage/vecindex.py), so embedding a second Node
+        # in the same process never inherits them
+        if vector_nprobe or vector_centroids >= 0 or vector_ivf_min_rows:
+            from dgraph_tpu_torch.storage.vecindex import VectorKnobs
+
+            self.store.vector_knobs = VectorKnobs(
+                nprobe=vector_nprobe,
+                centroids=vector_centroids,
+                ivf_min_rows=vector_ivf_min_rows)
         self.zero = Zero(n_groups)
         self.metrics = metrics.Registry()
         # checkpoint/ingest gauges (peak transient bytes etc.) land in this
@@ -353,7 +359,7 @@ class Node:
             built = getattr(sys.modules.get("dgraph_tpu_torch.ops.prefix"),
                             "programs_built", lambda: 0)()
             out = {}
-            for name in ("segments", "pull_bfs", "traversal"):
+            for name in ("segments", "vector", "pull_bfs", "traversal"):
                 m = sys.modules.get(f"dgraph_tpu_torch.ops.{name}")
                 for fam in getattr(m, "JIT_PROGRAMS", {}):
                     out[fam] = built if fam in _KERNEL_FAMILIES else 0
@@ -1367,8 +1373,9 @@ class Node:
             overlay_bytes = self._assembler.overlay_bytes()
         # device-byte accounting routes through the ResidencyManager:
         # fold_bytes is the HOST footprint of every live folded PredData —
-        # CSR columns, value tables and token indexes. The manager also
-        # re-enforces its own device budget here.
+        # CSR columns, value tables, token indexes and vector embedding
+        # matrices. The manager also re-enforces its own device budget
+        # here.
         fold_bytes = self.residency.host_bytes()
         res_evicted = 0
         if self.residency.enabled:

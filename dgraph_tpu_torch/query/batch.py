@@ -1,15 +1,14 @@
 """Batched multi-query device execution: amortize the fixed dispatch+sync.
 
-Port of dgraph_tpu/query/batch.py. Two families batch in the port: expand
-(concatenated frontiers through one ops/csr.expand) and recurse (stacked
+Port of dgraph_tpu/query/batch.py. Three families batch, as in JAX: expand
+(concatenated frontiers through one ops/csr.expand), vector (stacked query
+matrices through one ops/vector.topk_candidates_batch) and recurse (stacked
 seed masks through ops/pull_bfs.recurse_fused_multi, which runs K1/K2
-level-major for the whole batch). The vector family waits for the vector
-slice: a similar_to task classifies as "vector_solo" and runs on the solo
-path, where it raises naming that slice. The JAX batch pads the stacked
-seed masks and the concatenated frontier to power-of-two sizes so that
-batch compositions share compiled XLA programs; nothing compiles per shape
-here, and a padded slot would be a wasted K1/K2 launch, so the port packs
-exactly the members.
+level-major for the whole batch). The JAX batch pads the stacked seed
+masks, the concatenated frontier and the stacked query matrix to
+power-of-two sizes so that batch compositions share compiled XLA programs;
+nothing compiles per shape here, and a padded slot would be wasted device
+work, so the port packs exactly the members.
 
 PERF.md is unambiguous that once single-query kernels are fast, the fixed
 per-dispatch relay sync dominates every number — and under load the qcache
@@ -27,19 +26,22 @@ scaling with concurrency. This module is the classic serving-stack answer
     leader waits a few ms for companions (fire-immediately when the
     device is idle), launches ONE batched kernel through the gate, and
     de-multiplexes per-caller TaskResults that are byte-identical to solo
-    execution (the host tail is the SAME function the solo path runs:
-    task.finish_uid_expand).
-  * Two kernel families batch:
+    execution (the host tails are the SAME functions the solo path runs:
+    task.finish_uid_expand / task.set_similar_result).
+  * Three kernel families batch:
       expand  — concatenated frontiers through one ops/csr.expand (the
                 segment ids split the flat target stream back per source
                 slot);
+      vector  — stacked [B, D] query matrices through one top-k product
+                (ops/vector.topk_candidates_batch);
       recurse — stacked seed masks through the multi-source fused recurse
                 (ops/pull_bfs.recurse_fused_multi).
   * Composition with the cache tiers: singleflight (qcache) dedupes
     IDENTICAL in-flight tasks — only the flight leader reaches the
     batcher; the batcher packs DISTINCT compatible ones. Tasks that miss
     classification (host-cutover expands, overlay tablets, cold-tier
-    tablets, value predicates, similar_to) run solo on the existing path.
+    tablets, value predicates, IVF/overlay vector views) run solo on the
+    existing path.
   * Deadlines: a task whose remaining budget cannot cover the window plus
     the expected batched step (the gate's per-class EWMA) bypasses the
     window and dispatches solo — where the existing lifeline machinery
@@ -98,6 +100,13 @@ class _RecurseWork:
         self.g, self.seeds_mask = g, seeds_mask
 
 
+class _VectorWork:
+    __slots__ = ("vi", "vec", "k", "metrics")
+
+    def __init__(self, vi, vec, k, metrics):
+        self.vi, self.vec, self.k, self.metrics = vi, vec, k, metrics
+
+
 def classify(snap, schema, q):
     """Classify one TaskQuery for batching.
 
@@ -111,9 +120,7 @@ def classify(snap, schema, q):
     if q.frontier is None:
         if fname != "similar_to":
             return None, "root_func", None
-        # the vector family waits for the vector slice: the solo path
-        # raises naming it
-        return None, "vector_solo", None
+        key, kind, work = _classify_vector(snap, schema, q)
     else:
         key, kind, work = _classify_expand(snap, schema, q)
     if key is not None:
@@ -170,6 +177,40 @@ def _classify_expand(snap, schema, q):
     # while the batch is open
     return ("expand", id(csr)), "expand", \
         _ExpandWork(pd, csr, cq, frontier, rows, deg, need)
+
+
+def _classify_vector(snap, schema, q):
+    from dgraph_tpu_torch.ops import vector as vops
+    from dgraph_tpu_torch.query import task as taskmod
+    from dgraph_tpu_torch.storage import vecindex as vecmod
+
+    attr = q.attr[1:] if q.attr.startswith("~") else q.attr
+    pd = snap.pred(attr)
+    spec = schema.vector_spec(attr)
+    if pd is None or spec is None:
+        return None, "vector_solo", None
+    try:
+        vec, k = taskmod.parse_similar_args(pd, list(q.func[1]))
+    except Exception:
+        return None, "vector_solo", None      # solo raises the typed error
+    if len(vec) != spec.dim:
+        return None, "vector_solo", None
+    vi = pd.vecindex
+    if vi is None:
+        return None, "vector_solo", None      # empty index: solo shortcut
+    if vi.is_overlay or getattr(vi, "ivf", None) is not None:
+        return None, "vector_variant", None
+    if vi.n * vi.dim <= vecmod.HOST_SCAN_MAX:
+        return None, "host_path", None
+    if vi.prefer_host():
+        # cold vector tablet: vecindex.search serves the exact host scan
+        return None, "vector_cold", None
+    kprime = vops.k_capacity(k, vops.row_capacity(vi.n))
+    # kprime is the candidate capacity every member of one batch shares
+    # (different final k values still share a batch when their candidate
+    # capacity class matches)
+    return ("vector", id(vi), kprime), "vector", \
+        _VectorWork(vi, vec, k, getattr(snap, "metrics", None))
 
 
 # ---------------------------------------------------------------------------
@@ -437,6 +478,7 @@ class DeviceBatcher:
         "root_func": "host", "no_pred": "host", "value_pred": "host",
         "empty_csr": "host", "empty_frontier": "host", "host_path": "host",
         "vector_solo": "host", "cold_tier": "host",
+        "vector_cold": "host",
     }
 
     def dispatch(self, snap, schema, q, solo: Callable):
@@ -449,7 +491,8 @@ class DeviceBatcher:
             return solo(q, klass=self._SOLO_KLASS.get(kind))
         if self._deadline_bypasses(kind):
             return solo(q, klass=kind)
-        return self._submit(key, kind, work, self._run_expand,
+        runner = self._run_expand if kind == "expand" else self._run_vector
+        return self._submit(key, kind, work, runner,
                             solo=lambda: solo(q, klass=kind))
 
     def dispatch_recurse(self, g, seeds_mask, depth: int, allow_loop: bool,
@@ -542,6 +585,81 @@ class DeviceBatcher:
             except BaseException as err:
                 # a poisoned task fails typed; the rest of the batch is
                 # unaffected (its expansion was independent by slot)
+                e.error = err
+
+    def _run_vector(self, entries: list[_Entry]) -> None:
+        """Stacked [B, D] query matrix through one top-k product; the
+        per-query float32 candidate supersets feed the SAME host float64
+        (distance, uid) re-rank as the solo path (storage/vecindex), so
+        each member's final k is byte-identical to solo execution. The
+        matrix holds exactly the B members (no power-of-two padding)."""
+        import torch
+
+        from dgraph_tpu_torch.ops import vector as vops
+        from dgraph_tpu_torch.query import task as taskmod
+        from dgraph_tpu_torch.storage import vecindex as vx
+
+        vi = entries[0].work.vi
+        kprime = max(vops.k_capacity(e.work.k,
+                                     vops.row_capacity(vi.n))
+                     for e in entries)
+        nbatch = len(entries)
+        Q = np.stack([e.work.vec for e in entries]).astype(np.float32)
+        mat, norms, _subs = vi.device()
+        dr = torch.zeros(0, dtype=torch.int32)      # no dead rows (plain vi)
+
+        def kernel():
+            nd, rows = vops.topk_candidates_batch(
+                mat, norms, torch.from_numpy(Q).to(mat.device), vi.n,
+                dr, k=kprime, metric=vi.metric)
+            return nd.cpu().numpy(), rows.cpu().numpy()
+
+        from dgraph_tpu_torch.utils.faults import FaultError
+
+        try:
+            with otrace.span("device_kernel", kernel="batch.vector_topk",
+                             rows=int(vi.n), k=kprime, batch=nbatch) as sp:
+                (nd_h, rows_h), dt_ms = self._timed_gate_run(kernel,
+                                                             "vector")
+                self._charge(entries, "batch.vector_topk", dt_ms,
+                             h2d=int(Q.nbytes),
+                             d2h=int(nd_h.nbytes + rows_h.nbytes))
+                if sp:
+                    sp.set(transfer_h2d_bytes=int(Q.nbytes),
+                           transfer_d2h_bytes=int(
+                               nd_h.nbytes + rows_h.nbytes))
+        except FaultError:
+            # injected residency.h2d_upload fault: each member answers
+            # through vecindex.search, whose own fallback serves the
+            # byte-identical host float64 scan
+            for e in entries:
+                w = e.work
+                try:
+                    uids, dists = vx.search(vi, w.vec, w.k,
+                                            metrics=w.metrics)
+                    res = taskmod.TaskResult()
+                    taskmod.set_similar_result(res, uids, dists)
+                    e.result = res
+                except BaseException as err:
+                    e.error = err
+            return
+        for i, e in enumerate(entries):
+            w = e.work
+            try:
+                if w.metrics is not None:
+                    w.metrics.counter("dgraph_vector_searches_total").inc()
+                rows = rows_h[i][nd_h[i] > -np.inf]
+                res = taskmod.TaskResult()
+                if len(rows):
+                    subs, d = vx._rescore(vi, rows,
+                                          w.vec.astype(np.float64))
+                    uids, dists = vx._rank(d, subs, w.k)
+                else:
+                    uids = np.zeros(0, np.int64)
+                    dists = np.zeros(0, np.float64)
+                taskmod.set_similar_result(res, uids, dists)
+                e.result = res
+            except BaseException as err:
                 e.error = err
 
     def _run_recurse(self, entries: list[_Entry], depth: int,

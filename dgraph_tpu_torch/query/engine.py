@@ -14,15 +14,16 @@ chains, checkpwd, @facets reads, facet filters and facet variables), value,
 count and uid(...) filters under and/or/not, val()/math()/min/max/sum/avg,
 orderasc/orderdesc (index-ordered for a bounded single key), pagination,
 @cascade, @recurse, shortest paths (query/shortest.py) and @groupby
-(query/groupby.py). The serving seams of the JAX Executor are here: the
+(query/groupby.py), and similar_to over the vector index with its
+`vector_distance` variable and the fused ANN -> expand pipeline
+(ops/vector.ann_expand). The serving seams of the JAX Executor are here: the
 task dispatcher, the task-result cache, the dispatch gate (`gated`), the
 device batcher (`batcher`, query/batch.py, and `batched_recurse`), the
 planner's physical plan (`plan`, query/planner.py) and its EXPLAIN
 recorder (`explain`), the per-request edge limit, the per-task deadline
 check, otrace spans and cost-ledger attribution (`_traced_dispatch`), and
 the per-task hook (`on_task`). The mesh waits for its slice: passing one
-raises NotImplementedError naming it. similar_to (in query/task.py) names
-the vector slice.
+raises NotImplementedError naming it.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ from dataclasses import dataclass, field
 from typing import Any
 
 import numpy as np
+import torch
 
 from dgraph_tpu_torch.obs import costs, otrace
 from dgraph_tpu_torch.ops import uidset as us
@@ -287,6 +289,8 @@ class Executor:
 
             shortest_path(self, sg)
             return
+        if self._try_vector_fused(sg):
+            return
         sg.src_uids = self._root_uids(gq)
         if gq.recurse is not None:
             from dgraph_tpu_torch.query.recurse import recurse
@@ -356,7 +360,17 @@ class Executor:
                    if _match_any_rhs(fn.name, val, args)]
             return np.asarray(out, dtype=np.int64)
         q = TaskQuery(fn.attr, func=(fn.name, args), lang=fn.lang)
-        return self._dispatch(q).dest_uids
+        res = self._dispatch(q)
+        if fn.name.lower() == "similar_to" and res.value_matrix:
+            # val() score exposure: the top-k distances bind the reserved
+            # `vector_distance` value var — read it with
+            # val(vector_distance) / orderasc: val(vector_distance)
+            self.vars["vector_distance"] = VarValue(
+                vals={int(u): row[0]
+                      for u, row in zip(res.dest_uids, res.value_matrix)
+                      if row},
+                is_uid=False)
+        return res.dest_uids
 
     # ---------------------------------------------------------------- levels
 
@@ -655,6 +669,204 @@ class Executor:
         root = self._run_root_func(fn)
         return us.intersect_host(frontier, root)
 
+    # ----------------------------------------------------- fused ANN pipeline
+
+    def _vector_fusable(self, gq: dql.GraphQuery):
+        """Shape check for the fused ANN->expand pipeline: a bare
+        similar_to root feeding exactly one plain uid expansion, over a
+        device-resident plain vector index and plain PredCSR. Anything
+        needing host logic between the two stages (filters, pagination,
+        order, overlays, IVF) falls back to the classic
+        stepped path — results are identical either way (the shared
+        float64 ranking rule, storage/vecindex.py)."""
+        from dgraph_tpu_torch.storage.csr_build import PredCSR
+
+        fn = gq.func
+        if (fn is None or fn.name.lower() != "similar_to" or gq.uids
+                or gq.root_uid_vars or gq.filter is not None or gq.order
+                or gq.recurse is not None or gq.groupby is not None
+                or gq.cascade or not gq.children):
+            return None
+        if any(gq.args.get(a) for a in ("first", "offset", "after")):
+            return None
+        pd = self.snap.pred(fn.attr)
+        vi = pd.vecindex if pd is not None else None
+        if vi is None or vi.is_overlay \
+                or self.schema.vector_spec(fn.attr) is None:
+            return None
+        # an IVF-equipped tablet answers through the approximate coarse
+        # quantizer on the classic path; the fused program is brute-force
+        # only, so fusing it would make the SAME root return different
+        # candidates depending on incidental query shape — fuse only when
+        # the classic path would brute-force too
+        if vi.ivf is not None:
+            return None
+        # the same size-adaptive host/device cutover as the classic path:
+        # a tiny tablet answers faster by float64 host scan + host expand
+        # than by a device dispatch
+        from dgraph_tpu_torch.storage import vecindex as vecmod
+
+        if vi.n * vi.dim <= vecmod.HOST_SCAN_MAX:
+            return None
+        # plain `uid` selections are virtual (no dispatch); exactly one
+        # real expansion child may ride the fused program
+        expands = [c for c in gq.children
+                   if not (c.is_uid_node and c.filter is None
+                           and not c.var_name and not c.args)]
+        if len(expands) != 1:
+            return None
+        cgq = expands[0]
+        if (cgq.expand or cgq.is_uid_node or cgq.is_count or cgq.checkpwd
+                or cgq.attr in ("val", "math")
+                or cgq.attr.startswith("__agg_") or cgq.attr.startswith("~")
+                or cgq.filter is not None or cgq.facets is not None
+                or cgq.lang or cgq.cascade or cgq.groupby is not None
+                or cgq.order or cgq.var_name):
+            return None
+        if any(cgq.args.get(a) for a in ("first", "offset", "after")):
+            return None
+        cpd = self.snap.pred(cgq.attr)
+        if cpd is None or not isinstance(cpd.csr, PredCSR) or \
+                cpd.csr.num_edges == 0:
+            return None
+        # residency tier consult: a COLD vector matrix or expansion CSR
+        # (device footprint > budget, storage/residency.py) must not ride
+        # the fused device program — the classic stepped path serves it
+        # through the host-cutover machinery, byte-identically
+        if vi.prefer_host() or cpd.csr.prefer_host():
+            return None
+        return vi, cgq, cpd.csr
+
+    def _try_vector_fused(self, sg: SubGraph) -> bool:
+        """Hybrid ANN -> graph hop as ONE device dispatch
+        (ops/vector.ann_expand): top-k candidates, uid->CSR-row mapping,
+        and the frontier expansion never leave the device; the host only
+        re-ranks the candidates in float64 and slices the expansion rows
+        of the selected k. The span tree shows a single device_kernel
+        between the two logical stages."""
+        from dgraph_tpu_torch.ops import vector as vops
+        from dgraph_tpu_torch.query.task import parse_similar_args
+
+        gq = sg.gq
+        shape = self._vector_fusable(gq)
+        if shape is None:
+            return False
+        vi, cgq, csr = shape
+        pd = self.snap.pred(gq.func.attr)
+        try:
+            vec, k = parse_similar_args(pd, list(gq.func.args))
+        except Exception:
+            return False          # bad args: classic path raises typed
+        if len(vec) != vi.dim or vi.n == 0:
+            return False
+        metrics = getattr(self.snap, "metrics", None)
+        kprime = vops.k_capacity(k, vops.row_capacity(vi.n))
+        ecap = 1 << max(int(np.ceil(np.log2(
+            min(csr.num_edges, kprime * max(csr.max_degree(), 1)) + 1))), 4)
+        from dgraph_tpu_torch.utils.faults import FaultError
+
+        try:
+            mat, norms, subs_dev = vi.device()
+            c_subs, c_ptr, c_idx = csr.device_arrays()
+            dr = torch.zeros(0, dtype=torch.int32)
+            qv = torch.from_numpy(vec).to(mat.device)
+            with otrace.span("device_kernel", kernel="vector.ann_expand",
+                             rows=int(vi.n), k=kprime, ecap=ecap) as sp, \
+                    costs.kernel("vector.ann_expand",
+                                 attr=gq.func.attr) as ck:
+                nd, uids, res = self.gated(lambda: vops.ann_expand(
+                    mat, norms, qv, vi.n, dr,
+                    subs_dev, c_subs, c_ptr, c_idx,
+                    k=kprime, metric=vi.metric, ecap=ecap),
+                    klass="vector")
+                nd_h = nd.cpu().numpy()
+                uids_h = uids.cpu().numpy().astype(np.int64)
+                counts_h = res.counts.cpu().numpy()[:kprime]
+                targets_h = res.targets.cpu().numpy()
+                d2h = int(nd_h.nbytes + uids_h.nbytes
+                          + counts_h.nbytes + targets_h.nbytes)
+                ck.set(d2h=d2h)
+                if sp:
+                    sp.set(edges=int(res.total),
+                           transfer_d2h_bytes=d2h)
+        except FaultError:
+            # injected residency.h2d_upload fault before any result state
+            # was written: the classic stepped path (which falls back to
+            # host scans itself) serves the query byte-identically
+            return False
+        ok = nd_h > -np.inf
+        cand_uids = uids_h[ok]
+        if len(cand_uids) == 0:
+            sel_uids = np.zeros(0, np.int64)
+            dists = np.zeros(0, np.float64)
+        else:
+            # float64 re-score + (dist, uid) rank: the ONE selection rule,
+            # shared with the classic/host/IVF paths in vecindex
+            from dgraph_tpu_torch.storage import vecindex as vx
+
+            rows = us.host_rank_of(vi.subjects, cand_uids, -1)
+            uids64, d = vx._rescore(vi, rows, vec.astype(np.float64))
+            sel_uids, dists = vx._rank(d, uids64, k)
+        if metrics is not None:
+            metrics.counter("dgraph_vector_searches_total").inc()
+            metrics.counter("dgraph_vector_fused_pipelines_total").inc()
+        # root level: dest set + distance var, exactly like the classic path
+        so = np.argsort(sel_uids, kind="stable")
+        sg.src_uids = sg.dest_uids = sel_uids[so]
+        self.vars["vector_distance"] = VarValue(
+            vals={int(u): Val(TypeID.FLOAT, float(dd))
+                  for u, dd in zip(sel_uids, dists)},
+            is_uid=False)
+        if self.plan is not None:
+            self.plan.record(gq, len(sg.dest_uids), self.explain)
+        self._record_uid_var(gq, sg)
+        # child level: slice the fused expansion rows of the selected uids
+        offs = np.zeros(kprime + 1, dtype=np.int64)
+        np.cumsum(counts_h, out=offs[1:])
+        slot_of = {int(u): j for j, u in enumerate(uids_h)}
+        frontier = sg.dest_uids
+        matrix, traversed = [], 0
+        for u in frontier.tolist():
+            j = slot_of.get(int(u))
+            if j is None:
+                matrix.append(np.zeros(0, np.int64))
+                continue
+            row = targets_h[offs[j]: offs[j + 1]].astype(np.int64)
+            matrix.append(row)
+            traversed += len(row)
+        child = SubGraph(gq=cgq, attr=cgq.attr, src_uids=frontier)
+        child.uid_matrix = matrix
+        child.counts = [len(m) for m in matrix]
+        child.dest_uids = (np.unique(np.concatenate(matrix))
+                           if any(len(m) for m in matrix)
+                           else np.zeros(0, np.int64))
+        child.traversed = traversed
+        if self.plan is not None:
+            self.plan.record(cgq, traversed, self.explain)
+        lg = costs.current()
+        if lg is not None:
+            # fused child bypassed _dispatch; normalize like every other
+            # attribution site (the fusable check rejects reverse attrs
+            # today, but the stripping must not depend on that)
+            a = cgq.attr
+            lg.add_task(a[1:] if a.startswith("~") else a, traversed)
+        self.traversed_edges += traversed
+        if self.traversed_edges > self.edge_budget():
+            raise QueryError("query exceeded edge budget (ErrTooBig)")
+        self._record_child_vars(cgq, child, frontier)
+        # children in declaration order: virtual uid selections compute
+        # host-side; the expansion child carries the fused matrices
+        for c in gq.children:
+            if c is cgq:
+                sg.children.append(child)
+                continue
+            vchild = SubGraph(gq=c, attr=c.attr, src_uids=frontier)
+            self._compute_virtual_child(sg, vchild, frontier)
+            sg.children.append(vchild)
+        if cgq.children or cgq.cascade:
+            self._finish_level(child, is_root=False)
+        return True
+
     def _apply_facet_filter(self, child: SubGraph) -> None:
         ft = child.gq.facets.filter
         new_matrix = []
@@ -839,10 +1051,25 @@ def _block_needs(gq: dql.GraphQuery) -> list[str]:
     return [v for v in out if v not in defines]
 
 
+def _filter_has_similar(ft) -> bool:
+    if ft is None:
+        return False
+    if ft.func is not None and ft.func.name.lower() == "similar_to":
+        return True
+    return any(_filter_has_similar(c) for c in ft.children)
+
+
 def _block_defines(gq: dql.GraphQuery) -> set[str]:
     out = set()
 
     def walk(g: dql.GraphQuery):
+        # similar_to — root form OR @filter member, at any level — binds
+        # the reserved distance var (_run_root_func), so same-block
+        # val(vector_distance) consumers must not count as an unmet
+        # dependency
+        if (g.func is not None and g.func.name.lower() == "similar_to") \
+                or _filter_has_similar(g.filter):
+            out.add("vector_distance")
         if g.var_name:
             out.add(g.var_name)
         if g.facets is not None:

@@ -1,7 +1,6 @@
 """Mutation execution: NQuads → UID assignment → DirectedEdges → store.
 
-Copy of dgraph_tpu/query/mutation.py for the PyTorch port. Vector values
-(float32vector) raise NotImplementedError: they wait for the vector slice.
+Copy of dgraph_tpu/query/mutation.py for the PyTorch port.
 
 Reference semantics:
   - query/mutation.go:111 AssignUids — collect blank ("_:x") nodes, lease a
@@ -147,14 +146,14 @@ def _validate_and_convert(store: Store, e: DirectedEdge) -> DirectedEdge:
 
 
 def _check_vector(entry, v: Val) -> None:
-    """A float32vector value: the vector index is not ported yet."""
-    raise _vector_unported(entry.predicate)
-
-
-def _vector_unported(attr: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"float32vector values ({attr!r}) are not ported yet: they wait for "
-        f"the vector slice of dgraph_tpu_torch")
+    """Typed client error for a vector literal that violates the schema's
+    @index(vector(dim: D)) declaration. NaN/Inf components are rejected at
+    parse time (types.parse_vector) — a poisoned row would corrupt every
+    similarity score it touches."""
+    if entry.vector is not None and len(v.value) != entry.vector.dim:
+        raise MutationError(
+            f"vector for predicate {entry.predicate!r} has dimension "
+            f"{len(v.value)}, schema declares dim {entry.vector.dim}")
 
 
 def split_edges_by_group(edges, n_groups: int, owner_fn) -> dict[int, list]:
@@ -272,9 +271,12 @@ def _is_vector_pred(schema, pred: str) -> bool:
 
 
 def _vector_val(v) -> Val:
-    """A JSON embedding under a float32vector predicate: the vector index
-    is not ported yet."""
-    raise _vector_unported("float32vector")
+    from dgraph_tpu_torch.utils.types import parse_vector
+
+    try:
+        return Val(TypeID.VECTOR, parse_vector(v))
+    except ValueError as ex:
+        raise MutationError(f"bad vector value: {ex}") from None
 
 
 def _json_node(obj: dict, op: Op, counter: list[int],

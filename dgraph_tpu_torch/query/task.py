@@ -21,7 +21,9 @@ uids, on the snapshot's device above it (ops/csr.expand_dest). Numeric
 compares read the float64 host mirror (num_values_host), as the JAX package
 does: exact for INT below 2^53, DATETIME, FLOAT and BOOL.
 
-similar_to (the vector index) raises NotImplementedError naming its slice.
+similar_to probes the vector index (storage/vecindex.search): the top-k
+uids with their float64 distances, which the engine binds as the
+`vector_distance` value variable.
 """
 
 from __future__ import annotations
@@ -403,13 +405,15 @@ def process_task(snap: GraphSnapshot, q: TaskQuery,
 
     fname = q.func[0].lower() if q.func else None
     args = q.func[1] if q.func else []
-    if fname == "similar_to":
-        raise NotImplementedError(
-            "similar_to is not ported yet: it waits for the vector slice of "
-            "dgraph_tpu_torch")
 
     # ---- root functions (no frontier): produce dest_uids ------------------
     if q.frontier is None:
+        if fname == "similar_to":
+            # vector similarity probe (storage/vecindex.py): dest_uids is
+            # the top-k set; value_matrix carries the aligned distances so
+            # the engine can expose them as the `vector_distance` val var
+            _similar_root(snap, pd, schema, args, res)
+            return res
         res.dest_uids = _root_func(snap, pd, schema, fname, args, q)
         return res
 
@@ -640,6 +644,69 @@ def _root_func(snap: GraphSnapshot, pd: PredData, schema, fname: str | None,
     if fname == "uid_in":
         raise TaskError("uid_in is not a root function")
     raise TaskError(f"unknown function {fname!r}")
+
+
+def parse_similar_args(pd: PredData, args: list) -> tuple[np.ndarray, int]:
+    """similar_to(pred, $vec, k) argument canonicalization: one vector
+    literal (string "[...]" / JSON array / GraphQL var) + one integer k,
+    accepted in either order (the reference's v24 surface puts k first)."""
+    from dgraph_tpu_torch.utils.types import parse_vector
+
+    vec_arg = k_arg = None
+    for a in args:
+        if isinstance(a, bool):
+            raise TaskError(f"similar_to({pd.attr}): bad argument {a!r}")
+        if isinstance(a, int) and k_arg is None:
+            k_arg = a
+        elif isinstance(a, (str, list, tuple)) and vec_arg is None:
+            vec_arg = a
+        else:
+            raise TaskError(
+                f"similar_to({pd.attr}) takes one vector and one integer k")
+    if vec_arg is None or k_arg is None:
+        raise TaskError(
+            f"similar_to({pd.attr}) needs a query vector and k")
+    if k_arg <= 0:
+        raise TaskError(f"similar_to({pd.attr}): k must be >= 1")
+    try:
+        vec = np.asarray(parse_vector(vec_arg), dtype=np.float32)
+    except ValueError as e:
+        raise TaskError(f"similar_to({pd.attr}): {e}") from None
+    return vec, int(k_arg)
+
+
+def _similar_root(snap: GraphSnapshot, pd: PredData, schema,
+                  args: list, res: TaskResult) -> None:
+    from dgraph_tpu_torch.storage import vecindex as vecmod
+
+    spec = schema.vector_spec(pd.attr)
+    if spec is None:
+        raise TaskError(f"predicate {pd.attr} needs @index(vector(...))")
+    vec, k = parse_similar_args(pd, args)
+    if len(vec) != spec.dim:
+        raise TaskError(
+            f"similar_to({pd.attr}): query vector dim {len(vec)} != "
+            f"schema dim {spec.dim}")
+    vi = pd.vecindex
+    if vi is None:
+        # indexed per schema but empty at this snapshot: zero matches
+        res.dest_uids = np.zeros(0, np.int64)
+        return
+    uids, dists = vecmod.search(vi, vec, k,
+                                metrics=getattr(snap, "metrics", None))
+    set_similar_result(res, uids, dists)
+
+
+def set_similar_result(res: TaskResult, uids: np.ndarray,
+                       dists: np.ndarray) -> None:
+    """Shape ranked (uid, distance) pairs into a TaskResult — shared by
+    the solo similar_to root and the batched vector demux (query/batch.py).
+    dest_uids is a SORTED uid set (engine set algebra); distances ride
+    value_matrix in the same order."""
+    order = np.argsort(uids, kind="stable")
+    res.dest_uids = uids[order]
+    res.value_matrix = [[Val(TypeID.FLOAT, float(d))]
+                        for d in dists[order]]
 
 
 def _count_func(pd: PredData, op: str, n: int,

@@ -13,6 +13,9 @@ are a cache uploaded on first kernel access:
   - indexed predicates  → per-tokenizer token→uid CSR (TokenIndex).
   - value predicates    → host-side exact {uid: Val} maps plus the float64
                           numeric mirror aligned to value_subjects_host.
+  - vector predicates   → a row-aligned embedding matrix (VectorIndex,
+                          storage/vecindex.py), plus an IVF quantizer past
+                          its size threshold.
 
 build_pred folds one predicate of a Store; build_snapshot folds many,
 eagerly through the shared fold pool or lazily as fold-thunks (LazyPreds);
@@ -272,6 +275,9 @@ class PredData:
     # name, as a posting carries them (storage/postings.py slots)
     facets: dict[tuple[int, int], tuple] = field(default_factory=dict)
     indexes: dict[str, TokenIndex] = field(default_factory=dict)
+    # @index(vector) predicates: row-aligned embedding matrix + IVF
+    # (storage/vecindex.VectorIndex, or VecOverlay when delta-stamped)
+    vecindex: object | None = None
 
     def has_subjects(self) -> np.ndarray:
         """uids for has(attr): subjects with any edge or value."""
@@ -930,12 +936,6 @@ def _fold_value_subject(pd: PredData, entry, tid: TypeID, subj: int, pl,
     return False, num
 
 
-def _vector_unported(attr: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"the vector index of {attr!r} is not ported yet: it waits for the "
-        f"vector slice of dgraph_tpu_torch")
-
-
 def build_pred(store: Store, attr: str, read_ts: int,
                own_start_ts: int | None = None,
                device: str | torch.device = "cuda") -> PredData:
@@ -952,8 +952,6 @@ def _build_pred(store: Store, attr: str, read_ts: int,
                 own_start_ts: int | None, dev: torch.device) -> PredData:
     entry = store.schema.get(attr)
     tid = entry.type_id if entry else TypeID.DEFAULT
-    if entry is not None and entry.vector is not None:
-        raise _vector_unported(attr)
     pd = PredData(attr, tid)
 
     fwd_rows: list[tuple[int, np.ndarray]] = []
@@ -996,6 +994,15 @@ def _build_pred(store: Store, attr: str, read_ts: int,
         rkbs = store.keys_of(K.KeyKind.REVERSE, attr)
         pd.rev_csr = _fold_uid_tablet(store, rkbs, read_ts, own, None, dev,
                                       kind=int(K.KeyKind.REVERSE))
+
+    # vector index: fold the predicate's embeddings into the row-aligned
+    # device matrix (+ IVF coarse quantizer past the size threshold)
+    if entry is not None and entry.vector is not None:
+        from dgraph_tpu_torch.storage import vecindex as vecmod
+
+        pd.vecindex = vecmod.build_vecindex(
+            attr, entry.vector, pd.host_values,
+            knobs=getattr(store, "vector_knobs", None), device=dev)
 
     # token indexes, split per tokenizer by the 1-byte term prefix
     if entry is not None and entry.indexed:

@@ -457,6 +457,7 @@ def stamp_pred(store, attr: str, base_pd, read_ts: int,
     pd.lang_values = base_pd.lang_values
     pd.facets = base_pd.facets
     pd.indexes = base_pd.indexes
+    pd.vecindex = base_pd.vecindex
 
     if data_k:
         _stamp_data(store, pd, base_pd, entry, tid, data_k, read_ts, device)
@@ -484,8 +485,6 @@ def _stamp_data(store, pd, base_pd, entry, tid, data_k, read_ts,
 
     if isinstance(base_pd.csr, OverlayCSR):
         raise ValueError("stacked overlay")
-    if entry is not None and entry.vector is not None:
-        raise cb._vector_unported(pd.attr)
     pairs = sorted((K.uid_of(kb), kb) for kb in data_k)
     touched = np.asarray([s for s, _ in pairs], dtype=np.int64)
     touched_set = set(touched.tolist())
@@ -542,6 +541,18 @@ def _stamp_data(store, pd, base_pd, entry, tid, data_k, read_ts,
 
     if value_side:
         _patch_value_arrays(pd, base_pd, touched, val_entries)
+        if entry is not None and entry.vector is not None:
+            # vector-index overlay: replacement embedding rows for exactly
+            # the touched subjects (the base matrix keeps device identity —
+            # commit-to-visible costs O(Δ), never a re-fold/re-upload)
+            from dgraph_tpu_torch.storage import vecindex as vecmod
+
+            base_vi = base_pd.vecindex
+            if base_vi is not None and base_vi.is_overlay:
+                raise ValueError("stacked overlay")
+            pd.vecindex = vecmod.stamp_vecindex(
+                base_vi, entry.predicate, entry.vector, touched,
+                pd.host_values)
 
 
 def _patch_value_arrays(pd, base_pd, touched: np.ndarray,
@@ -609,4 +620,7 @@ def overlay_nbytes(pd) -> int:
     for csr in (pd.csr, pd.rev_csr):
         if isinstance(csr, OverlayCSR):
             n += csr.delta.nbytes()
+    vi = getattr(pd, "vecindex", None)
+    if vi is not None and getattr(vi, "is_overlay", False):
+        n += vi.nbytes()
     return n

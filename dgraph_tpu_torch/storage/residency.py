@@ -2,11 +2,12 @@
 
 Port of dgraph_tpu/storage/residency.py. The tiers map onto CUDA memory:
 
-  HBM (hot)   device tensors resident — CSR columns and token-index
-              columns, allocated through torch's caching allocator.
-              Identity-stable: eviction drops ONLY the owner's device
-              tensors (the allocator gets their blocks back), never the
-              owning PredCSR / TokenIndex object, so qcache per-predicate
+  HBM (hot)   device tensors resident — CSR columns, token-index
+              columns and vector matrices, allocated through torch's
+              caching allocator. Identity-stable: eviction drops ONLY the
+              owner's device tensors (the allocator gets their blocks
+              back), never the owning PredCSR / TokenIndex / VectorIndex
+              object, so qcache per-predicate
               tokens and the DeviceBatcher's same-CSR-object rule survive
               an evict → re-admit cycle.
   warm        host-RAM folded arrays only (the fold every tablet keeps
@@ -16,10 +17,10 @@ Port of dgraph_tpu/storage/residency.py. The tiers map onto CUDA memory:
               They can never be admitted, so the query layer consults
               `prefer_host()` and serves them through the host-cutover
               machinery (task._expand_csr host gather, the index host
-              union) — byte-identical by the size-adaptive-strategy
-              contract. A cold serve is a decision made from the budget,
-              counted on dgraph_residency_cold_serves_total; it is not a
-              fallback.
+              union, the vecindex host float64 scan) — byte-identical by
+              the size-adaptive-strategy contract. A cold serve is a
+              decision made from the budget, counted on
+              dgraph_residency_cold_serves_total; it is not a fallback.
 
 Admission/eviction is scored with the placement controller's rate ×
 log2(size) signal (tablet_score, kept here as a copy), fed by the
@@ -41,12 +42,12 @@ stream, and a buffer dropped by an eviction goes back to the caching
 allocator on the stream that used it, so no kernel still in flight can
 see its memory handed to another tensor.
 
-Owner protocol (duck-typed; PredCSR, TokenIndex, LazyTokenIndex and
-OverlayCSR implement it):
+Owner protocol (duck-typed; PredCSR, TokenIndex, LazyTokenIndex,
+OverlayCSR and VectorIndex implement it):
 
     owner._res        the manager (None = unmanaged, e.g. bare build_pred)
     owner._res_attr   tablet attr for scoring/pinning
-    owner._res_kind   "csr" | "rev" | "index:<tok>" | "<kind>:merged"
+    owner._res_kind   "csr" | "rev" | "index:<tok>" | "vec" | "<kind>:merged"
     owner.device_nbytes()   device footprint if/when uploaded
     owner.device_resident() device tensors currently held?
     owner.drop_device()     drop the device tensors (host fold survives)
@@ -109,8 +110,8 @@ class _Entry:
 
 def pred_host_nbytes(pd) -> int:
     """Host bytes held by one folded PredData — CSR columns, value
-    tables and token indexes (vector matrices join with the vector
-    slice)."""
+    tables, token indexes, AND vector matrices (the bytes
+    Node.enforce_memory undercounted before this module)."""
     n = 0
     for csr in (pd.csr, pd.rev_csr):
         if csr is None:
@@ -129,6 +130,8 @@ def pred_host_nbytes(pd) -> int:
         hn = getattr(ti, "host_nbytes", None)
         if hn is not None:
             n += hn()
+    if pd.vecindex is not None:
+        n += pd.vecindex.nbytes()
     return n
 
 
@@ -398,7 +401,8 @@ class ResidencyManager:
             self._preds[id(pd)] = pd
 
     def host_bytes(self) -> int:
-        """Host bytes pinned by live folded PredData objects."""
+        """Host bytes pinned by live folded PredData objects — including
+        vector embedding matrices (the enforce_memory undercount fix)."""
         total = 0
         with self._lock:
             live = list(self._preds.values())
@@ -421,6 +425,12 @@ class ResidencyManager:
         self._adopt(pd.rev_csr, attr, "rev")
         for name, ti in pd.indexes.items():
             self._adopt(ti, attr, f"index:{name}")
+        vi = pd.vecindex
+        if vi is not None:
+            if getattr(vi, "is_overlay", False):
+                self._adopt(getattr(vi, "base", None), attr, "vec")
+            else:
+                self._adopt(vi, attr, "vec")
         self.track_pred(pd)
 
     def _adopt(self, owner, attr: str, kind: str) -> None:
@@ -501,7 +511,7 @@ class ResidencyManager:
         """Managed, admissible, not-yet-resident buffer groups of one
         folded PredData."""
         out = []
-        for owner in (pd.csr, pd.rev_csr):
+        for owner in (pd.csr, pd.rev_csr, pd.vecindex):
             if owner is None or getattr(owner, "_res", None) is not self:
                 continue
             try:
@@ -551,7 +561,11 @@ class ResidencyManager:
             # only (the JAX OverlayCSR has no prefetchable upload either)
             return
         try:
-            owner.device_arrays(prefetch=True)
+            fn = getattr(owner, "device_arrays", None) or \
+                getattr(owner, "device", None)
+            if fn is None:
+                return
+            fn(prefetch=True)
         except Exception:
             # injected upload faults / racing drops: the on-demand path
             # retries; a failed prefetch must never surface anywhere
@@ -568,7 +582,8 @@ class ResidencyManager:
                             if e.ref() is not None}
             live = list(self._preds.values())
         for pd in live:
-            owners = [pd.csr, pd.rev_csr] + list(pd.indexes.values())
+            owners = [pd.csr, pd.rev_csr, pd.vecindex] + \
+                list(pd.indexes.values())
             for owner in owners:
                 if owner is None or \
                         not hasattr(owner, "device_nbytes"):

@@ -1,7 +1,6 @@
 """Live per-predicate cardinality statistics — the planner's cost model feed.
 
-Copy of dgraph_tpu/storage/stats.py for the PyTorch port (the port's PredData
-holds no vector index yet, so its vector rows read as 0).
+Copy of dgraph_tpu/storage/stats.py for the PyTorch port.
 
 Reference context: the reference has no cost-based planner — query.go
 executes in parse order — but its badger levels DO keep per-table key

@@ -8,8 +8,8 @@ slice b and a solo `recurse_fused` call exactly, for B in {1, 2, 3, 16}
 and both loop rules, with K2 routing at the default SPARSE_MAX and with
 SPARSE_MAX lowered so that wider frontiers route to K1.
 
-The Node cases are those of tests/test_batch.py (all but the vector one,
-which waits for the vector slice) on a port Node(device="cpu"): batched
+The Node cases are those of tests/test_batch.py (the vector one is in
+tests/test_torch_vector.py) on a port Node(device="cpu"): batched
 JSON must equal the port's solo JSON and a JAX Node's, byte for byte.
 Every expand is forced into the device class with HOST_EXPAND_MAX = 0 in
 both packages, as the JAX tests do.
@@ -291,12 +291,23 @@ def test_recurse_fused_batches_byte_identical(device_expand, nodes,
 
 
 def test_similar_to_stays_solo_and_names_its_slice(nodes):
+    """similar_to over a predicate with no vector index classifies as
+    vector_solo and runs solo, which raises the typed error naming the
+    missing index, as the JAX Node does."""
+    from dgraph_tpu.query.task import TaskError as JTaskError
+    from dgraph_tpu_torch.query.task import TaskError as TTaskError
+
+    q = '{ q(func: similar_to(emb, "[1.0, 1.0]", 2)) { uid } }'
     node = nodes(TNode)
     _force_batcher(node, max_batch=2, window_ms=10)
-    with pytest.raises(NotImplementedError, match="vector slice"):
-        node.query('{ q(func: similar_to(emb, "[1.0, 1.0]", 2)) { uid } }')
+    with pytest.raises(TTaskError, match="vector") as te:
+        node.query(q)
     reasons = node.metrics.keyed("dgraph_batch_incompatible").snapshot()
     assert reasons.get("vector_solo", 0) == 1, reasons
+    jn = nodes(JNode, planner=False, devprof=False)
+    with pytest.raises(JTaskError) as je:
+        jn.query(q)
+    assert str(te.value) == str(je.value)
 
 
 # ---------------------------------------------------------------------------

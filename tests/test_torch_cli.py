@@ -161,8 +161,7 @@ def test_serve_without_device_needs_cuda():
 
 @pytest.mark.parametrize("flags,slice_name", [
     (["--mesh"], "mesh"),
-    (["--vector_nprobe", "4"], "vector"),
-], ids=["mesh", "vector"])
+], ids=["mesh"])
 def test_later_slice_flag_fails_naming_it(flags, slice_name):
     proc = _cli("serve", "--device", "cpu", "--port", "0", "--grpc_port",
                 "0", *flags)

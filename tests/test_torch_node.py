@@ -19,7 +19,8 @@ batcher, the device observatory, the HBM working-set manager under a
 budget and pins) and the methods behind them (set_memory_budget,
 enforce_memory, set_devprof, query(explain=True), Executor(plan=,
 explain=, batcher=)) each answer as the JAX Node's do with the same
-setting; only the mesh and vector seams still raise naming their slice.
+setting; only the mesh seams still raise naming their slice (the vector
+knobs act since the vector slice: tests/test_torch_vector.py).
 
 The paged store: Node(dirpath, memory_mb=) in the port answers as an eager
 port Node and as the JAX paged Node, and Store(memory_budget=) folds equal
@@ -132,9 +133,6 @@ def test_node_default_device_raises_without_cuda(monkeypatch):
 
 @pytest.mark.parametrize("kw,slice_name", [
     ({"mesh_devices": -1}, "mesh"),
-    ({"vector_nprobe": 4}, "vector"),
-    ({"vector_centroids": 16}, "vector"),
-    ({"vector_ivf_min_rows": 10}, "vector"),
 ], ids=lambda x: str(x))
 def test_off_seams_raise_naming_their_slice(kw, slice_name):
     with pytest.raises(NotImplementedError, match=f"{slice_name} slice"):
@@ -142,12 +140,8 @@ def test_off_seams_raise_naming_their_slice(kw, slice_name):
 
 
 @pytest.mark.parametrize("call,slice_name", [
-    # subscribe works since the wire slice; a standing query over a later
-    # slice's path raises at registration, naming that slice
-    (lambda n: n.subscribe('{ q(func: similar_to(emb, 2, "[1.0, 1.0]")) '
-                           '{ uid } }'), "vector"),
     (lambda n: n.analytics("pagerank", "friend"), "mesh"),
-], ids=["subscribe", "analytics"])
+], ids=["analytics"])
 def test_off_methods_raise_naming_their_slice(nodes, call, slice_name):
     n = _port_node(nodes)
     with pytest.raises(NotImplementedError, match=f"{slice_name} slice"):

@@ -12,7 +12,7 @@ the host gather, identity across an evict → re-admit cycle, prefetch
 accounting, the injected upload fault, the metrics surfaces, the
 batcher's cold-tier classification — with JSON byte-identical to an
 unbudgeted port Node and to a JAX Node. The mesh cases wait for the mesh
-slice and the vector cases for the vector slice.
+slice; the vector cases are in tests/test_torch_vector.py.
 """
 
 import gc

@@ -343,17 +343,23 @@ def test_fused_path_one_call(kernels_on, monkeypatch):
 
 
 def test_unported_branches_raise():
-    """What is still unported: similar_to, at the root or in a filter
-    (vector slice)."""
-    _, tsnap = _both(_graph())
-    _, ts = _schemas()
-    for q, slice_name in (
-            ('{ q(func: similar_to(follow, "[1, 2]", 2)) { uid } }',
-             "vector"),
-            ('{ q(func: uid(0x1, 0x2)) @filter(similar_to(follow, "[1, 2]", 2)) '
-             '{ uid } }', "vector")):
-        with pytest.raises(NotImplementedError, match=f"{slice_name} slice"):
+    """Every branch of this slice's engine is ported: similar_to, at the
+    root or in a filter, over a predicate with no vector index raises the
+    JAX package's typed error, not NotImplementedError."""
+    from dgraph_tpu.query.task import TaskError as JTaskError
+    from dgraph_tpu_torch.query.task import TaskError as TTaskError
+
+    jsnap, tsnap = _both(_graph())
+    js, ts = _schemas()
+    for q in ('{ q(func: similar_to(follow, "[1, 2]", 2)) { uid } }',
+              '{ q(func: uid(0x1, 0x2)) @filter(similar_to(follow, '
+              '"[1, 2]", 2)) { uid } }'):
+        with pytest.raises(TTaskError) as te:
             teng.Executor(tsnap, ts).execute(tdql.parse(q))
+        with pytest.raises(JTaskError) as je:
+            jeng.Executor(jsnap, js).execute(jdql.parse(q))
+        assert str(te.value) == str(je.value)
+        assert "vector" in str(te.value)
 
 
 def test_default_device_raises_without_cuda(monkeypatch):
@@ -421,13 +427,52 @@ q = "{ q(func: uid(0x1)) { age friend { uid } } }"
 out["store"] = Executor(asm.snapshot(4), schema).execute(dql.parse(q))
 overlaid = isinstance(asm.snapshot(4).pred("friend").csr, delta.OverlayCSR)
 nat = native.available()
+from dgraph_tpu_torch.storage import vecindex
+vschema = SchemaState()
+vschema.set(parse_schema(
+    "emb: float32vector @index(vector(dim: 2, metric: l2)) .")[0])
+vstore = Store()
+vstore.set_schema(vschema.get("emb"))
+vasm = SnapshotAssembler(vstore, device="cpu")
+nq = "\n".join('<%s> <emb> "[%d, %d]" .' % (hex(i), i, -i)
+               for i in range(1, 30))
+touched, _, _ = mutation.apply_mutations(
+    vstore, mutation.to_edges(rdf.parse(nq), {}, Op.SET), 1)
+vstore.commit(1, 2, touched)
+vecindex.HOST_SCAN_MAX = 0
+q = ('{ q(func: similar_to(emb, "[3, -3]", 2)) '
+     '{ uid d : val(vector_distance) } }')
+out["vector"] = Executor(vasm.snapshot(2), vschema).execute(dql.parse(q))
+import os, tempfile
+from concurrent.futures import ProcessPoolExecutor
+import multiprocessing as mp
+from dgraph_tpu_torch.loader import bulk
+from dgraph_tpu_torch.ops import packed_decode
+tmp = tempfile.mkdtemp()
+with open(os.path.join(tmp, "g.rdf"), "w") as f:
+    f.write("\n".join("<_:n%d> <friend> <_:n%d> ." % (i, (i * 7) % 50)
+                      for i in range(200)))
+bst = bulk.bulk_load(os.path.join(tmp, "g.rdf"), "friend: [uid] .",
+                     os.path.join(tmp, "p"), workers=2)
+Store(os.path.join(tmp, "p")).close()          # the output opens
+with ProcessPoolExecutor(1, mp_context=mp.get_context("spawn")) as ex:
+    list(ex.map(bulk._parse_chunk, [b"<_:a> <p> <_:b> ."]))
+    worker_torch = ex.submit(eval, "'torch' in __import__('sys').modules"
+                             ).result()
+import numpy as np
+from dgraph_tpu_torch.storage import packed
+dec = packed_decode.unpack_device(packed_decode.to_device(
+    packed.pack(np.arange(3, 900, 7, dtype=np.uint64)), device="cpu"))
+out["packed"] = int((dec != 2**31 - 1).sum())
 libs = [ln.split()[-1] for ln in open("/proc/self/maps") if "libdgt" in ln]
 new = set(sys.modules) - before
 bad = sorted(m for m in new if m.split(".")[0] in ("jax", "jaxlib")
              or m == "dgraph_tpu" or m.startswith("dgraph_tpu."))
 print(json.dumps({"bad": bad, "levels": len(json.dumps(out)),
                   "store": out["store"], "overlaid": overlaid,
-                  "native": nat, "libs": sorted(set(libs))}))
+                  "native": nat, "libs": sorted(set(libs)),
+                  "vector": out["vector"], "bulk_edges": bst.uid_edges,
+                  "worker_torch": worker_torch, "packed": out["packed"]}))
 """
 
 
@@ -443,6 +488,12 @@ def test_port_never_imports_jax():
     assert res["store"] == {"q": [{"age": 5, "friend": [{"uid": "0x2"},
                                                        {"uid": "0x3"}]}]}
     assert res["overlaid"]
+    # similar_to through the device-class scan (torch ops on the CPU)
+    assert res["vector"] == {"q": [{"uid": "0x2", "d": 2.0},
+                                   {"uid": "0x3", "d": 0.0}]}
+    # bulk_load with two spawned parse workers, which never load torch
+    assert res["bulk_edges"] == 200 and res["worker_torch"] is False
+    assert res["packed"] == len(range(3, 900, 7))
     # the port's own codec build, never the JAX package's native/libdgt.so
     assert res["native"] and res["libs"]
     for lib in res["libs"]:
@@ -464,7 +515,12 @@ def test_port_sources_import_no_jax():
                 if top in ("jax", "jaxlib", "dgraph_tpu"):
                     bad.append(f"{path.relative_to(REPO)}: {name}")
     assert bad == []
-    assert (REPO / "dgraph_tpu_torch" / "query" / "engine.py").exists()
+    scanned = {p.relative_to(REPO / "dgraph_tpu_torch").as_posix()
+               for p in (REPO / "dgraph_tpu_torch").rglob("*.py")}
+    assert {"query/engine.py", "ops/vector.py", "storage/vecindex.py",
+            "ops/packed_decode.py", "ingest/spill.py", "loader/bulk.py",
+            "loader/live.py", "loader/xidmap.py", "loader/convert.py",
+            "models/ldbc.py", "models/film.py"} <= scanned
 
 
 @pytest.mark.parametrize("scale,ef,seed", [(6, 4, 1), (10, 16, 7), (12, 8, 9),

@@ -515,16 +515,36 @@ def test_schema_change_reindex_equals_jax(old, new, indexes, reverse,
 
 
 def test_vector_values_raise_naming_the_slice():
-    s = tstore.Store()
-    for e in tschema.parse_schema(
-            "emb: float32vector @index(vector(dim: 2, metric: cosine)) ."):
-        s.set_schema(e)
-    nq = trdf.parse('<0x1> <emb> "[1.0, 2.0]"^^<xs:float32vector> .')
-    with pytest.raises(NotImplementedError, match="vector slice"):
-        tmut.apply_mutations(s, tmut.to_edges(nq, {}), 1)
-    with pytest.raises(NotImplementedError, match="vector slice"):
-        tmut.nquads_from_json({"uid": "0x1", "emb": [1.0, 2.0]},
-                              schema=s.schema)
+    """float32vector values are ported: a value of the schema's dimension
+    applies, and a wrong dimension raises the typed MutationError with the
+    JAX package's message, from RDF and from JSON."""
+    from dgraph_tpu.query import mutation as jmut
+    from dgraph_tpu.query import rdf as jrdf
+    from dgraph_tpu.storage import store as jstore
+    from dgraph_tpu.utils import schema as jschema
+
+    line = "emb: float32vector @index(vector(dim: 2, metric: cosine)) ."
+    msgs = []
+    for mut, rdf, store, schema in ((tmut, trdf, tstore, tschema),
+                                    (jmut, jrdf, jstore, jschema)):
+        s = store.Store()
+        for e in schema.parse_schema(line):
+            s.set_schema(e)
+        good = rdf.parse('<0x1> <emb> "[1.0, 2.0]"^^<xs:float32vector> .')
+        touched, _, _ = mut.apply_mutations(s, mut.to_edges(good, {}), 1)
+        assert touched
+        nqs = mut.nquads_from_json({"uid": "0x1", "emb": [1.0, 2.0]},
+                                   schema=s.schema)
+        assert len(nqs) == 1
+        bad = rdf.parse('<0x2> <emb> "[1.0, 2.0, 3.0]"^^<xs:float32vector> .')
+        with pytest.raises(mut.MutationError) as ex:
+            mut.apply_mutations(s, mut.to_edges(bad, {}), 3)
+        msgs.append(str(ex.value))
+        with pytest.raises(mut.MutationError) as ex:
+            mut.nquads_from_json({"uid": "0x1", "emb": [1.0, float("nan")]},
+                                 schema=s.schema)
+        msgs.append(str(ex.value))
+    assert msgs[:2] == msgs[2:] and "dimension" in msgs[0]
 
 
 def test_json_mutations_equal_jax():

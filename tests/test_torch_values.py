@@ -188,10 +188,18 @@ def test_extra_value_shapes_byte_identical(golden, union_path, qidx):
 
 
 def test_similar_to_raises_naming_its_slice(golden):
-    _, _, tsnap, ts = golden
-    with pytest.raises(NotImplementedError, match="vector slice"):
-        teng.Executor(tsnap, ts).execute(tdql.parse(
-            '{ q(func: similar_to(name, "[1, 2]", 3)) { uid } }'))
+    """similar_to over the golden `name` (no vector index) raises the JAX
+    package's typed error naming the missing index."""
+    from dgraph_tpu.query.task import TaskError as JTaskError
+    from dgraph_tpu_torch.query.task import TaskError as TTaskError
+
+    jsnap, js, tsnap, ts = golden
+    q = '{ q(func: similar_to(name, "[1, 2]", 3)) { uid } }'
+    with pytest.raises(TTaskError) as te:
+        teng.Executor(tsnap, ts).execute(tdql.parse(q))
+    with pytest.raises(JTaskError) as je:
+        jeng.Executor(jsnap, js).execute(jdql.parse(q))
+    assert str(te.value) == str(je.value) and "vector" in str(te.value)
 
 
 # ---------------------------------------------------------------------------
