@@ -120,6 +120,33 @@ it:
      (d) /debug/timeline (recurse and expand records with CUDA-event device
      intervals), /debug/compiles (the port's families), the HBM high-water
      mark from torch.cuda.memory_stats and the device busy share in [0, 1];
+  9b. (after phase 9, before 12) the mesh on the one card: a
+     MeshExecutor over MESH_SHARDS repeats of the card (the single-
+     controller mesh of parallel/mesh.py; the shards run one after another
+     on it) places phase 4's friend and ~friend as row-range shards (the
+     sharded-tablets gauge reads 2; each shard's edges printed), then (b)
+     phase 4's 128-seed @recurse(depth: 3) through Executor(mesh=) as one
+     mesh program, each level's dest uids equal to phase 4's with the
+     replay-divergence counter unmoved, run_recurse's own device frontiers
+     equal to phase 4's levels, and phase 5's one-uid @recurse
+     byte-identical to the unsharded Executor's JSON;
+     (c) a two-hop chain with a value filter and first/offset as one
+     run_plan, byte-identical to the unsharded path; (d) phase 6's far
+     shortest through run_bfs, JSON equal to the kernel tier's; (e) phase
+     7b's request (a) over the placement, JSON equal to the unsharded
+     answer, and a nested @groupby(friend) as the fused terminal, both
+     cross-checks run and the JSON equal; (f) PageRank over friend within
+     PAGERANK_TOL (absolute) and PAGERANK_RTOL (relative to each score)
+     of a float64 power iteration (np.bincount), the top 5 equal; CC equal to scipy's connected_components mapped to minimum
+     ranks; triangles on R-MAT scale MESH_TRI_SCALE equal to the exact
+     host count; (h) Node(device="cuda", mesh_devices=-1, mesh_min_edges=1)
+     serving the golden battery equal to expected.json with fused queries,
+     its analytics equal to a mesh-less Node's. Its `mesh` line carries
+     each step's time (host clock, p50 of 5 where repeated), the host
+     reads per loop, the program builds, the fused/unfused counts and the
+     fallbacks by reason; K1/K2 launches on this path (expected 0: the
+     mesh programs are torch ops) go into the kernels line as
+     `launches_mesh`;
   12. vectors at ANN-Benchmarks sift-128-euclidean's shape: VEC_N rows of
      128 float32 dims (a seeded Gaussian mixture with VEC_PLANTED identical
      rows planted) on uids of the headline graph, loaded into the port's
@@ -135,7 +162,9 @@ it:
      host-mirror route; (f) IVF with VEC_IVF_CENTROIDS lists over the
      first VEC_IVF_ROWS rows: the device stage equal to the float64
      re-rank of the probed rows, recall@10 >= VEC_RECALL_MIN; (g) a cold
-     tablet serving by host scan; the fold's seconds, the probe, burst and
+     tablet serving by host scan; and, for phase 9b, one probe over the
+     MESH_SHARDS-shard placement of the index (mesh_exec.vector_topk),
+     equal to the exact scan; the fold's seconds, the probe, burst and
      fused times, the candidate stage's CUDA-event time beside its bytes
      bound and a probe's torch.profiler trace;
   13. the loader chain users run, each a subprocess of the port's CLI:
@@ -222,6 +251,27 @@ BURST_MIN_ROWS, BURST_MAX_ROWS = 2_000, 2_000_000
 EXPAND_SLICES = 4
 PLANNER_QUERY = "{ q(func: has(friend)) @filter(eq(age, 42)) { uid age } }"
 BUDGET_FIT, BUDGET_COLD = 1.5, 0.5
+# phase 9b: the mesh on the one card. MESH_SHARDS shards of the headline
+# graph's friend and ~friend (row ranges; the partition is the JAX
+# package's, so R-MAT's skew puts most edges on shard 0); tablets below
+# MESH_MIN_EDGES stay replicated (phase 6's `road` among them). The chain
+# request (c) starts from MESH_CHAIN_SEEDS of the 128 seeds; the terminal
+# request of (e) groups friend(seeds) by friend. Triangles (f) run on
+# R-MAT scale MESH_TRI_SCALE: 2,048 ids, analytics.TRI_DENSE_MAX
+MESH_SHARDS, MESH_MIN_EDGES = 4, 1 << 20
+MESH_CHAIN_SEEDS, MESH_TRI_SCALE = 16, 11
+MESH_CHAIN = ("{ q(func: uid(%s)) { friend @filter(ge(age, 50)) "
+              "(first: 5, offset: 1) { friend (first: 3) { uid age } } } }")
+MESH_TERMINAL = ("{ var(func: uid(%s)) { friend @filter(le(age, %d)) "
+                 "{ a as age } } q(func: uid(%s)) { friend @groupby(friend) "
+                 "{ count(uid) s: sum(val(a)) lo: min(val(a)) "
+                 "hi: max(val(a)) } } }")
+# PageRank against the float64 power iteration: the absolute limit of the
+# JAX tests (graphs of some hundreds of nodes, scores near 2e-3), and, since
+# the mean score here is 1/646,136 (about 1.5e-6, no larger than that
+# limit), a relative limit on every node's score as well
+PAGERANK_TOL = 1e-6
+PAGERANK_RTOL = 1e-4
 # phase 12: vectors at ANN-Benchmarks sift-128-euclidean's shape (1,000,000
 # base vectors of 128 float32 dims, metric l2, k = 10) on uids 1..VEC_N of
 # the headline graph. The data is a mixture of VEC_CLUSTERS Gaussian
@@ -826,9 +876,9 @@ def main() -> int:
 
     # ---- 6. DQL shortest: kernel tier, Bellman-Ford, weighted k-shortest ---
     t0 = time.perf_counter()
-    short_launches = shortest_phase(snap, schema, (subjects, indptr, indices),
-                                    (rsub, rptr, ridx), int(seeds[0]),
-                                    num_nodes, dev)
+    short_launches, far = shortest_phase(
+        snap, schema, (subjects, indptr, indices), (rsub, rptr, ridx),
+        int(seeds[0]), num_nodes, dev)
     for name, n in short_launches.items():
         kernels[name]["launches_shortest"] = n
     say("shortest_phase", seconds=time.perf_counter() - t0,
@@ -846,7 +896,8 @@ def main() -> int:
     # ---- 7b. @groupby: a uid key and a value key on the device route -------
     t0 = time.perf_counter()
     wide = widened(subjects, indptr, expand_seeds)
-    groupby_phase(snap, schema, (subjects, indptr, indices), wide)
+    groupby_jsons = groupby_phase(snap, schema, (subjects, indptr, indices),
+                                  wide)
     say("groupby_phase", seconds=time.perf_counter() - t0,
         script_seconds=time.perf_counter() - t_start)
 
@@ -903,6 +954,17 @@ def main() -> int:
             kernels[name]["launches_batch"] = n
         say("serve_phase", seconds=time.perf_counter() - t0,
             script_seconds=time.perf_counter() - t_start)
+
+    # ---- 9b. the mesh on the one card ---------------------------------------
+    t0 = time.perf_counter()
+    mesh_launches = mesh_phase(snap, schema, (subjects, indptr, indices), q,
+                               seeds, host_levels, json_recurse, far, wide,
+                               groupby_jsons["groupby_uid"], dev)
+    for name, n in mesh_launches.items():
+        kernels[name]["launches_mesh"] = n
+    torch.cuda.empty_cache()
+    say("mesh_phase", seconds=time.perf_counter() - t0,
+        script_seconds=time.perf_counter() - t_start)
 
     # ---- 12. vectors at sift-128-euclidean's shape --------------------------
     t0 = time.perf_counter()
@@ -1099,7 +1161,8 @@ def shortest_phase(snap, schema, csr, rev, src, num_nodes, dev) -> dict:
     say("k_shortest", query=wq[:120], json_bytes=len(jsons["default"]),
         weights=weights, hops=[len(path_uids(p, "road")) - 1 for p in paths],
         ms_per_request=k_ms)
-    return launches
+    return launches, {"src": src, "dst": picks["far"],
+                      "hops": int(hd[picks["far"]])}
 
 
 def values_phase(snap, schema, csr, seeds, dev) -> dict:
@@ -1288,10 +1351,11 @@ def values_phase(snap, schema, csr, seeds, dev) -> dict:
         if stats[name]["device_unions"] == 0:
             fail(name, "the device union did not run")
 
-    # timing: 5 runs after the checked one; profiles of two requests
+    # timing: 3 runs after the checked one (5 until phase 9b came: the
+    # script's time limit); profiles of two requests
     for name in order:
         ms = []
-        for _ in range(5):
+        for _ in range(3):
             t0 = time.perf_counter()
             execute(texts[name])
             sync()
@@ -1304,12 +1368,13 @@ def values_phase(snap, schema, csr, seeds, dev) -> dict:
 
 
 
-def groupby_phase(snap, schema, csr, wide) -> None:
+def groupby_phase(snap, schema, csr, wide) -> dict:
     """Phase 7b over phase 7's snapshot: request (a), a uid key over the
     widened uid set `wide`, and request (b), a value key over every node id, each
     through Executor.execute with the device route (the fused segmented
     reduce, and for (a) the device rank search) asserted by counters read
-    around it, byte-identical to the host route and equal to numpy."""
+    around it, byte-identical to the host route and equal to numpy.
+    Returns each request's JSON."""
     import torch
 
     from dgraph_tpu_torch.ops import segments as segs
@@ -1339,6 +1404,7 @@ def groupby_phase(snap, schema, csr, wide) -> None:
         "groupby_uid": (groupby_uid_text(wide),
                         groupby_uid_numpy(csr, age, wide), True),
         "groupby_value": (GROUPBY_VALUE, groupby_value_numpy(age), False)}
+    jsons = {}
     for name, (text, want, ranks) in requests.items():
         before = reduces.value, segs.REDUCES["cuda"], segs.RANKS["cuda"]
         t0 = time.perf_counter()
@@ -1358,8 +1424,9 @@ def groupby_phase(snap, schema, csr, wide) -> None:
         if rows != want:
             raise SystemExit(f"{name}: {len(rows)} groups differ from numpy "
                              f"({len(want)} groups)")
+        jsons[name] = got
         ms = []
-        for _ in range(5):
+        for _ in range(3):       # 5 until phase 9b came (the time limit)
             t0 = time.perf_counter()
             execute(text)
             sync()
@@ -1373,6 +1440,7 @@ def groupby_phase(snap, schema, csr, wide) -> None:
             line["members"] = int(len(age))
         say("groupby_request", **line)
     snap.metrics = None
+    return jsons
 
 
 def storage_phase(snap4, schema4, csr, rev, seeds, expand_seeds, wide,
@@ -2817,6 +2885,347 @@ def same_ranking(got_uids, got_d, want_uids, want_d) -> bool:
             and np.allclose(got_d, want_d, rtol=1e-9, atol=1e-9))
 
 
+def mesh_phase(snap, schema, csr, q128, seeds, host_levels, json_recurse,
+               far, wide, want_a, dev) -> dict:
+    """Phase 9b: the mesh on the one card, over phase 4's snapshot (with
+    phase 7's values and phase 6's `road`); want_a is phase 7b's JSON of
+    its request (a). Returns the K1/K2 launches
+    made by the mesh path's own calls (the unsharded references' are left
+    out; the mesh programs are torch ops: 0 expected)."""
+    import torch
+    from scipy.sparse import coo_matrix
+    from scipy.sparse.csgraph import connected_components
+
+    from dgraph_tpu_torch import carry
+    from dgraph_tpu_torch.api.server import Node
+    from dgraph_tpu_torch.models.rmat import rmat_csr
+    from dgraph_tpu_torch.ops import prefix as px
+    from dgraph_tpu_torch.parallel.mesh import make_mesh
+    from dgraph_tpu_torch.parallel.mesh_exec import MeshExecutor
+    from dgraph_tpu_torch.query import analytics as an
+    from dgraph_tpu_torch.query import dql
+    from dgraph_tpu_torch.query import engine as eng
+    from dgraph_tpu_torch.query import groupby as gb
+    from dgraph_tpu_torch.utils.types import TypeID
+
+    subjects, indptr, indices = csr
+    sync = torch.cuda.synchronize
+    t_phase = time.perf_counter()
+    ms = {}
+
+    def fail(what, msg):
+        raise SystemExit(f"mesh {what}: {msg}")
+
+    def p50(fn, runs=5):
+        samples = []
+        for _ in range(runs):
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            samples.append((time.perf_counter() - t0) * 1e3)
+        return band(samples)["median"]
+
+    def plain(text):
+        return json.dumps(eng.Executor(snap, schema).execute(dql.parse(text)))
+
+    eng.set_query_edge_limit(1 << 31)
+    mesh_launch = {k: 0 for k in px.LAUNCHES}
+
+    def on_mesh(fn):
+        """fn() on the mesh path, its K1/K2 launches counted."""
+        before = dict(px.LAUNCHES)
+        out = fn()
+        sync()
+        for k in mesh_launch:
+            mesh_launch[k] += px.LAUNCHES[k] - before[k]
+        return out
+
+    # ---- (a) placement ----------------------------------------------------
+    t0 = time.perf_counter()
+    me = MeshExecutor(mesh=make_mesh(MESH_SHARDS, devices=[dev] * MESH_SHARDS),
+                      shard_min_edges=MESH_MIN_EDGES)
+    msnap = me.place_snapshot(snap)
+    sync()
+    ms["place"] = (time.perf_counter() - t0) * 1e3
+    c = lambda name: me.metrics.counter(name).value
+    fc, rc = msnap.pred("friend").csr, msnap.pred("friend").rev_csr
+    if c("dgraph_mesh_sharded_tablets") != 2 or not (me.owns(fc)
+                                                     and me.owns(rc)):
+        fail("place", f"{c('dgraph_mesh_sharded_tablets')} sharded tablets")
+    for name, pc in (("friend", fc), ("~friend", rc)):
+        if sum(pc.shard_edges) != len(indices):
+            fail("place", f"{name}: shard edges {pc.shard_edges}")
+    say("mesh_place", shards=MESH_SHARDS, devices=[str(d) for d in
+                                                   me.mesh.devices],
+        shard_edges={"friend": fc.shard_edges, "~friend": rc.shard_edges},
+        ecap={"friend": fc.ecap, "~friend": rc.ecap},
+        rows_per=fc.rows_per, replicated=c("dgraph_mesh_replicated_tablets"),
+        place_ms=ms["place"])
+
+    def mexec(text):
+        return on_mesh(lambda: json.dumps(eng.Executor(
+            msnap, schema, mesh=me).execute(dql.parse(text))))
+
+    def counted(fn, **want):
+        """fn() with counter deltas of the mesh executor checked."""
+        before = {k: c(k) for k in want}
+        out = fn()
+        sync()
+        for k, v in want.items():
+            if c(k) - before[k] != v:
+                fail(k, f"moved by {c(k) - before[k]}, not {v}")
+        return out
+
+    one = {"dgraph_mesh_dispatches_total": 1}
+    # a recurse's device frontiers feed only this counter (the host replay
+    # builds the answer), so a wrong recurse program shows here alone
+    one_rec = {**one, "dgraph_mesh_replay_divergence_total": 0}
+
+    # ---- (b) the 128-seed @recurse(depth: 3) as one mesh program ----------
+    req = dql.parse(q128)
+
+    def mesh_block():
+        ex = eng.Executor(msnap, schema, mesh=me)
+        sg = eng.SubGraph(gq=req.queries[0], attr=req.queries[0].attr)
+        on_mesh(lambda: ex._process_block(sg))
+        return sg
+
+    def levels(sg):
+        out, node = [], sg
+        while node.children:
+            out.append(node.children[0])
+            node = node.children[0]
+        return out
+
+    t0 = time.perf_counter()
+    got = levels(counted(mesh_block, **one_rec))
+    ms["recurse128_first"] = (time.perf_counter() - t0) * 1e3
+    if [len(h.dest_uids) for h in got] != \
+            [len(h.dest_uids) for h in host_levels] or not all(
+                np.array_equal(a.dest_uids, b.dest_uids)
+                for a, b in zip(got, host_levels)):
+        fail("recurse", "levels differ from phase 4's")
+    # the device program's own frontiers, one level deeper than the query
+    # so that its last level comes back too, against phase 4's levels
+    dev_levels = counted(lambda: on_mesh(lambda: me.run_recurse(
+        fc, np.unique(seeds), len(host_levels) + 1, False)), **one)
+    for i, h in enumerate(host_levels):
+        if not np.array_equal(dev_levels[i + 1][0], h.dest_uids):
+            fail("recurse", f"device frontier {i + 1} differs from "
+                            f"phase 4's ({len(dev_levels[i + 1][0])} vs "
+                            f"{len(h.dest_uids)} uids)")
+    ms["recurse128"] = p50(lambda: counted(mesh_block, **one_rec), runs=3)
+    profiles = {"recurse128": profile_query(mesh_block)}
+    want = plain(json_recurse)
+    if counted(lambda: mexec(json_recurse), **one_rec) != want:
+        fail("recurse", "phase 5's one-uid JSON differs from the unsharded")
+    ms["recurse1"] = p50(lambda: mexec(json_recurse))
+
+    # ---- (c) a two-hop chain with a value filter and first/offset ---------
+    chain_q = MESH_CHAIN % ", ".join(
+        hex(int(u)) for u in np.sort(seeds)[:MESH_CHAIN_SEEDS])
+    want = plain(chain_q)
+    got = counted(lambda: mexec(chain_q),
+                  dgraph_mesh_dispatches_total=1,
+                  dgraph_mesh_fused_queries_total=1,
+                  dgraph_mesh_fused_hops_total=2)
+    if got != want or len(got) < 200:
+        fail("chain", f"JSON differs from the unsharded ({len(got)} bytes)")
+    ms["chain"] = p50(lambda: mexec(chain_q))
+    profiles["chain"] = profile_query(lambda: mexec(chain_q))
+
+    # ---- (d) the far shortest through run_bfs -----------------------------
+    short_q = ("{ p as shortest(from: %s, to: %s) { friend } "
+               "r(func: uid(p)) { uid } }" % (hex(far["src"]),
+                                              hex(far["dst"])))
+    want = plain(short_q)
+    reads0 = me.loop_reads["bfs"]
+    got = counted(lambda: mexec(short_q), **one)
+    bfs_reads = me.loop_reads["bfs"] - reads0
+    if got != want:
+        fail("shortest", "JSON differs from the kernel tier's")
+    if json.loads(got)["_path_"][0]["_weight_"] != float(far["hops"]):
+        fail("shortest", f"_weight_ != {far['hops']}")
+    ms["shortest"] = p50(lambda: mexec(short_q))
+
+    # ---- (e) @groupby: request (a) over the placement; the fused terminal -
+    text_a = groupby_uid_text(wide)
+    t0 = time.perf_counter()
+    got = mexec(text_a)
+    ms["groupby_a"] = (time.perf_counter() - t0) * 1e3
+    groups_a = len(json.loads(got)["q"][0]["@groupby"])
+    if got != want_a:
+        fail("groupby", "request (a) differs from the unsharded answer")
+    s128 = ", ".join(hex(int(u)) for u in np.sort(seeds))
+    term_q = MESH_TERMINAL % (s128, GROUPBY_AGE_MAX, s128)
+    checks = {"counts": [], "aggs": 0}
+    kept = gb._fused_check_counts, gb._check_fused_agg
+
+    def spy_counts(fused, row_seeds, members_per):
+        checks["counts"].append((len(fused["table"]), len(row_seeds),
+                                 int(np.count_nonzero(fused["counts"]))))
+        return kept[0](fused, row_seeds, members_per)
+
+    def spy_aggs(*a, **kw):
+        checks["aggs"] += 1
+        return kept[1](*a, **kw)
+
+    want = plain(term_q)
+    gb._fused_check_counts, gb._check_fused_agg = spy_counts, spy_aggs
+    try:
+        t0 = time.perf_counter()
+        got = counted(lambda: mexec(term_q),
+                      dgraph_mesh_dispatches_total=1,
+                      dgraph_agg_terminal_ops_total=1)
+        ms["terminal_first"] = (time.perf_counter() - t0) * 1e3
+    finally:
+        gb._fused_check_counts, gb._check_fused_agg = kept
+    if got != want:
+        fail("terminal", "JSON differs from the unsharded answer")
+    if not checks["counts"] or checks["counts"][0][1] < 2 or \
+            checks["aggs"] < 3:
+        fail("terminal", f"the cross-checks did not run: {checks}")
+    ms["terminal"] = p50(lambda: mexec(term_q), runs=1)
+
+    # ---- (f) analytics ----------------------------------------------------
+    nodes, esrc, edst = an.graph_arrays(fc)
+    n = len(nodes)
+    reads0 = me.loop_reads["pagerank"]
+    t0 = time.perf_counter()
+    rank, pr_it = on_mesh(lambda: me.run_pagerank(esrc, edst, n))
+    sync()
+    ms["pagerank"] = (time.perf_counter() - t0) * 1e3
+    pr_reads = me.loop_reads["pagerank"] - reads0
+    t0 = time.perf_counter()
+    deg = np.bincount(esrc, minlength=n).astype(np.float64)
+    dang, od = deg == 0, np.maximum(deg, 1.0)
+    r64, it64 = np.full(n, 1.0 / n), 0
+    while it64 < 100:
+        contrib = np.bincount(edst, weights=r64[esrc] / od[esrc],
+                              minlength=n)
+        new = 0.15 / n + 0.85 * (contrib + r64[dang].sum() / n)
+        delta = np.abs(new - r64).sum()
+        r64, it64 = new, it64 + 1
+        if delta <= 1e-6:
+            break
+    oracle_s = time.perf_counter() - t0
+    pr_abs = np.abs(rank.astype(np.float64) - r64)
+    pr_err = float(pr_abs.max())
+    pr_rel = float((pr_abs / r64).max())
+    top = lambda r: np.argsort(-np.asarray(r, np.float64),
+                               kind="stable")[:5].tolist()
+    if pr_err >= PAGERANK_TOL or pr_rel >= PAGERANK_RTOL or \
+            top(rank) != top(r64) or abs(pr_it - it64) > 1:
+        fail("pagerank", f"max |err| {pr_err}, max |err|/score {pr_rel}, "
+                         f"top {top(rank)} vs {top(r64)}, iterations "
+                         f"{pr_it} vs {it64}")
+    out_pr = on_mesh(lambda: an.run("pagerank", fc, mesh=me, top=5))
+    if not out_pr["device"] or [int(x["uid"], 16) for x in out_pr["top"]] \
+            != nodes[top(r64)].tolist():
+        fail("pagerank", f"analytics.run: {out_pr}")
+    reads0 = me.loop_reads["cc"]
+    t0 = time.perf_counter()
+    lab, cc_it = on_mesh(lambda: me.run_cc(esrc, edst, n))
+    sync()
+    ms["cc"] = (time.perf_counter() - t0) * 1e3
+    cc_reads = me.loop_reads["cc"] - reads0
+    ncomp, comp = connected_components(
+        coo_matrix((np.ones(len(esrc), np.int8), (esrc, edst)),
+                   shape=(n, n)), directed=False)
+    mins = np.full(ncomp, n, np.int64)
+    np.minimum.at(mins, comp, np.arange(n))
+    if not np.array_equal(lab.astype(np.int64), mins[comp]):
+        fail("cc", f"labels differ from scipy at "
+                   f"{int((lab != mins[comp]).sum())} nodes")
+    ts, tp, tx = rmat_csr(MESH_TRI_SCALE, EDGE_FACTOR, seed=SEED)
+    tri_csr = carry.snapshot_from_numpy(
+        {"t": (int(TypeID.UID), ts, tp, tx)}, 1, device=dev).pred("t").csr
+    t0 = time.perf_counter()
+    out_tri = on_mesh(lambda: an.run("triangles", tri_csr, mesh=me))
+    ms["triangles"] = (time.perf_counter() - t0) * 1e3
+    _tn, tsrc, tdst = an.graph_arrays(tri_csr)
+    want_tri = an.triangles_host(tsrc, tdst, len(_tn))
+    if not out_tri["device"] or out_tri["triangles"] != want_tri:
+        fail("triangles", f"{out_tri} != exact {want_tri}")
+    say("mesh_analytics", nodes=int(n), edges=int(len(esrc)),
+        pagerank_iterations=pr_it, oracle_iterations=it64,
+        pagerank_max_abs_err=pr_err, pagerank_max_rel_err=pr_rel,
+        oracle_seconds=oracle_s,
+        cc_iterations=cc_it, components=int(ncomp),
+        triangles=int(want_tri), triangle_nodes=int(out_tri["nodes"]))
+
+    stats = {k: c(k) for k in ("dgraph_mesh_dispatches_total",
+                               "dgraph_mesh_fused_hops_total",
+                               "dgraph_mesh_traversed_edges_total",
+                               "dgraph_mesh_program_builds_total",
+                               "dgraph_mesh_fused_queries_total",
+                               "dgraph_mesh_unfused_queries_total")}
+    fallbacks = me.metrics.keyed("dgraph_mesh_fallbacks_total",
+                                 labels=("reason",)).snapshot()
+    loop_reads = dict(me.loop_reads)
+    del me, msnap, fc, rc
+    torch.cuda.empty_cache()
+
+    # ---- (h) the serving Node with its mesh --------------------------------
+    schema_text, nquads, queries, expected = golden_battery()
+    t0 = time.perf_counter()
+    mn, pn = Node(device=dev, mesh_devices=-1, mesh_min_edges=1), \
+        Node(device=dev)
+    try:
+        for node in (mn, pn):
+            node.alter(schema_text=schema_text)
+            node.mutate(set_nquads=nquads, commit_now=True)
+        for name, qq in queries:
+            got = json.loads(json.dumps(on_mesh(lambda: mn.query(qq)[0]),
+                                        default=str))
+            if got != expected[name]:
+                fail("node", f"golden {name} differs from expected.json")
+        node_fused = mn.metrics.counter(
+            "dgraph_mesh_fused_queries_total").value
+        if node_fused == 0:
+            fail("node", "no golden query ran fused")
+        for kind in ("pagerank", "cc", "triangles"):
+            a = on_mesh(lambda: mn.analytics(kind, "starring"))
+            b = pn.analytics(kind, "starring")
+            if not a["device"] or b["device"]:
+                fail("node", f"{kind}: device flags {a['device']}, "
+                             f"{b['device']}")
+            if kind == "pagerank":
+                if [x["uid"] for x in a["top"]] != \
+                        [x["uid"] for x in b["top"]] or any(
+                            abs(x["score"] - y["score"]) >= PAGERANK_TOL
+                            for x, y in zip(a["top"], b["top"])):
+                    fail("node", f"pagerank {a} vs {b}")
+            else:
+                for d in (a, b):
+                    d.pop("device"), d.pop("iterations", None)
+                if a != b:
+                    fail("node", f"{kind}: {a} vs {b}")
+        node_stats = {"fused": node_fused, "unfused": mn.metrics.counter(
+            "dgraph_mesh_unfused_queries_total").value,
+            "devices": mn.mesh_exec.n_devices}
+    finally:
+        mn.close()
+        pn.close()
+    ms["node"] = (time.perf_counter() - t0) * 1e3
+
+    say("mesh", shards=MESH_SHARDS, steps_ms=ms,
+        loop_reads={"bfs_levels": bfs_reads, "pagerank_iterations": pr_reads,
+                    "cc_iterations": cc_reads, "total": loop_reads},
+        program_builds=stats["dgraph_mesh_program_builds_total"],
+        dispatches=stats["dgraph_mesh_dispatches_total"],
+        fused_hops=stats["dgraph_mesh_fused_hops_total"],
+        traversed_edges=stats["dgraph_mesh_traversed_edges_total"],
+        fused_queries=stats["dgraph_mesh_fused_queries_total"],
+        unfused_queries=stats["dgraph_mesh_unfused_queries_total"],
+        fallbacks=fallbacks, groupby_a_groups=groups_a,
+        terminal_checks=checks["counts"], node=node_stats,
+        profiles=profiles,
+        launches=mesh_launch,
+        phase_seconds=time.perf_counter() - t_phase)
+    return mesh_launch
+
+
 def vector_phase(snap4, csr, dev, n=VEC_N, n_queries=VEC_QUERIES) -> dict:
     """Phase 12: vectors at sift-128-euclidean's shape. `n` float32 rows of
     VEC_DIM dims from a seeded Gaussian mixture (VEC_PLANTED identical
@@ -3041,6 +3450,41 @@ def vector_phase(snap4, csr, dev, n=VEC_N, n_queries=VEC_QUERIES) -> dict:
         share_of_bytes_bound=bound_ms / stage_ms["back_to_back"],
         trace_below_bound=solo_prof["device_busy_ms"] < bound_ms,
         profile=solo_prof, seconds=steps["solo"])
+
+    # ---- phase 9b's probe: the index over MESH_SHARDS shards ----------------
+    t0 = time.perf_counter()
+    from dgraph_tpu_torch.parallel.mesh import make_mesh
+    from dgraph_tpu_torch.parallel.mesh_exec import MeshExecutor
+
+    vme = MeshExecutor(mesh=make_mesh(MESH_SHARDS,
+                                      devices=[dev] * MESH_SHARDS))
+    es = GraphSnapshot(2, device=dev)
+    es.preds["emb"] = pd
+    es.metrics = Registry()          # phase 12's own counters stay as they are
+    placed = vme.place_snapshot(es)
+    if placed.pred("emb").vecindex._mesh is not vme:
+        fail("mesh", "the index was not placed on the mesh")
+    before = dict(px.LAUNCHES)
+    got = json.dumps(execute(placed, texts[0], mesh=vme))
+    if got != solo_json[0] or not same_ranking(
+            *ranked(json.loads(got)), *ref[0]):
+        fail("mesh", "the sharded probe differs from the exact scan")
+    mesh_probe_ms = []
+    for _ in range(5):
+        t1 = time.perf_counter()
+        execute(placed, texts[0], mesh=vme)
+        sync()
+        mesh_probe_ms.append((time.perf_counter() - t1) * 1e3)
+    vmc = vme.metrics.counter("dgraph_vector_mesh_dispatches_total").value
+    if vmc != 6 or dict(px.LAUNCHES) != before:
+        fail("mesh", f"{vmc} sharded scans, launches {px.LAUNCHES}")
+    mesh_prof = profile_query(lambda: execute(placed, texts[0], mesh=vme))
+    say("vector_mesh", shards=MESH_SHARDS, rows=n,
+        rows_per_shard=int(placed.pred("emb").vecindex._mesh_dev[3]),
+        probe_ms=band(mesh_probe_ms), scans=vmc, profile=mesh_prof,
+        seconds=time.perf_counter() - t0)
+    del vme, es, placed
+    torch.cuda.empty_cache()
 
     # ---- (b) a burst through one batch -------------------------------------
     t0 = time.perf_counter()

@@ -12,9 +12,10 @@ As the JAX server, it serves with batching, the planner and the device
 observatory on (`--no_batch`, `--no_planner` and `--no_devprof` turn each
 off), an HBM working-set manager under `--device_budget_mb` (0 =
 accounting only) with `--residency_pin` floors, and the `--memory_mb`
-enforcement loop, and the `--vector_*` IVF knobs. `--mesh` and
-`--mesh_devices` reach the Node and raise naming the mesh slice; the
-`worker` and `zero` subcommands wait for it.
+enforcement loop, the `--vector_*` IVF knobs, and the mesh: `--mesh`,
+`--mesh_devices` and `--mesh_min_edges` reach the Node's MeshExecutor
+(parallel/mesh_exec.py; on `--device cpu` the mesh repeats the CPU device).
+The `worker` and `zero` subcommands wait for the wire-cluster slice.
 
 The loader chain users run: `ldbc_gen` writes an LDBC-SNB-shaped CSV dump,
 `convert --ldbc` maps it to N-Quads plus a schema, `bulk` writes a posting
@@ -347,12 +348,11 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--mesh", action="store_true",
                     help="mesh deployment mode: shard large tablets across "
                          "every visible device and fuse multi-hop "
-                         "traversals (the mesh slice of the port: fails "
-                         "until then)")
+                         "traversals")
     sp.add_argument("--mesh_devices", type=int, default=0,
                     help="shard over the first N devices instead of all "
-                         "(implies --mesh; 0 = follow --mesh; fails until "
-                         "the mesh slice)")
+                         "(implies --mesh; 0 = follow --mesh; on --device "
+                         "cpu, N repeats of the CPU device)")
     sp.add_argument("--mesh_min_edges", type=int, default=0,
                     help="tablets below this edge count stay replicated on "
                          "the classic path (0 = default 65536)")

@@ -30,13 +30,10 @@ tenant's DQL never sees the prefix, and namespace violations surface as
 403 ErrorNamespace. No header = the default (admin) namespace.
 
 Copy of dgraph_tpu/api/http.py for the PyTorch port, in front of the port's
-Node: the same routes, envelopes and status mapping. Where the port's Node
-waits for a later slice (POST /analytics), its NotImplementedError names
-the slice and reaches the client as the usual 400 envelope. /debug/metrics
-keeps every section of the JAX server; `tablet_load` reads {} until the
-mesh slice brings the per-tablet load book. /metrics adds one port-only
-series, `dgraph_kernel_launches{kernel=...}`: the K1/K2 launches this
-process has made.
+Node: the same routes, envelopes and status mapping, POST /analytics and
+every /debug/metrics section of the JAX server included. /metrics adds one
+port-only series, `dgraph_kernel_launches{kernel=...}`: the K1/K2 launches
+this process has made.
 """
 
 from __future__ import annotations
@@ -362,7 +359,7 @@ def _serving_metrics(node: Node) -> dict:
             "degraded_reads": c("dgraph_degraded_reads_total"),
             "faults_injected": c("dgraph_fault_injected_total"),
         },
-        # mesh deployment mode (parallel/mesh_exec.py, a later slice): fused
+        # mesh deployment mode (parallel/mesh_exec.py): fused
         # whole-plan dispatches, per-reason fallback breakdown, and the
         # fused-coverage ratio — queries that touched mesh-owned tablets
         # and ran their traversals fully fused vs ones that recorded at
@@ -374,8 +371,10 @@ def _serving_metrics(node: Node) -> dict:
         # device-memory runbook's readout
         "residency": node.residency.debug_snapshot(),
         # per-tablet load counters (coord/placement.py TabletLoadBook):
-        # the mesh slice ports the book; until then no tablet has a row
-        "tablet_load": {},
+        # the placement controller's scoring inputs — reads/writes/result
+        # bytes/serve seconds per predicate — inspectable here and as the
+        # dgraph_tablet_load{pred,group,stat} series on /metrics
+        "tablet_load": node.tablet_book.snapshot(),
         # query cost ledger (obs/costs.py): records admitted to
         # the /debug/top window, regressions flagged against the
         # per-shape EWMA baselines, and the quantile view of the cost

@@ -30,10 +30,16 @@ change order and dispatch, never output, and a cold-tier tablet serves
 through the host-mirror path.
 
 The vector-index knobs (`vector_nprobe`, `vector_centroids`,
-`vector_ivf_min_rows`) ride this Node's Store into the fold. The seams that
-wait for the mesh slice raise NotImplementedError naming it:
-`mesh_devices != 0` and `analytics` (the per-tablet load book of
-coord/placement.py waits there too, so `tablet_load` reads {}).
+`vector_ivf_min_rows`) ride this Node's Store into the fold.
+
+`mesh_devices` (as in the JAX Node: 0 = off, -1 = every device, N = N
+shards) places large tablets across a parallel/mesh_exec.MeshExecutor at
+snapshot assembly, and `analytics` runs PageRank / CC / triangles over one
+uid tablet on it (the host oracles without a mesh). On the card the mesh's
+devices are the visible cards; on the CPU it repeats the CPU device N times
+(-1 = one shard), as the JAX tests force host-platform devices. The
+per-tablet load book (coord/placement.TabletLoadBook) counts reads at the
+task seam and writes at mutate.
 """
 
 from __future__ import annotations
@@ -50,7 +56,7 @@ from dgraph_tpu_torch.query import dql, rdf
 from dgraph_tpu_torch.query import mutation as mut
 from dgraph_tpu_torch.query import qcache
 from dgraph_tpu_torch.query import upsert as ups
-from dgraph_tpu_torch.query.engine import Executor, _unported
+from dgraph_tpu_torch.query.engine import Executor
 from dgraph_tpu_torch.storage import index as idx
 from dgraph_tpu_torch.storage import keys as K
 from dgraph_tpu_torch.storage.csr_build import (GraphSnapshot,
@@ -138,11 +144,7 @@ class Node:
                  qos: bool = True,
                  tenants=None,
                  device: str = "cuda") -> None:
-        if mesh_devices:
-            raise _unported("Node(mesh_devices)", "mesh")
         self.device = resolve_device(device)
-        # the mesh seam, as the JAX Node holds it when off
-        self.mesh_exec = None
         # memory_mb enables the PAGED store: snapshot mmap'd, lists
         # materialize lazily, clean entries evict under the budget
         self.store = Store(dirpath,
@@ -181,6 +183,37 @@ class Node:
             budget_bytes=int(device_budget_mb) << 20,
             metrics=self.metrics, pins=tuple(pins))
         self.store.residency = self.residency
+        self.mesh_exec = None
+        if mesh_devices:
+            from dgraph_tpu_torch.parallel.mesh import make_mesh
+            from dgraph_tpu_torch.parallel.mesh_exec import MeshExecutor
+
+            n = None if mesh_devices < 0 else int(mesh_devices)
+            if self.device.type == "cuda":
+                # the visible cards, led by the Node's own card, so the
+                # sharded tablets share a leader with the snapshot
+                import torch
+
+                count = torch.cuda.device_count()
+                lead = self.device.index
+                if lead is None:
+                    lead = torch.cuda.current_device()
+                mesh = make_mesh(n, devices=[
+                    torch.device("cuda", (lead + i) % count)
+                    for i in range(count)])
+            else:
+                mesh = make_mesh(n or 1, devices=[self.device] * (n or 1))
+            self.mesh_exec = MeshExecutor(
+                mesh=mesh, metrics=self.metrics,
+                shard_min_edges=mesh_min_edges, residency=self.residency)
+        # per-tablet load counters (coord/placement.py TabletLoadBook):
+        # every dispatched task and applied edge counts toward the
+        # dgraph_tablet_load{pred,group,stat} series on /metrics and the
+        # /debug/metrics tablet_load section — the placement controller's
+        # scoring inputs, inspectable on the embedded node too
+        from dgraph_tpu_torch.coord.placement import TabletLoadBook
+
+        self.tablet_book = TabletLoadBook(self.metrics, group=0)
         self.traces = metrics.TraceStore(fraction=trace_fraction,
                                          rng=trace_rng)
         # span tracing + device profiling (obs/otrace.py): root spans start
@@ -348,6 +381,20 @@ class Node:
         prof = DevProfiler(self.metrics, slow_log=self.slow_log,
                            budget_bytes=self._device_budget_bytes,
                            residency=self.residency, device=self.device)
+        prof.add_cache_probe("mesh.programs",
+                             lambda: len(self.mesh_exec._progs)
+                             if self.mesh_exec is not None else 0)
+
+        def dist_caches():
+            import sys
+
+            d = sys.modules.get("dgraph_tpu_torch.parallel.dist")
+            if d is None:
+                return {}
+            return {"dist.expand":
+                    d._expand_program.cache_info().currsize,
+                    "dist.k_hop":
+                    d._k_hop_program.cache_info().currsize}
 
         def ops_programs():
             # only modules ALREADY imported by an executed path — the
@@ -365,9 +412,12 @@ class Node:
                     out[fam] = built if fam in _KERNEL_FAMILIES else 0
             return out
 
+        prof.add_cache_probe("dist", dist_caches)
         prof.add_cache_probe("ops.jit", ops_programs)
         self.devprof = prof
         self.dispatch_gate.profiler = prof
+        if self.mesh_exec is not None:
+            self.mesh_exec._prof = prof
         devprof_mod.register(prof)
 
     def set_devprof(self, on: bool) -> None:
@@ -380,6 +430,8 @@ class Node:
         elif not on and self.devprof is not None:
             devprof_mod.unregister(self.devprof)
             self.dispatch_gate.profiler = None
+            if self.mesh_exec is not None:
+                self.mesh_exec._prof = None
             self.devprof = None
 
     # -- multi-tenant QoS -----------------------------------------
@@ -664,6 +716,12 @@ class Node:
             if self.background_rollup and not self._rollup_started and \
                     self._assembler._overlays:
                 self._start_rollup_loop()
+            if self.mesh_exec is not None:
+                # mesh placement at snapshot assembly — identity-cached at
+                # the snapshot AND PredData level, so repeated reads keep
+                # their qcache tokens and delta-overlay predicates keep
+                # serving host-side until compaction folds a fresh base
+                snap = self.mesh_exec.place_snapshot(snap)
             return snap
 
     # overlays older than this many seconds (or deeper than the stamp
@@ -781,15 +839,18 @@ class Node:
         return dl.scope(ms / 1000.0 if ms and ms > 0 else None)
 
     def _count_task(self, tq, res, dt: float) -> None:
-        """Executor on_task hook: per-tablet read accounting — feeds the
-        residency manager's admission/eviction scores (the JAX Node feeds
-        the placement controller's load book from the same hook; that book
-        waits for the mesh slice)."""
+        """Executor on_task hook: per-tablet read accounting — feeds BOTH
+        the placement controller's load book and the residency manager's
+        admission/eviction scores (the same rate×log2(size) signal)."""
         attr = tq.attr[1:] if tq.attr.startswith("~") else tq.attr
         # tablet accounting keys on STORAGE attrs: a tenant's task carries
-        # its bare name, so translate before the residency touch (no-op
-        # for the default namespace)
+        # its bare name, so translate before the load book / residency
+        # touch (no-op for the default namespace)
         attr = tnc.prefix(tnc.current(), attr)
+        out_bytes = 0.0
+        if getattr(res, "dest_uids", None) is not None:
+            out_bytes = 8.0 * len(res.dest_uids)
+        self.tablet_book.record_read(attr, out_bytes=out_bytes, serve_s=dt)
         self.residency.touch(attr)
 
     def query(self, q: str, variables: dict | None = None,
@@ -950,6 +1011,7 @@ class Node:
                            cache=self.task_cache, gate=self.dispatch_gate,
                            edge_limit=edge_limit, plan=plan,
                            explain=recorder,
+                           mesh=self.mesh_exec,
                            batcher=self.batcher,
                            on_task=self._count_task).execute(req)
             tr.printf("executed")
@@ -1041,9 +1103,61 @@ class Node:
                 "elapsed_ms": total["wall_ms"],
                 **flag})
 
-    def analytics(self, kind: str, pred: str, **kw) -> dict:
-        """Whole-graph analytics over one uid predicate (mesh slice)."""
-        raise _unported("Node.analytics", "mesh")
+    def analytics(self, kind: str, pred: str, *, damping: float = 0.85,
+                  tol: float = 1e-6, max_iters: int = 100, top: int = 20,
+                  timeout_ms: float | None = None,
+                  start_ts: int | None = None) -> dict:
+        """Whole-graph analytics over one uid predicate's tablet
+        (query/analytics.py): PageRank / connected components / triangle
+        count as device-resident loops on the mesh, host
+        oracle fallback when the tablet is overlay/residency-deferred or
+        the node runs without a mesh. Same request discipline as query():
+        span + deadline scope + cost ledger + DispatchGate."""
+        from dgraph_tpu_torch.query import analytics as an
+
+        sp = self._span("analytics", kind=kind, pred=pred)
+        m = self.metrics
+        m.meter("analytics").mark()
+        t0 = time.perf_counter()
+        tenant = tnc.current()
+        lg = costs.CostLedger(endpoint="analytics",
+                              shape=f"analytics:{kind}:{pred}",
+                              tenant=tenant) \
+            if self.cost_ledger else None
+        try:
+            with sp, self._deadline_scope(timeout_ms), costs.scope(lg):
+                self._admit_tenant(tenant)
+                read_ts, snap = self._read_view(start_ts)
+                if tenant:
+                    snap = self._ns_view(snap, tenant)
+                sp.set(read_ts=int(read_ts))
+                rev = pred.startswith("~")
+                pd = snap.pred(pred[1:] if rev else pred)
+                csr = (pd.rev_csr if rev else pd.csr) \
+                    if pd is not None else None
+                if csr is None:
+                    raise ValueError(
+                        f"analytics: predicate {pred!r} has no uid "
+                        f"edges")
+                if self.residency.enabled:
+                    self.residency.prefetch(
+                        [pred[1:] if rev else pred], snap)
+                lga = costs.current()
+                if lga is not None:
+                    lga.add_task(pred[1:] if rev else pred, 0)
+                out = an.run(kind, csr, mesh=self.mesh_exec,
+                             gate=self.dispatch_gate, metrics=m,
+                             damping=damping, tol=tol,
+                             max_iters=max_iters, top=top)
+                out["pred"] = pred
+                sp.set(device=out["device"], nodes=out["nodes"],
+                       edges=out["edges"])
+                return out
+        finally:
+            m.histogram("dgraph_analytics_latency_s").observe(
+                time.perf_counter() - t0,
+                exemplar=sp.trace_id or None)
+            self._finish_cost(lg, sp)
 
     def upsert(self, q: str, mutations: list[dict],
                variables: dict | None = None, start_ts: int | None = None,
@@ -1073,6 +1187,7 @@ class Node:
                     ex = Executor(snap, self._schema_view(),
                                   cache=self.task_cache,
                                   gate=self.dispatch_gate,
+                                  mesh=self.mesh_exec,
                                   batcher=self.batcher,
                                   on_task=self._count_task)
                     out = ex.execute(self._parse(q, variables))
@@ -1226,8 +1341,12 @@ class Node:
                         # if oracle bookkeeping above raised
                         ctx.inflight -= 1
                         self._inflight_cv.notify_all()
+            from collections import Counter
+
+            edge_counts = Counter(e.attr for e in edges)
             for p in preds:
                 self.zero.should_serve(p)
+                self.tablet_book.record_write(p, n=edge_counts[p] or 1)
             res = MutationResult(uids=uid_map, context=ctx)
             if commit_now:
                 self.commit(ctx.start_ts)

@@ -39,9 +39,9 @@ scaling with concurrency. This module is the classic serving-stack answer
   * Composition with the cache tiers: singleflight (qcache) dedupes
     IDENTICAL in-flight tasks — only the flight leader reaches the
     batcher; the batcher packs DISTINCT compatible ones. Tasks that miss
-    classification (host-cutover expands, overlay tablets, cold-tier
-    tablets, value predicates, IVF/overlay vector views) run solo on the
-    existing path.
+    classification (host-cutover expands, overlay/mesh tablets, cold-tier
+    tablets, value predicates, IVF/overlay/mesh vector views) run solo on
+    the existing path.
   * Deadlines: a task whose remaining budget cannot cover the window plus
     the expected batched step (the gate's per-class EWMA) bypasses the
     window and dispatches solo — where the existing lifeline machinery
@@ -153,6 +153,8 @@ def _classify_expand(snap, schema, q):
     csr = pd.rev_csr if reverse else pd.csr
     if csr is None:
         return None, "empty_csr", None
+    if getattr(csr, "is_dist", False):
+        return None, "mesh_sharded", None
     if isinstance(csr, OverlayCSR):
         return None, "overlay", None
     frontier = np.asarray(q.frontier, dtype=np.int64)
@@ -198,7 +200,8 @@ def _classify_vector(snap, schema, q):
     vi = pd.vecindex
     if vi is None:
         return None, "vector_solo", None      # empty index: solo shortcut
-    if vi.is_overlay or getattr(vi, "ivf", None) is not None:
+    if vi.is_overlay or getattr(vi, "_mesh", None) is not None \
+            or getattr(vi, "ivf", None) is not None:
         return None, "vector_variant", None
     if vi.n * vi.dim <= vecmod.HOST_SCAN_MAX:
         return None, "host_path", None

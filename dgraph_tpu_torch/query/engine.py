@@ -22,8 +22,12 @@ device batcher (`batcher`, query/batch.py, and `batched_recurse`), the
 planner's physical plan (`plan`, query/planner.py) and its EXPLAIN
 recorder (`explain`), the per-request edge limit, the per-task deadline
 check, otrace spans and cost-ledger attribution (`_traced_dispatch`), and
-the per-task hook (`on_task`). The mesh waits for its slice: passing one
-raises NotImplementedError naming it.
+the per-task hook (`on_task`), and the mesh (`mesh`, a
+parallel/mesh_exec.MeshExecutor): a chain over mesh-sharded tablets — its
+pointwise filters, pagination windows and a single-uid-key @groupby
+terminal included — runs as one mesh program whose per-level frontiers the
+host replays from its CSR mirrors (`_mesh_fused_plan`); recurse and shortest
+consult it too.
 """
 
 from __future__ import annotations
@@ -58,12 +62,6 @@ def set_query_edge_limit(n: int) -> None:
 
 class QueryError(ValueError):
     pass
-
-
-def _unported(what: str, slice_name: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet: it waits for the {slice_name} slice of "
-        f"dgraph_tpu_torch")
 
 
 @dataclass
@@ -109,10 +107,23 @@ class Executor:
                  edge_limit: int | None = None,
                  plan=None, explain: dict | None = None,
                  mesh=None, batcher=None, on_task=None):
-        if mesh is not None:
-            raise _unported("Executor(mesh=...)", "mesh")
         self.snap = snap
         self.schema = schema
+        # mesh deployment mode (parallel/mesh_exec.MeshExecutor): multi-hop
+        # expansion chains over mesh-sharded tablets run as ONE mesh
+        # program instead of one dispatch per hop; recurse/shortest
+        # consult it too. None = classic per-task dispatch only.
+        self.mesh = mesh
+        # fused-coverage accounting: per query, how many fused mesh
+        # programs ran, how many labeled fallbacks were recorded, and
+        # whether mesh-owned tablets were touched at all — execute() folds
+        # the three into the mesh executor's coverage ratio. A single-task
+        # serve of a mesh tablet is already at minimal dispatch count, so
+        # it counts as covered; only labeled fallbacks mark a query
+        # unfused.
+        self._mesh_fused = 0
+        self._mesh_misses = 0
+        self._mesh_touched = False
         # physical plan (query/planner.py): order decisions only — root
         # source selection, AND-filter order, sibling order, dispatch
         # cutover. None = parse-order execution. `explain` is a per-query
@@ -278,7 +289,19 @@ class Executor:
             if b.gq.attr == "var":
                 continue
             encode_result(self, b, out)
+        if self.mesh is not None and (self._mesh_fused or
+                                      self._mesh_misses or
+                                      self._mesh_touched):
+            # mesh-relevant query: the ratio of the two counters is the
+            # fused-coverage number the /debug/metrics mesh section shows
+            self.mesh.note_query(self._mesh_misses == 0)
         return out
+
+    def _mesh_miss(self, reason: str) -> None:
+        """One labeled fused-coverage miss for this query."""
+        self._mesh_misses += 1
+        if self.mesh is not None:
+            self.mesh.fallback(reason)
 
     # ---------------------------------------------------------------- blocks
 
@@ -425,6 +448,9 @@ class Executor:
         gq = sg.gq
         frontier = np.sort(sg.dest_uids)
         eff = self._effective_children(gq, frontier)
+        if self.mesh is not None and len(frontier) and \
+                self._mesh_fused_plan(sg, eff, frontier):
+            return
         order = None
         if self.plan is not None:
             order = self.plan.child_order.get(id(gq))
@@ -452,6 +478,10 @@ class Executor:
         value fetch, facet filter, per-row filter + pagination, var
         recording."""
         child = SubGraph(gq=cgq, attr=cgq.attr, src_uids=frontier)
+        if self.mesh is not None and self._mesh_hop_csr(cgq) is not None:
+            # a one-task serve of a mesh-owned tablet: already at the
+            # minimal dispatch count, covered for the coverage ratio
+            self._mesh_touched = True
         tq = TaskQuery(cgq.attr, frontier=frontier, lang=cgq.lang)
         if cgq.facets is not None:
             # every facet comes back; the encoder keeps the asked keys
@@ -487,6 +517,249 @@ class Executor:
             self._apply_child_row_mods(child)
         self._record_child_vars(cgq, child, frontier)
         return child
+
+    # ------------------------------------------------------------- mesh mode
+
+    def _mesh_hop_csr(self, cgq: dql.GraphQuery):
+        """The mesh-sharded adjacency a chain hop expands over, or None."""
+        attr = cgq.attr
+        rev = attr.startswith("~")
+        pd = self.snap.pred(attr[1:] if rev else attr)
+        if pd is None:
+            return None
+        csr = pd.rev_csr if rev else pd.csr
+        return csr if (csr is not None and self.mesh.owns(csr)) else None
+
+    def _mesh_break_reason(self, cgq: dql.GraphQuery) -> str | None:
+        """Why an UNOWNED tablet broke the chain — labeled only when the
+        tablet would have been mesh-class: a delta overlay awaiting
+        compaction, or shards the working-set manager declined to admit.
+        Small replicated tablets break chains silently (host-class by
+        design, not a coverage gap)."""
+        from dgraph_tpu_torch.query import fusedplan as fp
+        from dgraph_tpu_torch.storage.delta import OverlayCSR
+
+        attr = cgq.attr
+        rev = attr.startswith("~")
+        pd = self.snap.pred(attr[1:] if rev else attr)
+        csr = (pd.rev_csr if rev else pd.csr) if pd is not None else None
+        if isinstance(csr, OverlayCSR):
+            return fp.REASON_OVERLAY
+        if getattr(csr, "_mesh_deferred", False):
+            return fp.REASON_BUDGET
+        return None
+
+    def _mesh_fused_plan(self, sg: SubGraph, eff: list,
+                         frontier: np.ndarray) -> bool:
+        """Execute the whole physical plan below this level as ONE mesh
+        dispatch (parallel/mesh_exec.run_plan): the expansion chain WITH
+        its pointwise filters (allow-set membership formulas) and per-row
+        pagination windows runs fused; facet reads, value-predicate
+        co-children, count children, and virtual nodes layer host-side on
+        the fused traversal's per-level frontiers (query/fusedplan.py).
+        Returns False when the shape doesn't qualify — the caller runs
+        the classic loop, byte-identical — recording the labeled
+        fallback reason whenever the miss actually cost fusion."""
+        from dgraph_tpu_torch.query import fusedplan as fp
+
+        gq = sg.gq
+        if any(c.expand for c in gq.children):
+            return False        # expand() reshaped eff: classic handles
+        ir = None
+        if self.plan is not None:
+            ir = self.plan.fused_chains.get(id(gq))
+        if ir is None:
+            ir = fp.chain_ir(gq, self.schema)
+        # execution-time narrowing: the IR is AST-shaped; ownership
+        # (sharded vs replicated vs overlay vs residency-deferred)
+        # truncates the chain here
+        hops: list[fp.HopIR] = []
+        csrs: list = []
+        reason = ir.stop_reason if ir.stop_cost else None
+        for hop in ir.hops:
+            csr = self._mesh_hop_csr(hop.gq)
+            if csr is None:
+                r = self._mesh_break_reason(hop.gq)
+                if r is not None and (hops or
+                                      fp._subtree_has_expansion(
+                                          hop.gq, self.schema)):
+                    reason = reason or r
+                break
+            hops.append(hop)
+            csrs.append(csr)
+        if hops:
+            self._mesh_touched = True
+        # terminal stage eligibility: the groupby rides only when the
+        # whole chain fused up to it AND the key tablet is mesh-owned —
+        # otherwise the hops still fuse and the groupby assembles classic
+        term = ir.terminal if (ir.terminal is not None
+                               and len(hops) == len(ir.hops)) else None
+        tcsr = None
+        if term is not None:
+            tpd = self.snap.pred(term.key_attr)
+            kc = tpd.csr if tpd is not None else None
+            if kc is not None and self.mesh.owns(kc):
+                tcsr = kc
+            else:
+                from dgraph_tpu_torch.storage.delta import OverlayCSR
+
+                if isinstance(kc, OverlayCSR):
+                    reason = reason or fp.REASON_OVERLAY
+                elif getattr(kc, "_mesh_deferred", False):
+                    reason = reason or fp.REASON_BUDGET
+                term = None
+        # one hop + a terminal reduce still beats two dispatches; a bare
+        # single hop does not
+        if len(hops) < (1 if tcsr is not None else 2):
+            if reason is not None:
+                self._mesh_miss(reason)
+            return False
+        try:
+            sets = [fp.resolve_sets(self, hop) for hop in hops]
+        except Exception:
+            # a leaf whose resolution raises (missing index, bad args)
+            # goes classic: the stepped path raises the same typed error
+            # at the same filter — or never reaches it on an empty
+            # frontier, which is exactly the semantics to preserve
+            self._mesh_miss(fp.REASON_FILTER)
+            return False
+        terminal = None
+        kept_aggs: list = []
+        if tcsr is not None:
+            # per-agg value planes in the key tablet's sharded row layout
+            # (local row j of shard s ↔ host mirror row s*rows_per+j);
+            # non-numeric val vars (datetime/string) drop that agg from
+            # the device ops — the host computes it anyway
+            from dgraph_tpu_torch.utils.types import to_device_scalar
+
+            subs_h, _ip, _ix = tcsr.host_arrays()
+            rows_cap = self.mesh.n_devices * tcsr.rows_per
+            tops: list = []
+            tavals: list = []
+            for op, ref, cgq in term.aggs:
+                plane = np.full(rows_cap, np.nan, dtype=np.float32)
+                vv = self.vars.get(ref)
+                vals = getattr(vv, "vals", None) if vv is not None else None
+                if vals:
+                    try:
+                        u = np.asarray(list(vals.keys()), dtype=np.int64)
+                        v = np.asarray(
+                            [float(to_device_scalar(x)) if isinstance(x, Val)
+                             else float(x) for x in vals.values()],
+                            dtype=np.float64)
+                    except (TypeError, ValueError):
+                        continue
+                    r_ = us.host_rank_of(subs_h, np.sort(u), -1)
+                    order_ = np.argsort(u, kind="stable")
+                    hit_ = r_ >= 0
+                    plane[r_[hit_]] = v[order_][hit_].astype(np.float32)
+                tops.append(op)
+                tavals.append(plane.reshape(self.mesh.n_devices,
+                                            tcsr.rows_per))
+                kept_aggs.append((op, ref, cgq))
+            terminal = (tcsr, tuple(tops), tavals)
+        with costs.kernel("mesh.plan") as ck:
+            run = lambda: self.mesh.run_plan(
+                [(c, h.formula, s, h.first, h.offset)
+                 for c, h, s in zip(csrs, hops, sets)], frontier,
+                terminal=terminal)
+            got = self.gated(run, klass="mesh")
+        term_out = None
+        if terminal is not None:
+            levels, term_out = got
+        else:
+            levels = got
+        lg = costs.current()
+        if lg is not None and ck.ms > 0:
+            # ONE launch traversed every hop: apportion its device ms to
+            # the per-predicate rows by each hop's traversed edges, so
+            # /debug/top?group=pred points at the tablet actually burning
+            # the device instead of whichever predicate led the chain
+            trav = [max(int(lv[1]), 0) for lv in levels[: len(hops)]]
+            preds = [hop.gq.attr for hop in hops]
+            if term_out is not None:
+                trav.append(max(int(term_out["traversed"]), 0))
+                preds.append(term.key_attr)
+            tot = float(sum(trav))
+            for a, t in zip(preds, trav):
+                frac = (t / tot) if tot > 0 else 1.0 / len(preds)
+                lg.attribute_pred_ms(a, ck.ms * frac)
+        self._mesh_fused += 1
+        parent = sg
+        fr = frontier
+        for i, (hop, csr, hsets) in enumerate(zip(hops, csrs, sets)):
+            _fr_in, traversed, nxt = levels[i]
+            # host replay: pruned uidMatrix rows from the host mirrors
+            # with the SAME allow-sets/windows the device applied —
+            # byte-identical to _apply_child_row_mods by construction
+            matrix, counts, dest, _raw = fp.replay_hop(csr, fr, hop,
+                                                       hsets)
+            fused = SubGraph(gq=hop.gq, attr=hop.gq.attr, src_uids=fr)
+            fused.uid_matrix = matrix
+            fused.counts = counts
+            fused.dest_uids = dest
+            fused.traversed = traversed
+            if hop.facets:
+                rev = hop.attr.startswith("~")
+                pd = self.snap.pred(hop.attr[1:] if rev else hop.attr)
+                fused.facet_matrix = [
+                    [pd.facets.get((int(s_), int(o)), ()) for o in m]
+                    for s_, m in zip(fr, matrix)]
+            if self.plan is not None:
+                self.plan.record(hop.gq, traversed, self.explain)
+            lg = costs.current()
+            if lg is not None:
+                # fused hops bypass _dispatch: attribute their traversed
+                # edges to the hop's predicate here instead
+                a = hop.gq.attr
+                lg.add_task(a[1:] if a.startswith("~") else a, traversed)
+            self.traversed_edges += traversed
+            if self.traversed_edges > self.edge_budget():
+                raise QueryError("query exceeded edge budget (ErrTooBig)")
+            # this level's children in DECLARATION order, the fused hop
+            # attached at its slot with vars recorded at that point —
+            # exactly the classic walk's binding order
+            level_children = eff if parent is sg else parent.gq.children
+            for cgq in level_children:
+                if cgq is hop.gq:
+                    self._record_child_vars(cgq, fused, fr)
+                    parent.children.append(fused)
+                    continue
+                if cgq.is_uid_node or cgq.attr in ("val", "math") or \
+                        cgq.attr.startswith("__agg_"):
+                    vchild = SubGraph(gq=cgq, attr=cgq.attr, src_uids=fr)
+                    self._compute_virtual_child(parent, vchild, fr)
+                    parent.children.append(vchild)
+                    continue
+                co = self._run_child_task(cgq, fr)
+                parent.children.append(co)
+                if cgq.children or cgq.cascade:
+                    self._finish_level(co, is_root=False)
+            parent = fused
+            fr = np.sort(dest)
+            if not np.array_equal(fr, nxt):
+                # defense in depth: the device frontier disagreeing with
+                # the host replay would mean a program bug — the host
+                # mirrors are the truth the classic path serves from
+                raise QueryError("mesh fused frontier diverged")
+        if term_out is not None:
+            # the device terminal's per-rank member counts + f32 agg
+            # candidates ride to the host groupby assembly (which stays
+            # authoritative) for the byte-identity cross-check
+            parent._fused_gb = {
+                "table": term_out["table"],
+                "counts": term_out["counts"],
+                "aggs": {id(cgq): {"op": op,
+                                   "cand": term_out["aggs"][i][0],
+                                   "cntv": term_out["aggs"][i][1]}
+                         for i, (op, _ref, cgq) in enumerate(kept_aggs)},
+            }
+            self.mesh.metrics.counter(
+                "dgraph_agg_terminal_ops_total").inc()
+        # the last chain hop's own subtree (and @cascade) continues classic
+        if hops[-1].gq.children or hops[-1].gq.cascade:
+            self._finish_level(parent, is_root=False)
+        return True
 
     def _apply_child_row_mods(self, child: SubGraph) -> None:
         """Filter dest uids, then prune + paginate each uidMatrix row
@@ -691,7 +964,7 @@ class Executor:
             return None
         pd = self.snap.pred(fn.attr)
         vi = pd.vecindex if pd is not None else None
-        if vi is None or vi.is_overlay \
+        if vi is None or vi.is_overlay or vi._mesh is not None \
                 or self.schema.vector_spec(fn.attr) is None:
             return None
         # an IVF-equipped tablet answers through the approximate coarse

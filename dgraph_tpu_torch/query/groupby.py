@@ -12,9 +12,12 @@ device once a group set passes _HOST_AGG_MAX members; the host covers
 smaller sets and string/datetime keys. The device functions run on
 `ex.snap.device`, so a CPU snapshot reduces with torch ops on CPU tensors.
 
-`fused` (a whole-plan mesh terminal, engine._mesh_fused_plan in the JAX
-package) is None until the mesh slice; its cross-checks stay so that slice
-plugs in unchanged. With a plan (query/planner.py) the @groupby step
+`fused` is the device terminal a whole-plan mesh fusion stashes on the
+level (engine._mesh_fused_plan): per key-rank member counts and f32 agg
+candidates, held against the host assembly (which stays authoritative) by
+_fused_check_counts and _check_fused_agg. `[uid]` group keys reach them
+through the rank-space path here (the JAX package takes its dict path;
+the rows are the same). With a plan (query/planner.py) the @groupby step
 records its group count for EXPLAIN.
 """
 

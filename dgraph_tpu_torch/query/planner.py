@@ -1,9 +1,8 @@
 """Cost-based query planner: order decisions from live cardinality stats.
 
-Port of dgraph_tpu/query/planner.py. One part is left out: the JAX plan
-also compiles the mesh-fusable chain IR of each block (query/fusedplan.py)
-for the mesh executor; that module moves with the mesh slice, so the port's
-Plan has no `fused_chains`.
+Port of dgraph_tpu/query/planner.py. The plan also carries the
+mesh-fusable chain IR of each block (`fused_chains`, query/fusedplan.py),
+so a plan-cache hit hands the mesh executor its IR without a tree walk.
 
 The engine executes whatever order the query text happens to use:
 `Executor._run_root_func` takes the root function at face value,
@@ -110,6 +109,11 @@ class Plan:
         self.root_swap: dict[int, RootSwap] = {}
         self.child_order: dict[int, list[int]] = {}
         self.cutover: dict[int, int] = {}
+        # fusable-step IR (query/fusedplan.py): the maximal mesh-fusable
+        # chain below each block level, compiled from the AST once and
+        # cached with the plan — mesh-mode engines consume it instead of
+        # re-walking the tree per query
+        self.fused_chains: dict[int, object] = {}
         self.tree: list[dict] = []
         self.pred_stats: dict[str, dict] = {}   # EXPLAIN stats header
 
@@ -393,6 +397,10 @@ def _plan_block(plan: Plan, gq, snap, schema, metrics, trace,
     if first > 0:
         dest_est = min(dest_est, int(gq.args.get("offset", 0)) + first)
     # -- children ------------------------------------------------------------
+    if gq.recurse is None and gq.shortest is None and gq.children:
+        from dgraph_tpu_torch.query import fusedplan
+
+        plan.fused_chains[id(gq)] = fusedplan.chain_ir(gq, schema)
     children = _plan_children(plan, gq, snap, schema, metrics, trace,
                               max(dest_est, 1))
     out = {"block": gq.alias or gq.attr or "q",

@@ -1,6 +1,6 @@
 """@recurse: iterative frontier expansion to fixed depth or exhaustion.
 
-Port of dgraph_tpu/query/recurse.py (all of it but the mesh path).
+Port of dgraph_tpu/query/recurse.py.
 Reference semantics: query/recurse.go — expandRecurse (:31-177): loop per
 level, spawning copies of the original children as the new frontier's
 SubGraphs (:157-164); loop prevention via a reach-set of (attr, from, to)
@@ -17,9 +17,12 @@ edges (:129-141) unless `loop: true`; bounded by the edge budget (:167).
     stay deferred (LazyRecurseMatrix). Concurrent compatible fused
     recurses pack into one multi-source run through the device batcher
     (Executor.batched_recurse, query/batch.py).
-  * Small CSRs keep the vectorized host-mirror gather. (Tablet-routed
-    predicates, which expand over the wire with (attr, from, to) edge-key
-    dedup, wait for the cluster slice.)
+  * Small CSRs keep the vectorized host-mirror gather.
+  * Mesh-sharded tablets (parallel/mesh_exec.py): a single uid child runs
+    every level in one mesh program (its filter compiles to an allow-set
+    formula; value children layer host-side per level); other shapes
+    expand per task with (attr, from, to) edge-key dedup, as the wire
+    path does.
 """
 
 from __future__ import annotations
@@ -196,6 +199,7 @@ def recurse(ex, sg: SubGraph) -> None:
     val_children = [c for c in gq.children if c not in uid_children]
     seen_masks: dict[str, np.ndarray] = {}     # host path: attr -> bool[E]
     kstates: dict[str, dict] = {}              # kernel path: attr -> g, seen
+    seen_edges: set[tuple[str, int, int]] = set()   # dist-CSR fallback only
     edges = 0
 
     def _csr_for(cgq):
@@ -207,7 +211,8 @@ def recurse(ex, sg: SubGraph) -> None:
         return pd.rev_csr if rev else pd.csr
 
     def _use_kernel(csr) -> bool:
-        return csr is not None and csr.num_edges >= _kernel_min(csr)
+        return (csr is not None and not getattr(csr, "is_dist", False)
+                and csr.num_edges >= _kernel_min(csr))
 
     def _kstate(attr: str, csr):
         st = kstates.get(attr)
@@ -229,6 +234,44 @@ def recurse(ex, sg: SubGraph) -> None:
             _recurse_fused_path(ex, sg, cgq, csr, depth, spec.allow_loop)
             ex._record_uid_var(gq, sg)
             return
+    # ---- mesh fused path: single uid child, filters compile to allow-set
+    # formulas, value children layer host-side per level -------------------
+    mesh = getattr(ex, "mesh", None)
+    if mesh is not None and len(sg.dest_uids) and \
+            any(mesh.owns(_csr_for(c)) for c in uid_children):
+        from dgraph_tpu_torch.query import fusedplan as fp
+
+        cgq = uid_children[0] if len(uid_children) == 1 else None
+        if cgq is None:
+            # multi-predicate recurse dedups edges in DEPTH-FIRST sibling
+            # order (build_level recursion) — inherently sequential, the
+            # one traversal shape the level-synchronous program can't hold
+            ex._mesh_miss(fp.REASON_MULTI_PRED)
+        elif depth > FUSED_MAX_DEPTH:
+            ex._mesh_miss(fp.REASON_DEPTH)
+        elif mesh.owns(_csr_for(cgq)):
+            csr = _csr_for(cgq)
+            formula = None
+            sets: list | None = None
+            ok = True
+            if cgq.filter is not None:
+                try:
+                    formula, leaves = fp.compile_filter(
+                        cgq.filter, ex.schema,
+                        fp._block_child_defines(gq))
+                    sets = [fp.resolve_leaf(ex, s) for s in leaves]
+                except fp.Unfusable as e:
+                    ex._mesh_miss(e.reason)
+                    ok = False
+                except Exception:
+                    ex._mesh_miss(fp.REASON_FILTER)
+                    ok = False
+            if ok:
+                _mesh_recurse_path(ex, sg, cgq, csr, depth,
+                                   spec.allow_loop, mesh, formula, sets,
+                                   val_children)
+                ex._record_uid_var(gq, sg)
+                return
 
     def build_level(frontier: np.ndarray, remaining: int) -> list[SubGraph]:
         nonlocal edges
@@ -273,7 +316,7 @@ def recurse(ex, sg: SubGraph) -> None:
                 child.counts = LazyCounts(m)
                 child.dest_uids = np.flatnonzero(pb.unpack_words(
                     dest_words.cpu().numpy(), g.num_nodes)).astype(np.int64)
-            elif csr is not None:
+            elif csr is not None and not getattr(csr, "is_dist", False):
                 # small CSR: vectorized host-mirror gather
                 if cgq.attr not in seen_masks and len(frontier):
                     seen_masks[cgq.attr] = np.zeros(csr.num_edges, dtype=bool)
@@ -285,6 +328,25 @@ def recurse(ex, sg: SubGraph) -> None:
                 if edges > ex.edge_budget():
                     raise QueryError(
                         "recurse exceeded edge budget (ErrTooBig)")
+                _set_list_result(child, matrix)
+            elif csr is not None:
+                # mesh-sharded tablet: expand per task, dedup on
+                # (attr, from, to) keys (reference recurse.go:129-141)
+                res = ex._dispatch(TaskQuery(cgq.attr, frontier=frontier))
+                edges += res.traversed_edges
+                if edges > ex.edge_budget():
+                    raise QueryError(
+                        "recurse exceeded edge budget (ErrTooBig)")
+                matrix = []
+                for u, targets in zip(frontier, res.uid_matrix):
+                    kept = []
+                    for t in targets:
+                        ek = (cgq.attr, int(u), int(t))
+                        if not spec.allow_loop and ek in seen_edges:
+                            continue
+                        seen_edges.add(ek)
+                        kept.append(int(t))
+                    matrix.append(np.asarray(kept, dtype=np.int64))
                 _set_list_result(child, matrix)
             else:
                 # no adjacency for the predicate: no edges to expand
@@ -298,6 +360,71 @@ def recurse(ex, sg: SubGraph) -> None:
 
     sg.children = build_level(sg.dest_uids, depth)
     ex._record_uid_var(gq, sg)
+
+
+def _mesh_recurse_path(ex, sg: SubGraph, cgq, csr, depth: int,
+                       allow_loop: bool, mesh, formula=None, sets=None,
+                       val_children=()) -> None:
+    """All levels of a mesh-sharded recurse in ONE mesh program: the
+    seen-edge vector lives per shard on the device across levels, the
+    fresh dest ranks merge into the next frontier in one psum, and the
+    child filter's allow-set formula narrows it device-side
+    (mesh_exec.run_recurse — only replicated frontiers and edge totals
+    come back). The SubGraph chain replays from the HOST mirrors
+    (_expand_dedup, the same vectorized gather the classic small-CSR
+    path runs), so matrices, filter narrowing, and value children are
+    byte-identical to build_level's depth recursion by construction."""
+    seeds = np.asarray(sg.dest_uids, dtype=np.int64)
+    with costs.kernel("mesh.recurse", attr=cgq.attr):
+        levels = ex.gated(lambda: mesh.run_recurse(csr, seeds, depth,
+                                                   allow_loop, formula,
+                                                   sets),
+                          klass="mesh")
+    ex._mesh_fused += 1
+    seen = np.zeros(csr.num_edges, dtype=bool)
+    attach = sg.children = []
+    cum = 0
+    frontier = seeds
+    for lvl in range(depth + 1):
+        fr_sorted = np.sort(frontier)
+        cur: list[SubGraph] = []
+        # value/scalar children appear at every level (build_level's
+        # per-invocation head), including the depth-exhausted tail
+        for vq in val_children:
+            vchild = SubGraph(gq=vq, attr=vq.attr, src_uids=fr_sorted)
+            res = ex._dispatch(TaskQuery(vq.attr, frontier=fr_sorted,
+                                         lang=vq.lang))
+            vchild.value_matrix = res.value_matrix
+            vchild.uid_matrix = res.uid_matrix
+            vchild.counts = res.counts
+            vchild.dest_uids = res.dest_uids
+            cur.append(vchild)
+        child = None
+        if depth - lvl > 0:
+            matrix, total = _expand_dedup(csr, fr_sorted, seen,
+                                          allow_loop)
+            cum += total
+            if cum > ex.edge_budget():
+                raise QueryError("recurse exceeded edge budget (ErrTooBig)")
+            child = SubGraph(gq=cgq, attr=cgq.attr, src_uids=fr_sorted)
+            _set_list_result(child, matrix)
+            child.dest_uids = ex._apply_filter(cgq.filter,
+                                               child.dest_uids)
+            cur.append(child)
+            # cross-check the device program's frontier relay against
+            # the host replay (the host — which evaluates the REAL
+            # filter tree — stays authoritative, so a divergence means
+            # an allow-set resolver gap or a program bug: surfaced as a
+            # counter, never a wrong result)
+            if lvl + 1 < len(levels) and not np.array_equal(
+                    levels[lvl + 1][0], child.dest_uids):
+                mesh.metrics.counter(
+                    "dgraph_mesh_replay_divergence_total").inc()
+        attach.extend(cur)
+        if child is None or not len(child.dest_uids):
+            break
+        attach = child.children
+        frontier = child.dest_uids
 
 
 def _recurse_fused_path(ex, sg: SubGraph, cgq, csr, depth: int,

@@ -1,7 +1,7 @@
 """Shortest path / k-shortest paths.
 
-Port of dgraph_tpu/query/shortest.py without its mesh functions (the port's
-Executor has no mesh). Reference semantics: query/shortest.go — ShortestPath
+Port of dgraph_tpu/query/shortest.py. Reference semantics:
+query/shortest.go — ShortestPath
 (:437): single-source Dijkstra over an adjacency map accreted by
 level-synchronous frontier expansion (expandOut :134-261); edge cost from a
 facet else 1.0 (getCost :102); KShortestPath (:274): the k-paths variant,
@@ -17,6 +17,11 @@ Three tiers, as in the JAX package:
   * host: a level-by-level adjacency through the task seam, then Dijkstra
     or loopless k-shortest. It serves facet costs, child filters,
     numpaths > 1, several predicates and small CSRs.
+On a mesh (parallel/mesh_exec.py), blocks over mesh-sharded tablets —
+several predicates included — run the whole expandOut loop as ONE mesh
+program (mesh_exec.run_bfs) with the frontier, visited set and distance
+vector on the device between levels; single paths reconstruct straight
+from the distance vector, k-shortest rebuilds the level adjacency from it.
 The tiers agree on every path's length. On ties they may return different
 paths: the kernel tier and Dijkstra take the minimum-uid predecessor at
 distance d-1, sssp the maximum (its parent scatter-max), as in the JAX
@@ -29,6 +34,7 @@ import heapq
 
 import numpy as np
 
+from dgraph_tpu_torch.obs import costs
 from dgraph_tpu_torch.query import dql
 from dgraph_tpu_torch.query.engine import QueryError, SubGraph, VarValue
 from dgraph_tpu_torch.query.task import TaskQuery
@@ -129,7 +135,8 @@ def _device_csr(ex, sg: SubGraph):
     """The single predicate CSR eligible for the device tiers, or None.
 
     Eligible: one uid child, no facet cost key, no child filter, no lang,
-    numpaths <= 1, and large enough that device relaxation amortizes its
+    numpaths <= 1, resident on this device (a mesh-sharded tablet takes the
+    mesh BFS) and large enough that device relaxation amortizes its
     dispatch cost."""
     spec = sg.gq.shortest
     if spec.numpaths > 1 or len(sg.gq.children) != 1:
@@ -144,7 +151,7 @@ def _device_csr(ex, sg: SubGraph):
     if pd is None:
         return None
     csr = pd.rev_csr if rev else pd.csr
-    if csr is None:
+    if csr is None or getattr(csr, "is_dist", False):
         return None
     if csr.num_edges < _device_sssp_min(csr):
         return None
@@ -191,6 +198,166 @@ def _device_shortest(attr: str, csr, src: int, dst: int, max_depth: int):
     return (dist, path[::-1], [attr] * (len(path) - 1))
 
 
+def _mesh_csrs(ex, sg: SubGraph):
+    """[(attr, mesh-sharded CSR)] when the block's whole expansion can run
+    as ONE fused BFS dispatch: every uid child (multi-predicate blocks
+    included — the level union is synchronous) free of filters, lang, and
+    facet cost keys, over tablets this mesh placed. Serves both single
+    and k-shortest (the rebuilt adjacency feeds either). Declines record
+    the labeled fallback reason when a mesh-owned tablet was involved."""
+    mesh = getattr(ex, "mesh", None)
+    if mesh is None or not sg.gq.children:
+        return None
+    from dgraph_tpu_torch.query import fusedplan as fp
+
+    csrs = []
+    owned_any = False
+    reason = None
+    for cgq in sg.gq.children:
+        rev = cgq.attr.startswith("~")
+        pd = ex.snap.pred(cgq.attr[1:] if rev else cgq.attr)
+        csr = (pd.rev_csr if rev else pd.csr) if pd is not None else None
+        if csr is not None and mesh.owns(csr):
+            owned_any = True
+        elif csr is not None:
+            reason = reason or ex._mesh_break_reason(cgq) or fp.REASON_SHAPE
+        if cgq.filter is not None:
+            reason = reason or fp.REASON_FILTER
+        elif cgq.lang:
+            reason = reason or fp.REASON_LANG
+        elif cgq.facets is not None and cgq.facets.keys:
+            reason = reason or fp.REASON_FACET
+        csrs.append((cgq.attr, csr))
+    if reason is None and owned_any and \
+            all(c is not None and mesh.owns(c) for _a, c in csrs):
+        return csrs
+    if owned_any and reason is not None:
+        ex._mesh_miss(reason)
+    return None
+
+
+def _mesh_shortest_single(ex, sg: SubGraph, csrs, src: int, dst: int):
+    """Single shortest path from ONE fused BFS dispatch, reconstructed
+    straight from the distance vector — no adjacency dict, no host
+    Dijkstra. With unit edge costs (the mesh path rejects facet costs)
+    Dijkstra's prev[x] is exactly the MINIMUM-uid predecessor at
+    dist[x]-1 (all dist-(d-1) nodes pop before any dist-d node, in uid
+    order), and its recorded attr is the FIRST child predicate holding
+    that edge — both derivable from dist + the host CSR mirrors. The
+    program early-exits once the destination's level completes
+    (reference stopExpansion, query/shortest.go): levels beyond
+    dist[dst] cannot shorten the path."""
+    spec = sg.gq.shortest
+    max_depth = spec.depth if spec.depth > 0 else 64
+    mesh = ex.mesh
+    only = [c for _a, c in csrs]
+    with costs.kernel("mesh.bfs"):
+        dist, hops, edges = ex.gated(
+            lambda: mesh.run_bfs(only, src, max_depth, ex.edge_budget(),
+                                 stop_at=dst),
+            klass="shortest")
+    if edges > ex.edge_budget():
+        raise QueryError("shortest path exceeded edge budget (ErrTooBig)")
+    ex._mesh_fused += 1
+    tgt = mesh.bfs_targets(only)
+    pos = int(np.searchsorted(tgt, dst)) if len(tgt) else 0
+    if not len(tgt) or pos >= len(tgt) or tgt[pos] != dst or \
+            dist[pos] >= int(mesh.BFS_UNREACHED):
+        return None
+    d = int(dist[pos])
+    host = [(attr, csr.host_arrays()) for attr, csr in csrs]
+
+    def _edge_exists(arrs, u: int, t: int) -> bool:
+        subjects, indptr, indices = arrs
+        r = int(np.searchsorted(subjects, u))
+        if r >= len(subjects) or subjects[r] != u:
+            return False
+        row = indices[indptr[r]: indptr[r + 1]]
+        j = int(np.searchsorted(row, t))
+        return j < len(row) and row[j] == t
+
+    path = [dst]
+    attrs: list[str] = []
+    cur = dst
+    for level in range(d - 1, -1, -1):
+        cands = tgt[dist == level].astype(np.int64)
+        if level == 0:
+            cands = np.unique(np.concatenate(
+                [cands, np.asarray([src], dtype=np.int64)]))
+        best = None
+        for _attr, arrs in host:
+            subjects, indptr, indices = arrs
+            rows = np.searchsorted(subjects, cands)
+            rc = np.clip(rows, 0, max(len(subjects) - 1, 0))
+            ok = (len(subjects) > 0) & (subjects[rc] == cands)
+            starts = np.where(ok, indptr[rc], 0).astype(np.int64)
+            deg = np.where(ok, indptr[rc + 1] - starts, 0).astype(np.int64)
+            total = int(deg.sum())
+            if not total:
+                continue
+            offs = np.zeros(len(cands) + 1, dtype=np.int64)
+            np.cumsum(deg, out=offs[1:])
+            flat = np.repeat(starts - offs[:-1], deg) + np.arange(total)
+            hit = indices[flat] == cur
+            if hit.any():
+                seg = np.searchsorted(offs[1:], np.flatnonzero(hit),
+                                      side="right")
+                u = int(cands[seg].min())
+                best = u if best is None else min(best, u)
+        if best is None:
+            return None       # cannot happen for a finite dist
+        # attr = the FIRST child predicate holding the chosen edge (the
+        # first (t, cost, attr) tuple Dijkstra relaxed from adj[u])
+        attr_used = next(a for a, arrs in host
+                         if _edge_exists(arrs, best, cur))
+        path.append(best)
+        attrs.append(attr_used)
+        cur = best
+    return (float(d), path[::-1], attrs[::-1])
+
+
+def _mesh_bfs_adjacency(ex, sg: SubGraph, csrs, src: int):
+    """expandOut's whole level loop (query/shortest.go:134) as ONE mesh
+    program (mesh_exec.run_bfs): frontier, visited set, and distance
+    vector stay on the device between levels. The host rebuilds the level adjacency from the distance
+    vector and its CSR mirrors: a node expanded at level L holds its full
+    per-predicate rows in child order, exactly what _build_adjacency
+    accretes (cost 1.0, all targets recorded), so Dijkstra / k-shortest
+    see byte-identical inputs."""
+    spec = sg.gq.shortest
+    max_depth = spec.depth if spec.depth > 0 else 64
+    mesh = ex.mesh
+    only = [c for _a, c in csrs]
+    with costs.kernel("mesh.bfs"):
+        dist, hops, edges = ex.gated(
+            lambda: mesh.run_bfs(only, src, max_depth, ex.edge_budget()),
+            klass="shortest")
+    if edges > ex.edge_budget():
+        raise QueryError("shortest path exceeded edge budget (ErrTooBig)")
+    ex._mesh_fused += 1
+    tgt = mesh.bfs_targets(only)
+    # nodes EXPANDED by the loop: in the frontier of an executed level —
+    # dist L < hops (the last level's fresh targets joined no frontier)
+    reached = tgt[dist < hops].astype(np.int64) if hops else \
+        np.zeros(0, np.int64)
+    uids = np.unique(np.concatenate(
+        [np.asarray([src], dtype=np.int64), reached]))
+    adj: dict[int, list[tuple[int, float, str]]] = {}
+    for attr, csr in csrs:
+        subjects, indptr, indices = csr.host_arrays()
+        rows = np.searchsorted(subjects, uids)
+        rc = np.clip(rows, 0, max(len(subjects) - 1, 0))
+        ok = (len(subjects) > 0) & (subjects[rc] == uids)
+        for i in np.flatnonzero(ok):
+            u = int(uids[i])
+            r = int(rc[i])
+            row = indices[indptr[r]: indptr[r + 1]]
+            if len(row):
+                adj.setdefault(u, []).extend(
+                    (int(t), 1.0, attr) for t in row)
+    return adj
+
+
 def shortest_path(ex, sg: SubGraph) -> None:
     spec = sg.gq.shortest
     src = _resolve_end(ex, spec.from_)
@@ -201,11 +368,18 @@ def shortest_path(ex, sg: SubGraph) -> None:
         sg.paths = [(0.0, [src], [])]
     else:
         dev = _device_csr(ex, sg)
+        mesh = _mesh_csrs(ex, sg) if dev is None else None
         if dev is not None:
             p = _device_shortest(dev[0], dev[1], src, dst, max_depth)
             sg.paths = [p] if p is not None else []
+        elif mesh is not None and spec.numpaths <= 1:
+            p = _mesh_shortest_single(ex, sg, mesh, src, dst)
+            sg.paths = [p] if p is not None else []
         else:
-            adj = _build_adjacency(ex, sg, src, dst)
+            if mesh is not None:
+                adj = _mesh_bfs_adjacency(ex, sg, mesh, src)
+            else:
+                adj = _build_adjacency(ex, sg, src, dst)
             if spec.numpaths <= 1:
                 p = _dijkstra(adj, src, dst)
                 sg.paths = [p] if p is not None else []

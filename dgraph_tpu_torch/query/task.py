@@ -213,12 +213,25 @@ def _expand_csr(csr: PredCSR, uids: np.ndarray, first: int = 0,
     on the host indptr mirror, then the host gather (small, or a cold
     tablet) or one device gather at a pow2 capacity class (large); both
     give the same matrix. An overlaid adjacency (OverlayCSR) merges on read
-    (_expand_overlay).
+    (_expand_overlay); a mesh-sharded one gathers over its mesh.
 
     cutover: the planner's override of the host/device switch point (0 =
     HOST_EXPAND_MAX)."""
     if len(uids) == 0 or csr is None:
         return [np.zeros(0, np.int64) for _ in range(len(uids))], 0
+    if getattr(csr, "is_dist", False):
+        # mesh-sharded tablet: the SAME size-adaptive host/device cutover
+        # as the resident path — a small frontier gathers from the host
+        # mirrors; past the cutover the expand runs over the owning mesh
+        # (parallel/dist.DistPredCSR)
+        rows, indptr_h, deg, need = _frontier_degrees(csr, uids)
+        if need <= (cutover or HOST_EXPAND_MAX):
+            matrix = _host_expand_matrix(indptr_h, csr.host_arrays()[2],
+                                         rows, deg, uids, need, cutover)
+            total = need
+        else:
+            matrix, total = csr.expand_matrix(uids)
+        return apply_first(matrix, first), total
     if isinstance(csr, OverlayCSR):
         matrix, total = _expand_overlay(csr, uids, cutover)
         return apply_first(matrix, first), total

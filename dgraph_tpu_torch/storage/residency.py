@@ -23,7 +23,7 @@ Port of dgraph_tpu/storage/residency.py. The tiers map onto CUDA memory:
               dgraph_residency_cold_serves_total; it is not a fallback.
 
 Admission/eviction is scored with the placement controller's rate ×
-log2(size) signal (tablet_score, kept here as a copy), fed by the
+log2(size) signal (coord/placement.tablet_score), fed by the
 executor's on_task hook (Node._count_task calls `touch`). Guards:
 
   * pin floors — `--residency_pin a,b` tablets are never evicted;
@@ -65,10 +65,10 @@ package's is.
 
 from __future__ import annotations
 
-import math
 import time
 import weakref
 
+from dgraph_tpu_torch.coord.placement import tablet_score
 from dgraph_tpu_torch.obs import otrace
 from dgraph_tpu_torch.utils import faults, locks
 
@@ -80,14 +80,6 @@ TIER_COLD = "cold"
 # peak load. Long enough to ride out bursty plans, short enough that a
 # cooled-off tablet loses its slot to the new working set.
 RATE_HALFLIFE_S = 30.0
-
-
-def tablet_score(size_bytes: float, rate: float) -> float:
-    """rate × log2(size): the placement controller's scoring rule (a copy
-    of the JAX coord/placement.tablet_score, whose module waits for the
-    mesh slice), so the device working set and the cluster placement
-    agree on what "hot" means."""
-    return rate * max(1.0, math.log2(2.0 + max(float(size_bytes), 0.0)))
 
 
 class _Entry:

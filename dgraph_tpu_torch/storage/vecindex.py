@@ -34,8 +34,11 @@ centroids and lists equal the JAX package's bit for bit); searches scan the
 `nprobe` nearest lists (`VECTOR_NPROBE`, --vector_nprobe) and re-score
 candidates exactly. Recall@k >= 0.95 is gated in tests and chip_smoke.py.
 
-The mesh placement (`_mesh`, a sharded row scan) waits for the mesh slice:
-the attribute stays None here.
+A mesh placement (`_mesh`, set by parallel/mesh_exec.MeshExecutor on its
+copy of the index) scans rows sharded across the mesh with a replicated
+top-k merge; the float64 re-rank stays on the host, so the answer is the
+same bytes. It wins over IVF: the sharded brute scan is what the
+placement exists for.
 """
 
 from __future__ import annotations
@@ -126,7 +129,7 @@ class VectorIndex:
         self.nprobe = int(nprobe)    # 0 = VECTOR_NPROBE at search time
         self._vecs64 = None      # lazy float64 mirror (exact re-rank)
         self._dev = None         # lazy (matrix[R,D], norms[R], subs[R])
-        self._mesh = None        # mesh placement: waits for the mesh slice
+        self._mesh = None        # mesh placement (parallel/mesh_exec.py)
 
     @property
     def n(self) -> int:
@@ -370,7 +373,11 @@ def _rescore(base: VectorIndex, rows: np.ndarray, q64: np.ndarray):
 
 def _device_candidates(vi: VectorIndex, q: np.ndarray, kprime: int,
                        dead_rows: np.ndarray, metrics=None) -> np.ndarray:
-    """Float32 device candidate rows (superset stage)."""
+    """Float32 device candidate rows (superset stage). Mesh-sharded
+    placements fan the row scan across the mesh with a replicated top-k
+    merge (parallel/mesh_exec.py)."""
+    if vi._mesh is not None:
+        return vi._mesh.vector_topk(vi, q, kprime, dead_rows)
     mat, norms, _subs = vi.device()
     with otrace.span("device_kernel", kernel="vector.topk",
                      rows=int(vi.n), k=kprime) as sp:
@@ -445,8 +452,12 @@ def search(vi, q, k: int, *, nprobe: int | None = None,
     cand_subs: list[np.ndarray] = []
     cand_d: list[np.ndarray] = []
     if base is not None and base.n:
-        use_ivf = (exact is False) or (exact is None and
-                                       base.ivf is not None)
+        # a mesh-sharded placement wins over IVF: the sharded brute scan
+        # is what the placement exists for (per-device row slices), while
+        # _ivf_device_stage would upload the FULL base matrix to one
+        # device — exactly the memory profile sharding avoids
+        use_ivf = base._mesh is None and ((exact is False) or (
+            exact is None and base.ivf is not None))
         if use_ivf and base.ivf is not None:
             if metrics is not None:
                 metrics.counter("dgraph_vector_ivf_probes_total").inc()

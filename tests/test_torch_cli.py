@@ -6,8 +6,8 @@ golden queries over HTTP and over gRPC (the answers equal
 tests/golden/expected.json), and /admin/shutdown, after which the process
 exits 0; `export` over a posting directory, equal to the JAX package's
 `export` of the same directory; `serve` without `--device` on a machine
-without CUDA, and a flag of a later slice, each failing with the slice or
-the device named; `serve` with the serving-seam flags (`--no_batch`,
+without CUDA, failing with the device named; `serve --mesh` over the golden
+battery, equal to a JAX mesh Node; `serve` with the serving-seam flags (`--no_batch`,
 `--no_planner`, `--no_devprof`, `--device_budget_mb`, `--residency_pin`,
 `--memory_mb`), each acting as on a JAX Node with the same setting; and a
 subprocess guard that the wire modules load
@@ -163,11 +163,52 @@ def test_serve_without_device_needs_cuda():
     (["--mesh"], "mesh"),
 ], ids=["mesh"])
 def test_later_slice_flag_fails_naming_it(flags, slice_name):
-    proc = _cli("serve", "--device", "cpu", "--port", "0", "--grpc_port",
-                "0", *flags)
-    assert proc.returncode != 0
-    assert f"{slice_name} slice" in proc.stderr
-    assert "serving" not in proc.stdout
+    """`serve --mesh` (a flag that failed naming its slice until the mesh
+    came) serves the golden battery over HTTP as expected.json and as a
+    JAX mesh Node with the same shards; its /debug/metrics mesh section
+    equals the JAX Node's."""
+    from dgraph_tpu.api.http import _serving_metrics
+
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "dgraph_tpu_torch", "serve", "--device", "cpu",
+         "--port", "0", "--grpc_port", "0", *flags, "--mesh_devices", "8",
+         "--mesh_min_edges", "1"],
+        cwd=REPO, env=ENV, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+    lines: queue.Queue = queue.Queue()
+    reader = threading.Thread(
+        target=lambda: [lines.put(ln) for ln in proc.stdout], daemon=True)
+    reader.start()
+    j = JNode(mesh_devices=8, mesh_min_edges=1)
+    try:
+        port = None
+        while port is None:
+            m = re.match(r"serving HTTP on [\d.]+:(\d+)",
+                         lines.get(timeout=START_S))
+            port = int(m.group(1)) if m else None
+        _post(port, "/alter", GOLDEN.SCHEMA)
+        _post(port, "/mutate?commitNow=true",
+              "{ set {\n" + GOLDEN._dataset() + "\n} }")
+        j.alter(schema_text=GOLDEN.SCHEMA)
+        j.mutate(set_nquads=GOLDEN._dataset(), commit_now=True)
+        for name, q in GOLDEN.QUERIES:
+            got = _post(port, "/query", q)["data"]
+            assert got == EXPECTED[name] == json.loads(
+                json.dumps(j.query(q)[0], default=str)), name
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{port}/debug/metrics", timeout=10) as r:
+            t = json.loads(r.read())[slice_name]
+        want = json.loads(json.dumps(_serving_metrics(j)[slice_name]))
+        assert t == want and t["enabled"] and t["devices"] == 8
+        assert t["fused_queries"] > 0 and t["sharded_tablets"] > 0
+        assert _post(port, "/admin/shutdown", "")["code"] == "Success"
+        assert proc.wait(timeout=30) == 0
+    finally:
+        j.close()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=10)
+        reader.join(timeout=5)
 
 
 @pytest.mark.parametrize("flags,kw", [

@@ -19,8 +19,9 @@ batcher, the device observatory, the HBM working-set manager under a
 budget and pins) and the methods behind them (set_memory_budget,
 enforce_memory, set_devprof, query(explain=True), Executor(plan=,
 explain=, batcher=)) each answer as the JAX Node's do with the same
-setting; only the mesh seams still raise naming their slice (the vector
-knobs act since the vector slice: tests/test_torch_vector.py).
+setting, and so do the mesh seams: Node(mesh_devices=), Node.analytics and
+Executor(mesh=) (their full suites: tests/test_torch_mesh.py,
+test_torch_fused.py, test_torch_analytics.py).
 
 The paged store: Node(dirpath, memory_mb=) in the port answers as an eager
 port Node and as the JAX paged Node, and Store(memory_budget=) folds equal
@@ -134,24 +135,99 @@ def test_node_default_device_raises_without_cuda(monkeypatch):
 @pytest.mark.parametrize("kw,slice_name", [
     ({"mesh_devices": -1}, "mesh"),
 ], ids=lambda x: str(x))
-def test_off_seams_raise_naming_their_slice(kw, slice_name):
-    with pytest.raises(NotImplementedError, match=f"{slice_name} slice"):
-        TNode(device="cpu", **kw)
+def test_off_seams_raise_naming_their_slice(nodes, kw, slice_name):
+    """The seam that raised naming its slice until the mesh came now
+    answers: Node(mesh_devices=-1) on the CPU is a one-shard mesh (the CPU
+    is one device; the JAX tests' CPU platform is forced to eight), and its
+    golden answers equal expected.json and the JAX mesh Node's."""
+    t = _port_node(nodes, mesh_min_edges=1, **kw)
+    j = nodes(JNode, mesh_min_edges=1, **kw)
+    assert t.mesh_exec is not None and t.mesh_exec.n_devices == 1
+    assert j.mesh_exec.n_devices == 8
+    for n in (t, j):
+        n.alter(schema_text=GOLDEN.SCHEMA)
+        n.mutate(set_nquads=GOLDEN._dataset(), commit_now=True)
+    for name, q in GOLDEN.QUERIES[:12]:
+        got = json.loads(json.dumps(t.query(q)[0], default=str))
+        assert got == EXPECTED[name] == \
+            json.loads(json.dumps(j.query(q)[0], default=str)), name
+    key = "dgraph_mesh_sharded_tablets"
+    assert t.metrics.counter(key).value == j.metrics.counter(key).value > 0
 
 
 @pytest.mark.parametrize("call,slice_name", [
     (lambda n: n.analytics("pagerank", "friend"), "mesh"),
 ], ids=["analytics"])
 def test_off_methods_raise_naming_their_slice(nodes, call, slice_name):
-    n = _port_node(nodes)
-    with pytest.raises(NotImplementedError, match=f"{slice_name} slice"):
-        call(n)
+    """Node.analytics answers as the JAX Node's: over a Node without a
+    mesh, the float64 host oracles, the same dict; a predicate without uid
+    edges, the same ValueError."""
+    t, j = _port_node(nodes), _jax_node(nodes)
+    errs = []
+    for n in (t, j):
+        with pytest.raises(ValueError) as e:
+            call(n)
+        errs.append(str(e.value))
+        n.alter(schema_text="friend: [uid] @reverse .")
+        n.mutate(set_nquads="<0x1> <friend> <0x2> .\n<0x2> <friend> <0x3> ."
+                            "\n<0x3> <friend> <0x1> .\n<0x4> <friend> <0x5> .",
+                 commit_now=True)
+    assert errs[0] == errs[1]
+    for kind in ("pagerank", "cc", "triangles"):
+        a, b = t.analytics(kind, "friend"), j.analytics(kind, "friend")
+        assert json.dumps(a) == json.dumps(b), kind
+        assert a["device"] is False
+    assert call(t)["top"][0]["uid"] == call(j)["top"][0]["uid"]
 
 
-@pytest.mark.parametrize("kw,slice_name", [({"mesh": object()}, "mesh")])
+@pytest.mark.parametrize("kw,slice_name", [({"mesh": 8}, "mesh")])
 def test_executor_off_seams_raise(kw, slice_name):
-    with pytest.raises(NotImplementedError, match=f"{slice_name} slice"):
-        teng.Executor(tcb.GraphSnapshot(1, device="cpu"), None, **kw)
+    """Executor(mesh=) runs the fused chain over a placed snapshot: the
+    port's MeshExecutor on 8 repeats of the CPU device against the JAX
+    MeshExecutor, the same JSON, one mesh program each."""
+    from dgraph_tpu.parallel.mesh_exec import MeshExecutor as JME
+    from dgraph_tpu.query import dql as jdql
+    from dgraph_tpu.query.engine import Executor as JExecutor
+    from dgraph_tpu.utils import schema as jsch
+    from dgraph_tpu.utils.types import TypeID as JTypeID
+    from dgraph_tpu_torch import carry
+    from dgraph_tpu_torch.parallel.mesh import make_mesh
+    from dgraph_tpu_torch.parallel.mesh_exec import MeshExecutor as TME
+    from dgraph_tpu_torch.query import dql as tdql
+    from dgraph_tpu_torch.utils import schema as tsch
+
+    S = kw["mesh"]
+    rng = np.random.default_rng(3)
+    arrays = {}
+    for attr in ("a", "b"):
+        e = np.unique(rng.integers(1, 200, size=(900, 2)), axis=0)
+        e = e[e[:, 0] != e[:, 1]]
+        subs, counts = np.unique(e[:, 0], return_counts=True)
+        ptr = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+        arrays[attr] = (subs.astype(np.int32), ptr, e[:, 1].astype(np.int32))
+    jsnap = jcb.GraphSnapshot(1)
+    for attr, (s, p, i) in arrays.items():
+        jsnap.preds[attr] = jcb.PredData(attr, JTypeID.UID,
+                                         csr=jcb.PredCSR(s, p, i))
+    tsnap = carry.snapshot_from_numpy(
+        {a: (int(JTypeID.UID), *v) for a, v in arrays.items()}, 1,
+        device="cpu")
+    jschema, tschema = jsch.SchemaState(), tsch.SchemaState()
+    for mod, sch in ((jsch, jschema), (tsch, tschema)):
+        for e in mod.parse_schema("a: [uid] .\nb: [uid] ."):
+            sch.set(e)
+    jm = JME(n_devices=S, shard_min_edges=1)
+    tm = TME(mesh=make_mesh(S, devices=[torch.device("cpu")] * S),
+             shard_min_edges=1)
+    q = "{ q(func: uid(0x3, 0x9, 0x20)) { a (first: 3) { b { a } } } }"
+    a = JExecutor(jm.place_snapshot(jsnap), jschema,
+                  mesh=jm).execute(jdql.parse(q))
+    b = teng.Executor(tm.place_snapshot(tsnap), tschema,
+                      mesh=tm).execute(tdql.parse(q))
+    assert json.dumps(b, sort_keys=True) == json.dumps(a, sort_keys=True)
+    for m in (jm, tm):
+        assert m.metrics.counter("dgraph_mesh_dispatches_total").value == 1
+        assert m.metrics.counter("dgraph_mesh_fused_queries_total").value == 1
 
 
 # ---------------------------------------------------------------------------

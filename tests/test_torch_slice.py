@@ -464,6 +464,18 @@ from dgraph_tpu_torch.storage import packed
 dec = packed_decode.unpack_device(packed_decode.to_device(
     packed.pack(np.arange(3, 900, 7, dtype=np.uint64)), device="cpu"))
 out["packed"] = int((dec != 2**31 - 1).sum())
+from dgraph_tpu_torch.api.server import Node
+mn = Node(device="cpu", mesh_devices=4, mesh_min_edges=1, planner=False)
+mn.alter(schema_text="friend: [uid] .")
+mn.mutate(set_nquads="\n".join("<%s> <friend> <%s> ." % (hex(int(a)), hex(int(b)))
+                               for a, b in zip(np.repeat(s, np.diff(p)), x)),
+          commit_now=True)
+mq = "{ q(func: uid(%s)) { friend { friend { uid } } } }" % hex(int(s[0]))
+mesh_out = mn.query(mq)[0] == Executor(snap, schema).execute(dql.parse(mq))
+mesh_out = (mesh_out, mn.metrics.counter(
+    "dgraph_mesh_fused_queries_total").value,
+    mn.analytics("cc", "friend")["device"])
+mn.close()
 libs = [ln.split()[-1] for ln in open("/proc/self/maps") if "libdgt" in ln]
 new = set(sys.modules) - before
 bad = sorted(m for m in new if m.split(".")[0] in ("jax", "jaxlib")
@@ -472,7 +484,8 @@ print(json.dumps({"bad": bad, "levels": len(json.dumps(out)),
                   "store": out["store"], "overlaid": overlaid,
                   "native": nat, "libs": sorted(set(libs)),
                   "vector": out["vector"], "bulk_edges": bst.uid_edges,
-                  "worker_torch": worker_torch, "packed": out["packed"]}))
+                  "worker_torch": worker_torch, "packed": out["packed"],
+                  "mesh": mesh_out}))
 """
 
 
@@ -494,6 +507,9 @@ def test_port_never_imports_jax():
     # bulk_load with two spawned parse workers, which never load torch
     assert res["bulk_edges"] == 200 and res["worker_torch"] is False
     assert res["packed"] == len(range(3, 900, 7))
+    # a mesh Node: the fused chain's JSON equals the unsharded Executor's,
+    # and analytics runs on the mesh
+    assert res["mesh"] == [True, 1, True]
     # the port's own codec build, never the JAX package's native/libdgt.so
     assert res["native"] and res["libs"]
     for lib in res["libs"]:
@@ -520,7 +536,10 @@ def test_port_sources_import_no_jax():
     assert {"query/engine.py", "ops/vector.py", "storage/vecindex.py",
             "ops/packed_decode.py", "ingest/spill.py", "loader/bulk.py",
             "loader/live.py", "loader/xidmap.py", "loader/convert.py",
-            "models/ldbc.py", "models/film.py"} <= scanned
+            "models/ldbc.py", "models/film.py", "parallel/mesh.py",
+            "parallel/dist.py", "parallel/mesh_exec.py",
+            "query/fusedplan.py", "query/analytics.py",
+            "coord/placement.py"} <= scanned
 
 
 @pytest.mark.parametrize("scale,ef,seed", [(6, 4, 1), (10, 16, 7), (12, 8, 9),
