@@ -175,7 +175,27 @@ it:
      numpy over the CSVs and to the host-mirror route; export equal to the
      input N-Quads under the xid map; live of a LIVE_PREFIX prefix equal to
      bulk of it; ops/packed_decode over the knows tablet's bp128 lists;
-  14. prints the card line, a {"kernels": [...]} line and the final
+  14. the wire cluster: (a) in this process, over loopback gRPC, a Zero
+     with two groups and two workers on the card (serve_worker(device=));
+     group 0's Store holds friend with ~friend, group 1's age and name on
+     every node id (phase 7's values), both installing phase 8's packed
+     lists as loaded; the tablet map read back from ZeroClient; then
+     through a ClusterClient: phase 4's 128-seed @recurse(depth: 3) walked
+     on the Executor its query() runs (ClusterClient.read_executor; levels
+     equal to phase 4's, no JSON: a cut, its size; p50 of CLUSTER_TIMED, a
+     torch.profiler trace beside CUDA events, a worker expand on the
+     card), phase 5's one-uid @recurse and CLUSTER_CHAIN (a two-hop chain
+     across both groups sorted by a remote key with first/offset), each
+     JSON byte-identical to the unsharded Executor over phase 4's
+     snapshot, and a mutation of a friend edge and an age committed
+     through Zero and read back (commit-to-visible); each worker's open
+     and first-task seconds, ServeTask calls and response bytes per
+     request, the workers' dgraph_replica_*/dgraph_batch_* counters; K1/K2
+     launches of the recurse go into the kernels line as
+     `launches_cluster`; (b) `python -m dgraph_tpu_torch zero --groups 2`
+     and two `worker --device cuda` processes: the golden battery loaded
+     through ClusterClient.mutate, every query equal to expected.json;
+  15. prints the card line, a {"kernels": [...]} line and the final
      {"ok": true, "device": {...}} line.
 Any mismatch raises and the script exits non-zero. It never imports jax or
 the JAX package.
@@ -216,9 +236,10 @@ name: string @index(exact, term) .
 VOCAB = tuple(f"w{chr(97 + i // 8)}{chr(97 + i % 8)}" for i in range(64))
 # phase 8: the headline graph and age in the port's Store, then a seeded
 # program of COMMITS transactions over a pool of COMMIT_POOL subjects (32
-# transactions since phase 10 came: the script's time limit, a cut of scale)
+# transactions since phase 10 came, 16 since phase 14 came: the script's
+# time limit, a cut of scale)
 STORE_SCHEMA = "friend: [uid] @reverse .\nage: int @index(int) ."
-COMMITS, COMMIT_POOL = 32, 32
+COMMITS, COMMIT_POOL = 16, 32
 # the overlay expand adds the largest rows to the seeds until the base side
 # alone passes this many edges (past task.HOST_EXPAND_MAX: the device gather)
 EXPAND_EDGES = 300_000
@@ -302,6 +323,18 @@ LDBC_SF, LDBC_SEED, LIVE_PREFIX = 0.2, 20260804, 5000
 # is byte-identical to the in-RAM tier's), which logs the map and the reduce
 LDBC_SPILL_MB = 512
 LDBC_PARSE_WORKERS = 4     # the export check's parse (bulk's map stage)
+# phase 14: the wire cluster. Group 0's store holds friend (with ~friend),
+# group 1's age and name on every node id (phase 7's values; name without
+# an index: phase 14 fetches it and never looks it up). The chain crosses
+# both groups twice and sorts by a remote key; CLUSTER_TIMED runs are timed
+CLUSTER_SCHEMAS = ("friend: [uid] @reverse .",
+                   "age: int @index(int) .\nname: string .")
+CLUSTER_TABLETS = {"friend": 0, "age": 1, "name": 1}
+CLUSTER_CHAIN_SEEDS, CLUSTER_TIMED = 16, 3
+CLUSTER_CHAIN = ("{ var(func: uid(%s)) { friend { f as friend "
+                 "@filter(ge(age, 50)) } } q(func: uid(f), orderasc: age, "
+                 "first: 20, offset: 5) { uid age name friend (first: 2) "
+                 "{ uid age } } }")
 
 
 def host_3hop(subjects, indptr, indices, seeds, hops=3):
@@ -905,7 +938,7 @@ def main() -> int:
     json_recurse = shapes["loop_recurse"][0].replace(", loop: true", "")
     with tempfile.TemporaryDirectory(prefix="dgt-ckpt-") as ckpt_dir:
         t0 = time.perf_counter()
-        storage_launches, served = storage_phase(
+        storage_launches, served, lists = storage_phase(
             snap, schema, (subjects, indptr, indices), (rsub, rptr, ridx),
             seeds, expand_seeds, wide, json_recurse, 1 << SCALE,
             ckpt_dir, dev)
@@ -983,7 +1016,18 @@ def main() -> int:
     say("loader_phase_done", seconds=time.perf_counter() - t0,
         script_seconds=time.perf_counter() - t_start)
 
-    # ---- 14. summary lines -------------------------------------------------
+    # ---- 14. the wire cluster: Zero, workers on the card, ClusterClient ----
+    t0 = time.perf_counter()
+    cluster_launches = cluster_phase(
+        snap, schema, (subjects, indptr, indices), lists, seeds, q,
+        host_levels, json_recurse, dev)
+    del lists
+    for name, n in cluster_launches.items():
+        kernels[name]["launches_cluster"] = n
+    say("cluster_phase_done", seconds=time.perf_counter() - t0,
+        script_seconds=time.perf_counter() - t_start)
+
+    # ---- 15. summary lines -------------------------------------------------
     kern_line = {"kernels": [
         {k: v for k, v in kernels[n].items() if k not in ("e_pad", "stream")}
         for n in ("active_prefix", "active_prefix_sparse")]}
@@ -1444,7 +1488,8 @@ def groupby_phase(snap, schema, csr, wide) -> dict:
 
 
 def storage_phase(snap4, schema4, csr, rev, seeds, expand_seeds, wide,
-                  json_recurse, n_ids, ckpt_dir, dev) -> tuple[dict, dict]:
+                  json_recurse, n_ids, ckpt_dir, dev) -> tuple[dict, dict,
+                                                              dict]:
     """Phase 8: the headline graph (with its REVERSE keys) and `age` on
     every node id loaded into the port's Store (a directory, ckpt_dir)
     through bulk_install, folded, read through a SnapshotAssembler, written
@@ -1453,9 +1498,12 @@ def storage_phase(snap4, schema4, csr, rev, seeds, expand_seeds, wide,
     at the last commit. snap4/schema4 are phase 4's carried snapshot (with
     phase 7's `age`, the same data); json_recurse is a one-uid
     @recurse(depth: 3) whose JSON fits JSON_MAX_BYTES; wide is the expand
-    frontier and phase 7b's uid set. Returns the K1/K2 launches of the two counted 128-seed
-    @recurse runs, and the JSON of json_recurse and of phase 7b's request
-    (a) over the compaction, which phase 9 serves from the checkpoint."""
+    frontier and phase 7b's uid set. Returns the K1/K2 launches of the two
+    counted 128-seed @recurse runs, the JSON of json_recurse and of phase
+    7b's request (a) over the compaction, which phase 9 serves from the
+    checkpoint, and the lists as loaded (before any commit), which phase
+    14's groups install: "friend" and "age" ({key: packed row}: friend with
+    ~friend, age's index) and "age_values" ({key: its age posting})."""
     import threading
 
     import torch
@@ -1471,9 +1519,7 @@ def storage_phase(snap4, schema4, csr, rev, seeds, expand_seeds, wide,
         PredCSR, SnapshotAssembler, build_snapshot)
     from dgraph_tpu_torch.storage.delta import LazyTokenIndex, OverlayCSR
     from dgraph_tpu_torch.storage.index import index_tokens
-    from dgraph_tpu_torch.storage.postings import (
-        VALUE_UID, Op, Posting, PostingList)
-    from dgraph_tpu_torch.storage.store import Store
+    from dgraph_tpu_torch.storage.postings import VALUE_UID, Op, Posting
     from dgraph_tpu_torch.utils.schema import parse_schema
     from dgraph_tpu_torch.utils.types import TypeID, Val
 
@@ -1488,59 +1534,41 @@ def storage_phase(snap4, schema4, csr, rev, seeds, expand_seeds, wide,
     # ---- load: bulk_install of packed lists, as loader/bulk.py's reduce ---
     if not native.available():
         fail("load", "the native codec did not build")
-    store = Store(ckpt_dir)
-    for e in parse_schema(STORE_SCHEMA):
-        store.set_schema(e)
-    schema = store.schema
-
-    def keys_of(make, attr, uids):
-        """Encoded keys of one kind for many uids: the key's head once and
-        the uid as 8 big-endian bytes (checked against keys.py)."""
-        head = make(attr, 0).encode()[:-8]
-        raw = np.asarray(uids, dtype=">u8").tobytes()
-        out = [head + raw[i: i + 8] for i in range(0, len(raw), 8)]
-        if out and out[-1] != make(attr, int(uids[-1])).encode():
-            fail("load", "key layout differs from storage/keys.py")
-        return out
-
     load = {}
     t0 = time.perf_counter()
-    keys = keys_of(K.data_key, "friend", subjects)
+    keys = encoded_keys(K.data_key, "friend", subjects)
     rows = np.split(indices.astype(np.uint64), indptr[1:-1])
-    keys += keys_of(K.reverse_key, "friend", rsub)
+    keys += encoded_keys(K.reverse_key, "friend", rsub)
     rows += np.split(ridx.astype(np.uint64), rptr[1:-1])
     load["friend_rows"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     ids = np.arange(1, n_ids + 1, dtype=np.int64)
     age = np.random.default_rng(11).integers(0, 100, n_ids)   # phase 7's
-    akeys = keys_of(K.data_key, "age", ids)
-    posts = {kb: {VALUE_UID: Posting(VALUE_UID, Op.SET, Val(TypeID.INT, a))}
-             for kb, a in zip(akeys, age.tolist())}
-    keys += akeys
-    rows += [np.asarray([VALUE_UID], np.uint64)] * n_ids
+    by_age = [Posting(VALUE_UID, Op.SET, Val(TypeID.INT, a))
+              for a in range(100)]
+    age_values = dict(zip(encoded_keys(K.data_key, "age", ids),
+                          (by_age[a] for a in age.tolist())))
+    ikeys, irows = [], []
+    entry = parse_schema(STORE_SCHEMA)[1]
     order = np.argsort(age, kind="stable")
     cuts = np.searchsorted(age[order], np.arange(101))
-    entry = schema.get("age")
     for a in range(100):
         members = ids[order[cuts[a]: cuts[a + 1]]].astype(np.uint64)
         if len(members):
             for tk in index_tokens(entry, Val(TypeID.INT, a)):
-                keys.append(K.index_key("age", tk).encode())
-                rows.append(members)
+                ikeys.append(K.index_key("age", tk).encode())
+                irows.append(members)
     load["age_rows"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    lists = {}
-    for kb, pu in zip(keys, native.pack_many(rows)):
-        pl = PostingList()
-        pl.base_ts = 1
-        pl.base_packed = pu
-        pl.base_postings = posts.get(kb, {})
-        lists[kb] = pl
+    lists = {"friend": packed_rows(keys, rows),
+             "age": packed_rows(ikeys, irows), "age_values": age_values}
     load["pack"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    store.bulk_install(lists, 1)
+    store = packed_store(STORE_SCHEMA, {**lists["friend"], **lists["age"]},
+                         age_values, dirpath=ckpt_dir)
+    schema = store.schema
     load["install"] = time.perf_counter() - t0
-    del keys, rows, posts, lists
+    del keys, rows, ikeys, irows
     say("storage_load", seconds=load, native=native.available(),
         keys=len(store.lists), ids=n_ids)
 
@@ -1853,7 +1881,7 @@ def storage_phase(snap4, schema4, csr, rev, seeds, expand_seeds, wide,
         step_seconds=time.perf_counter() - t_step,
         phase_seconds=time.perf_counter() - t_phase)
     return ({k: l_store[k] + l_ov[k] for k in l_store},
-            {"recurse": rec_json, "groupby_uid": gb_json})
+            {"recurse": rec_json, "groupby_uid": gb_json}, lists)
 
 
 def serve_phase(ckpt_dir, expected, wide, json_recurse, n_ids, dev,
@@ -1998,25 +2026,28 @@ def http_call(port, method, path, body=None, headers=None, timeout=300):
         conn.close()
 
 
-class CliServer:
-    """`python -m dgraph_tpu_torch serve` started as a user starts it, with
-    --device at its default, its output read by a thread that stamps each
-    line's arrival. Started before phase 9 opens its Node, so its start
-    (torch import, CUDA context) overlaps that open; stop() kills it if it
-    is still running. `args` go after serve's own (phase 13: -p DIR)."""
+def free_port() -> int:
+    """A TCP port on 127.0.0.1 that is free now."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+class CliProcess:
+    """`python -m dgraph_tpu_torch <args>` started as a user starts it, its
+    output read by a thread that stamps each line's arrival, so its start
+    time reads right however late its lines are read; stop() kills it if
+    it is still running."""
 
     def __init__(self, *args):
         import queue
-        import socket
         import threading
 
-        with socket.socket() as sock:
-            sock.bind(("127.0.0.1", 0))
-            self.gport = sock.getsockname()[1]
         self.t0 = time.perf_counter()
         self.proc = subprocess.Popen(
-            [sys.executable, "-m", "dgraph_tpu_torch", "serve", "--port", "0",
-             "--grpc_port", str(self.gport), *args],
+            [sys.executable, "-m", "dgraph_tpu_torch", *args],
             cwd=Path(__file__).resolve().parent, stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True)
         self.lines: queue.Queue = queue.Queue()
@@ -2030,11 +2061,44 @@ class CliServer:
             self.lines.put((time.perf_counter(), ln))
         self.lines.put((time.perf_counter(), None))
 
+    def banner(self, timeout=240.0):
+        """(port, line, seconds from start) of its `... serving ... on
+        host:port` line; fails if the process ends or never says it."""
+        import queue
+        import re
+
+        end = time.perf_counter() + timeout
+        while True:
+            try:
+                t, ln = self.lines.get(timeout=max(end - time.perf_counter(),
+                                                   0.01))
+            except queue.Empty:
+                ln = None
+            if ln is None:
+                raise SystemExit(f"cli {self.proc.args[3]}: no serving "
+                                 f"line: {''.join(self.log)[-2000:]}")
+            m = re.search(r"serving .* on [\w.]+:(\d+)", ln)
+            if m:
+                return int(m.group(1)), ln.strip(), t - self.t0
+
     def stop(self):
         if self.proc.poll() is None:
             self.proc.kill()
-            self.proc.wait(timeout=30)
+        self.proc.wait(timeout=30)
         self.reader.join(timeout=10)
+
+
+class CliServer(CliProcess):
+    """`python -m dgraph_tpu_torch serve` with --device at its default, its
+    gRPC port `gport` picked here and its HTTP port by the server. Phase
+    9's starts before phase 9 opens its Node, so its start (torch import,
+    CUDA context) overlaps that open. `args` go after serve's own (phase
+    13: -p DIR)."""
+
+    def __init__(self, *args):
+        self.gport = free_port()
+        super().__init__("serve", "--port", "0", "--grpc_port",
+                         str(self.gport), *args)
 
 
 def cli_phase(cli: CliServer, dev) -> dict:
@@ -3265,9 +3329,7 @@ def vector_phase(snap4, csr, dev, n=VEC_N, n_queries=VEC_QUERIES) -> dict:
     from dgraph_tpu_torch.storage import vecindex as vx
     from dgraph_tpu_torch.storage.csr_build import (
         GraphSnapshot, PredData, SnapshotAssembler, build_pred)
-    from dgraph_tpu_torch.storage.postings import (
-        VALUE_UID, Op, Posting, PostingList)
-    from dgraph_tpu_torch.storage.store import Store
+    from dgraph_tpu_torch.storage.postings import VALUE_UID, Op, Posting
     from dgraph_tpu_torch.utils.metrics import Registry
     from dgraph_tpu_torch.utils.schema import (SchemaState, VectorSpec,
                                                parse_schema)
@@ -3320,31 +3382,11 @@ def vector_phase(snap4, csr, dev, n=VEC_N, n_queries=VEC_QUERIES) -> dict:
     t0 = time.perf_counter()
     if not native.available():
         fail("load", "the native codec did not build")
-    store = Store()
-    for e in parse_schema(VEC_SCHEMA):
-        store.set_schema(e)
+    store = packed_store(VEC_SCHEMA, {}, dict(zip(
+        encoded_keys(K.data_key, "emb", uids),
+        (Posting(VALUE_UID, Op.SET, Val(TypeID.VECTOR, tuple(r)))
+         for r in vecs.tolist()))))
     store.vector_knobs = vx.VectorKnobs(ivf_min_rows=n + 1)
-    rows = [tuple(r) for r in vecs.tolist()]
-    # data keys as phase 8 builds them: the key's head once, then the uid
-    # as 8 big-endian bytes (checked against storage/keys.py)
-    head = K.data_key("emb", 0).encode()[:-8]
-    raw = uids.astype(">u8").tobytes()
-    keys = [head + raw[i: i + 8] for i in range(0, len(raw), 8)]
-    if keys[-1] != K.data_key("emb", int(uids[-1])).encode():
-        fail("load", "key layout differs from storage/keys.py")
-    # every data key holds the one value slot: one packed list, shared (a
-    # PackedUidList is immutable)
-    pu = native.pack_many([np.asarray([VALUE_UID], np.uint64)])[0]
-    lists = {}
-    for kb, row in zip(keys, rows):
-        pl = PostingList()
-        pl.base_ts = 1
-        pl.base_packed = pu
-        pl.base_postings = {VALUE_UID: Posting(
-            VALUE_UID, Op.SET, Val(TypeID.VECTOR, row))}
-        lists[kb] = pl
-    store.bulk_install(lists, 1)
-    del rows, keys, lists
     steps["load"] = time.perf_counter() - t0
     # (d)'s commit touches VEC_OVERLAY_SET + VEC_OVERLAY_DEL keys: the
     # stamp bound is raised to that (serve --overlay_max_keys; the default
@@ -4059,23 +4101,391 @@ def loader_phase(dev, sf=LDBC_SF) -> dict:
         step_seconds=secs, seconds=time.perf_counter() - t_phase)
     return fof_launches
 
+def encoded_keys(make, attr, uids) -> list[bytes]:
+    """Encoded keys of one kind for many uids: the key's head once and the
+    uid as 8 big-endian bytes (checked against storage/keys.py)."""
+    head = make(attr, 0).encode()[:-8]
+    raw = np.asarray(uids, dtype=">u8").tobytes()
+    out = [head + raw[i: i + 8] for i in range(0, len(raw), 8)]
+    if out and out[-1] != make(attr, int(uids[-1])).encode():
+        raise SystemExit("key layout differs from storage/keys.py")
+    return out
 
-def profile_query(run) -> dict:
-    """One run under torch.profiler: wall ms, summed device-activity ms (the
-    device's busy time; idle share = 1 - busy / wall) and the top kernels.
-    Only the device's own rows (kernels, copies, memsets) are summed: an
-    operator row (aten::mm, aten::topk) carries the time of the kernels it
-    launched as its self device time, so summing it too counts them
-    twice."""
+
+def packed_rows(keys, rows) -> dict:
+    """{key: its row packed by the native codec} for uint64 uid rows, as
+    loader/bulk.py's reduce packs them."""
+    from dgraph_tpu_torch.storage import native
+
+    return dict(zip(keys, native.pack_many(rows)))
+
+
+def packed_store(schema_text, packed, values=None, dirpath=None):
+    """A Store (in `dirpath`, else in memory) holding at commit ts 1 the
+    packed uid rows `packed` ({key: row}, from packed_rows) and the value
+    lists `values` ({key: its one value posting}), installed as
+    loader/bulk.py's reduce installs them. The value lists share one packed
+    [VALUE_UID] row, and two stores may share packed rows: a packed row is
+    immutable (a commit or a compaction replaces it)."""
+    from dgraph_tpu_torch.storage import native
+    from dgraph_tpu_torch.storage.postings import VALUE_UID, PostingList
+    from dgraph_tpu_torch.storage.store import Store
+    from dgraph_tpu_torch.utils.schema import parse_schema
+
+    store = Store(dirpath)
+    for e in parse_schema(schema_text):
+        store.set_schema(e)
+
+    def posting_list(pu, postings):
+        pl = PostingList()
+        pl.base_ts = 1
+        pl.base_packed = pu
+        pl.base_postings = postings
+        return pl
+
+    lists = {kb: posting_list(pu, {}) for kb, pu in packed.items()}
+    if values:
+        (shared,) = native.pack_many([np.asarray([VALUE_UID], np.uint64)])
+        lists.update((kb, posting_list(shared, {VALUE_UID: post}))
+                     for kb, post in values.items())
+    store.bulk_install(lists, 1)
+    return store
+
+
+def cluster_phase(snap, schema, csr, lists, seeds, q128, host_levels,
+                  json_recurse, dev) -> dict:
+    """Phase 14: the wire cluster on the card; (b)'s CLI processes start
+    first, so their imports and CUDA contexts overlap (a). Returns the
+    K1/K2 launches of the 128-seed recurse through the cluster."""
+    schema_text, nquads, queries, expected = golden_battery()
+    if {name for name, _ in queries} != set(expected):
+        raise SystemExit("cluster golden: the battery and expected.json "
+                         "name other queries")
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="dgt-cluster-") as tmp:
+        tmp = Path(tmp)
+        (tmp / "schema.txt").write_text(schema_text)
+        zport = free_port()
+        procs = [CliProcess("zero", "--port", str(zport), "--groups", "2")]
+        try:
+            procs += [CliProcess(
+                "worker", "--port", "0", "-p", str(tmp / f"w{g}"),
+                "--schema", str(tmp / "schema.txt"), "--zero",
+                f"127.0.0.1:{zport}", "--group", str(g), "--device", "cuda")
+                for g in range(2)]
+            launches = cluster_in_process(snap, schema, csr, lists, seeds,
+                                          q128, host_levels, json_recurse,
+                                          dev)
+            cluster_cli(procs, zport, nquads, queries, expected)
+        finally:
+            for p in procs:
+                p.stop()
+    say("cluster_phase", seconds=time.perf_counter() - t_phase)
+    return launches
+
+
+def cluster_in_process(snap, schema, csr, lists, seeds, q128, host_levels,
+                       json_recurse, dev) -> dict:
+    """Phase 14 (a). In this process, over
+    loopback gRPC: serve_zero with two groups and two serve_worker(store,
+    device=dev); group 0's Store holds friend with ~friend, group 1's age
+    and name on every node id, both installing phase 8's lists as loaded
+    (`lists`, see storage_phase) through packed_store. The tablet map is read back from ZeroClient. Then through a ClusterClient:
+    phase 4's 128-seed @recurse(depth: 3) (levels equal to phase 4's,
+    timed, traced), phase 5's one-uid @recurse and CLUSTER_CHAIN (the
+    remote sort key), each JSON byte-identical to the unsharded Executor
+    over phase 4's snapshot, and a mutation across both groups committed
+    through Zero, read back. Returns the K1/K2 launches of the 128-seed
+    recurse."""
+    import torch
+
+    from dgraph_tpu_torch.coord.zero import Zero
+    from dgraph_tpu_torch.coord.zero_service import ZeroClient, serve_zero
+    from dgraph_tpu_torch.ops import csr as csrops
+    from dgraph_tpu_torch.ops import prefix as px
+    from dgraph_tpu_torch.parallel.client import ClusterClient
+    from dgraph_tpu_torch.parallel.remote import RemoteWorker, serve_worker
+    from dgraph_tpu_torch.query import dql
+    from dgraph_tpu_torch.query import engine as eng
+    from dgraph_tpu_torch.query.task import TaskQuery
+    from dgraph_tpu_torch.storage import keys as K
+    from dgraph_tpu_torch.storage import native
+    from dgraph_tpu_torch.storage.postings import VALUE_UID, Op, Posting
+    from dgraph_tpu_torch.utils.types import TypeID, Val
+
+    subjects, indptr, indices = csr
+    sync = torch.cuda.synchronize
+    t_phase = time.perf_counter()
+
+    def fail(what, msg):
+        raise SystemExit(f"cluster {what}: {msg}")
+
+    if not native.available():
+        fail("load", "the native codec did not build")
+
+    # ---- (a) the groups' stores: phase 8's lists as loaded, and `name` ----
+    opened = {}
+    t0 = time.perf_counter()
+    g0 = packed_store(CLUSTER_SCHEMAS[0], lists["friend"])
+    opened["store_0"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    n = 1 << SCALE
+    ids = np.arange(1, n + 1, dtype=np.int64)
+    rng = np.random.default_rng(11)            # phase 7's draws, in order
+    age = rng.integers(0, 100, n)
+    rng.integers(0, 10000, n)                  # phase 7's score
+    words = rng.integers(0, len(VOCAB), (n, 3)).tolist()
+    values = dict(lists["age_values"])
+    values.update(zip(encoded_keys(K.data_key, "name", ids), (
+        Posting(VALUE_UID, Op.SET, Val(TypeID.STRING, "p%d %s %s %s" % (
+            u, *(VOCAB[w] for w in ws)))) for u, ws in zip(ids.tolist(),
+                                                           words))))
+    g1 = packed_store(CLUSTER_SCHEMAS[1], lists["age"], values)
+    del values, words
+    opened["store_1"] = time.perf_counter() - t0
+
+    # ---- Zero and the two workers on the card ------------------------------
+    zero = Zero(2)
+    for attr, g in CLUSTER_TABLETS.items():
+        zero.move_tablet(attr, g)
+    zero.oracle.timestamps(1)          # read_ts 1: the installs' commit ts
+    zsrv, zport, _ = serve_zero(zero, "localhost:0")
+    servers, addrs, client = [], [], None
+    try:
+        for g, store in enumerate((g0, g1)):
+            t0 = time.perf_counter()
+            srv, port = serve_worker(store, "localhost:0", device=dev)
+            opened[f"serve_{g}"] = time.perf_counter() - t0
+            servers.append(srv)
+            addrs.append(f"localhost:{port}")
+        zc = ZeroClient(f"localhost:{zport}")
+        tablets = zc.tablets()
+        zc.close()
+        if tablets != CLUSTER_TABLETS:
+            fail("tablets", f"ZeroClient reads {tablets}")
+        # each worker's first tasks: the lazy fold of the tablet they read
+        first = {}
+        probe = np.sort(seeds[:1]).astype(np.int64)
+        for g, attr in ((0, "friend"), (1, "age"), (1, "name")):
+            rw = RemoteWorker(addrs[g])
+            t0 = time.perf_counter()
+            rw.process_task(TaskQuery(attr, frontier=probe), 1)
+            first[f"{g}:{attr}"] = time.perf_counter() - t0
+            rw.close()
+        say("cluster_open", store_and_serve_seconds=opened,
+            first_task_seconds=first, tablets=tablets,
+            devices=[str(s.dgt_svc.device) for s in servers],
+            keys=[len(g0.lists), len(g1.lists)])
+
+        client = ClusterClient(f"localhost:{zport}",
+                               {g: [a] for g, a in enumerate(addrs)})
+
+        def cold():
+            client.task_cache.clear()
+            for srv in servers:
+                srv.dgt_svc.task_cache.clear()
+
+        def loads():
+            return [srv.dgt_svc.tablet_load_snapshot() for srv in servers]
+
+        def wire(before):
+            """ServeTask calls and response bytes per worker since
+            `before`."""
+            out = []
+            for b, a in zip(before, loads()):
+                out.append({"calls": int(sum(
+                    r["r"] - b.get(k, {}).get("r", 0) for k, r in a.items())),
+                    "bytes": int(sum(r["b"] - b.get(k, {}).get("b", 0)
+                                     for k, r in a.items()))})
+            return out
+
+        def levels():
+            """Phase 4's 128-seed @recurse on the Executor that
+            ClusterClient.query runs (ClusterClient.read_executor): each
+            level's dest uids, no JSON (hundreds of MB at this size)."""
+            parsed = dql.parse(q128)
+            sg = eng.SubGraph(gq=parsed.queries[0],
+                              attr=parsed.queries[0].attr)
+            client.read_executor()._process_block(sg)
+            out = []
+            while sg.children:
+                sg = sg.children[0]
+                out.append(sg.dest_uids)
+            return out
+
+        # ---- 1. the 128-seed recurse: the main path of the phase ----------
+        cold()
+        before = loads()
+        expands0 = csrops.EXPANDS["cuda"]
+        px.reset_launches()
+        t0 = time.perf_counter()
+        got = levels()
+        sync()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        launches = dict(px.LAUNCHES)
+        expands = csrops.EXPANDS["cuda"] - expands0
+        q1_wire = wire(before)
+        if len(got) != len(host_levels) or not all(
+                np.array_equal(g, h.dest_uids)
+                for g, h in zip(got, host_levels)):
+            fail("recurse", "levels differ from phase 4's")
+        if expands == 0:
+            fail("recurse", "no worker expand ran on the card")
+        ms = [first_ms]                # the checked run is the first timed
+        for _ in range(CLUSTER_TIMED - 1):
+            cold()
+            t0 = time.perf_counter()
+            levels()
+            sync()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        cold()
+        prof = device_profile(levels)
+        say("cluster_recurse", levels=[int(len(x)) for x in got],
+            first_ms=first_ms, ms=band(ms), launches=launches,
+            device_expands=expands, serve_task=q1_wire, profile=prof)
+
+        # ---- 2. phase 5's one-uid recurse, JSON ---------------------------
+        want = json.dumps(eng.Executor(snap, schema).execute(
+            dql.parse(json_recurse)))
+        cold()
+        before = loads()
+        t0 = time.perf_counter()
+        got2 = json.dumps(client.query(json_recurse))
+        q2_ms = (time.perf_counter() - t0) * 1e3
+        if got2 != want:
+            fail("recurse_json", "JSON differs from the unsharded Executor")
+        say("cluster_request", request="one_uid_recurse", ms=q2_ms,
+            json_bytes=len(got2), serve_task=wire(before))
+
+        # ---- 3. the cross-group chain with the remote sort key -------------
+        chain_q = CLUSTER_CHAIN % ", ".join(
+            hex(int(u)) for u in np.sort(seeds)[:CLUSTER_CHAIN_SEEDS])
+        want = json.dumps(eng.Executor(snap, schema).execute(
+            dql.parse(chain_q)))
+        cold()
+        before = loads()
+        t0 = time.perf_counter()
+        got3 = json.dumps(client.query(chain_q))
+        q3_ms = (time.perf_counter() - t0) * 1e3
+        if got3 != want:
+            fail("chain", "JSON differs from the unsharded Executor")
+        rows3 = json.loads(got3)["q"]
+        ages = [r["age"] for r in rows3]
+        if len(rows3) != 20 or ages != sorted(ages) or min(ages) < 50:
+            fail("chain", f"not 20 rows sorted by age >= 50: {ages}")
+        say("cluster_request", request="chain_remote_sort", ms=q3_ms,
+            json_bytes=len(got3), serve_task=wire(before))
+
+        # ---- 4. a mutation across both groups, read back ------------------
+        u = int(seeds[0])
+        row = indices[indptr[int(np.searchsorted(subjects, u))]:
+                      indptr[int(np.searchsorted(subjects, u)) + 1]]
+        v = next(int(x) for x in np.sort(seeds) if x != u and x not in row)
+        new_age = (int(age[u - 1]) + 1) % 100
+        read = "{ q(func: uid(%s)) { age friend @filter(uid(%s)) { uid } } }" \
+            % (hex(u), hex(v))
+        want4 = {"q": [{"age": new_age, "friend": [{"uid": hex(v)}]}]}
+        before = loads()
+        t0 = time.perf_counter()
+        client.mutate(set_nquads='<%s> <friend> <%s> .\n<%s> <age> '
+                                 '"%d"^^<xs:int> .' % (hex(u), hex(v),
+                                                       hex(u), new_age))
+        commit_ms = (time.perf_counter() - t0) * 1e3
+        reads = 0
+        while True:
+            cold()
+            reads += 1
+            if client.query(read) == want4:
+                break
+            if time.perf_counter() - t0 > 60:
+                fail("commit", "the write is not visible after 60 s")
+        visible_ms = (time.perf_counter() - t0) * 1e3
+        metrics = {}
+        for name, reg in [(f"worker_{g}", srv.dgt_svc.metrics)
+                          for g, srv in enumerate(servers)] + [
+                              ("client", client.metrics)]:
+            c = reg.export()["counters"]
+            metrics[name] = {k: v for k, v in sorted(c.items())
+                             if k.startswith(("dgraph_replica_",
+                                              "dgraph_batch_"))}
+        say("cluster_commit", cluster_commit_ms=commit_ms,
+            cluster_commit_to_visible_ms=visible_ms, reads=reads,
+            serve_task=wire(before),
+            metrics=metrics, seconds_a=time.perf_counter() - t_phase)
+    finally:
+        if client is not None:
+            client.close()
+        for srv in servers:
+            srv.stop(0)
+        zsrv.stop(0)
+        del g0, g1
+        torch.cuda.empty_cache()
+
+    return launches
+
+
+def cluster_cli(procs, zport, nquads, queries, expected) -> None:
+    """Phase 14 (b): `zero --groups 2` and two `worker --device cuda`
+    processes (procs, started by cluster_phase): the golden battery loaded
+    through ClusterClient.mutate, every query equal to expected.json, the
+    tablets on both groups."""
+    from dgraph_tpu_torch.parallel.client import ClusterClient
+
+    def fail(what, msg):
+        raise SystemExit(f"cluster {what}: {msg}")
+
+    t_b = time.perf_counter()
+    zero_s = procs[0].banner()[2]
+    banners = [p.banner() for p in procs[1:]]
+    if not all("device=cuda" in b[1] for b in banners):
+        fail("cli", f"a worker is not on the card: {banners}")
+    client = ClusterClient(
+        f"127.0.0.1:{zport}",
+        {g: [f"127.0.0.1:{b[0]}"] for g, b in enumerate(banners)},
+        default_timeout_ms=120_000)
+    try:
+        t0 = time.perf_counter()
+        client.mutate(set_nquads=nquads)
+        load_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for name, text in queries:
+            if client.query(text) != expected[name]:
+                fail("golden", f"{name} differs from expected.json")
+        golden_s = time.perf_counter() - t0
+        spread = sorted(set(client.zero.tablets().values()))
+        if spread != [0, 1]:
+            fail("cli", f"tablets on groups {spread}")
+    finally:
+        client.close()
+    # the JAX ClusterClient answers every golden query (tests/
+    # test_torch_cluster_cli.py holds both clients to expected.json)
+    say("cluster_cli", queries=len(queries), left_out=[],
+        zero_start_seconds=zero_s,
+        worker_start_seconds=[b[2] for b in banners],
+        load_seconds=load_s, golden_seconds=golden_s,
+        seconds=time.perf_counter() - t_b)
+
+
+def device_profile(run) -> dict:
+    """One run under torch.profiler, CUDA events around it: wall ms, the
+    events' ms, summed device-activity ms (the device's busy time; idle
+    share = 1 - busy / wall) and the top kernels. Only the device's own
+    rows (kernels, copies, memsets) are summed: an operator row (aten::mm,
+    aten::topk) carries the time of the kernels it launched as its self
+    device time, so summing it too counts them twice."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
+        a.record()
         run()
-        torch.cuda.synchronize()
+        b.record()
+        torch.cuda.synchronize()        # every stream, not just b's
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows, dtoh = [], 0
     for e in prof.key_averages():
@@ -4090,7 +4500,19 @@ def profile_query(run) -> dict:
             rows.append((us / 1e3, e.key, e.count))
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
-    # where the host's share goes: one more run under cProfile, by self time
+    return {"wall_ms": wall_ms, "event_ms": a.elapsed_time(b),
+            "device_busy_ms": busy, "dtoh_copies": dtoh,
+            "device_idle_share": 1 - busy / wall_ms if wall_ms else None,
+            "top": [{"name": k[:60], "ms": ms, "calls": n}
+                    for ms, k, n in rows[:8]]}
+
+
+def profile_query(run) -> dict:
+    """device_profile of one run, then where the host's share goes: one
+    more run under cProfile, by self time."""
+    import torch
+
+    out = device_profile(run)
     cp = cProfile.Profile()
     cp.enable()
     run()
@@ -4099,12 +4521,8 @@ def profile_query(run) -> dict:
     host = sorted(((tt * 1e3, f"{Path(fn).name}:{line}({name})", nc)
                    for (fn, line, name), (_cc, nc, tt, _ct, _callers)
                    in pstats.Stats(cp).stats.items()), reverse=True)
-    return {"wall_ms": wall_ms, "device_busy_ms": busy, "dtoh_copies": dtoh,
-            "device_idle_share": 1 - busy / wall_ms if wall_ms else None,
-            "top": [{"name": k[:60], "ms": ms, "calls": n}
-                    for ms, k, n in rows[:8]],
-            "host_top": [{"name": k[:60], "self_ms": ms, "calls": n}
-                         for ms, k, n in host[:10]],
+    return {**out, "host_top": [{"name": k[:60], "self_ms": ms, "calls": n}
+                                for ms, k, n in host[:10]],
             "torch": torch.__version__}
 
 

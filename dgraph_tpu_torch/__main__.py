@@ -1,7 +1,7 @@
 """CLI of the PyTorch port: `python -m dgraph_tpu_torch <subcommand>`.
 
 Port of dgraph_tpu/__main__.py's `serve`, `version`, `export`, `bulk`,
-`live`, `ldbc_gen` and `convert`. `serve`
+`live`, `worker`, `zero`, `ldbc_gen` and `convert`. `serve`
 starts the port's Node behind the HTTP API (api/http.py) and the gRPC
 api.Dgraph service (api/grpc_server.py), on the card by default: `--device`
 is "cuda" unless given, and raises without CUDA (`--device cpu` runs the
@@ -15,7 +15,12 @@ accounting only) with `--residency_pin` floors, and the `--memory_mb`
 enforcement loop, the `--vector_*` IVF knobs, and the mesh: `--mesh`,
 `--mesh_devices` and `--mesh_min_edges` reach the Node's MeshExecutor
 (parallel/mesh_exec.py; on `--device cpu` the mesh repeats the CPU device).
-The `worker` and `zero` subcommands wait for the wire-cluster slice.
+`zero` runs the cluster coordinator (host only: timestamps, the oracle,
+the tablet map, the placement controller under `--rebalance_interval_s`),
+and `worker` serves one group's tablets over the internal gRPC protocol on
+`--device` (cuda unless given); `parallel/client.ClusterClient` fans a
+query's tasks out to the owning groups. Both print the JAX CLI's
+`... serving ... on host:port` banners.
 
 The loader chain users run: `ldbc_gen` writes an LDBC-SNB-shaped CSV dump,
 `convert --ldbc` maps it to N-Quads plus a schema, `bulk` writes a posting
@@ -191,6 +196,190 @@ def cmd_live(args) -> int:
         node.close()
     lg.info("live load done", quads=stats.quads, txns=stats.txns,
             retried_aborts=stats.aborts, postings=args.postings)
+    return 0
+
+
+def cmd_worker(args) -> int:
+    """Serve one group's tablets over the internal wire protocol
+    (the reference's worker gRPC on port 7080). With --zero it registers
+    with the cluster coordinator (worker/groups.go:62 StartRaftNodes's
+    connect step); replication roles arrive via the Promote RPC. The
+    worker's expands run on --device (cuda unless given; it fails
+    without a card)."""
+    import time
+
+    from dgraph_tpu_torch.parallel.remote import serve_worker
+    from dgraph_tpu_torch.storage.store import Store
+    from dgraph_tpu_torch.utils.schema import parse_schema
+
+    lg = log.get_logger("worker")
+    store = Store(args.postings,
+                  max_delta_keys=args.delta_journal_max_keys or None)
+    if args.schema:
+        with open(args.schema) as f:
+            for e in parse_schema(f.read()):
+                store.set_schema(e)
+    server, port = serve_worker(store, f"{args.host}:{args.port}",
+                                elections=True,
+                                advertise_host=args.advertise_host,
+                                batching=not args.no_batch,
+                                batch_window_ms=args.batch_window_ms,
+                                batch_max=args.batch_max,
+                                cost_ledger=not args.no_cost_ledger,
+                                lazy_folds=not args.no_lazy_folds,
+                                device=args.device)
+    if args.zero:
+        import threading
+
+        from dgraph_tpu_torch.coord.zero_service import ZeroClient
+
+        zc = ZeroClient(args.zero)
+        svc = server.dgt_svc
+        my_addr = svc.advertise_addr
+        # a worker booting while the zeros are still electing (multi-zero
+        # bootstrap) must wait for a leader, not die: retry the initial
+        # registration against transient transport / not-leader rejections
+        deadline = time.monotonic() + 60
+        while True:
+            try:
+                group, rid = zc.connect(my_addr, args.group)
+                break
+            except Exception as e:      # noqa: BLE001 — startup retry
+                if time.monotonic() >= deadline:
+                    raise
+                lg.info("zero not ready; retrying connect",
+                        error=type(e).__name__)
+                time.sleep(0.5)
+        lg.info("worker joined group", group=group, replica=rid)
+
+        def _learn_members():
+            # seed the wire-election membership from Zero's registry so a
+            # replica set can self-elect even when the control plane later
+            # dies (the members list keeps working from cache)
+            st = zc.state()
+            members = st.get("groups", {}).get(str(group), {}) \
+                        .get("members", [])
+            if members:
+                svc.group_members = sorted(set(members) | {my_addr})
+
+        try:
+            _learn_members()
+        except Exception:
+            pass
+
+        def membership_loop():
+            # periodic re-registration (worker/groups.go:454
+            # periodicMembershipUpdate): survives a zero restart and keeps
+            # the registry a liveness signal, not a one-shot record
+            while True:
+                time.sleep(args.membership_interval)
+                try:
+                    zc.connect(my_addr, group)
+                    _learn_members()
+                except Exception:
+                    pass                   # zero down: next tick retries
+
+        if args.membership_interval > 0:
+            # dgraph: allow(ctxvar-copy) detached membership bg loop
+            threading.Thread(target=membership_loop, daemon=True).start()
+    lg.info(f"worker serving {len(store.predicates())} tablets on "
+            f"{args.host}:{port} device={server.dgt_svc.device}")
+    try:
+        while True:
+            time.sleep(3600)
+    except KeyboardInterrupt:
+        pass
+    finally:
+        server.stop(0)
+        store.close()
+    return 0
+
+
+def cmd_zero(args) -> int:
+    """Run the cluster coordinator as its own process (reference
+    `dgraph zero`, dgraph/cmd/zero/run.go:58): timestamp/uid leases, the
+    SSI oracle, and the tablet map over the internal protocol."""
+    import threading
+    import time
+
+    from dgraph_tpu_torch.coord.zero import Zero
+    from dgraph_tpu_torch.coord.zero_service import (ZeroOps, serve_zero,
+                                                     serve_zero_http)
+
+    lg = log.get_logger("zero")
+    zero = Zero(n_groups=args.groups, dirpath=args.wal)
+    from dgraph_tpu_torch.coord.zero_service import ZeroReplica, ZeroService
+
+    svc = ZeroService(zero)
+    replica = None
+    if args.peers:
+        if not args.wal:
+            raise SystemExit("--peers (multi-zero) requires --wal")
+        members = [a.strip() for a in args.peers.split(",") if a.strip()]
+        advertise = members[args.idx]
+        replica = ZeroReplica(svc, args.wal, advertise, members,
+                              bootstrap_leader=args.idx == 0)
+    server, port, svc = serve_zero(zero, f"{args.host}:{args.port}", svc=svc)
+    if replica is not None:
+        replica.start()
+        lg.info("zero replica up", idx=args.idx,
+                members=len(replica.members), leader=replica.is_leader)
+    ops = ZeroOps(svc)
+    controller = None
+    if args.rebalance_interval_s > 0 and not args.no_rebalance:
+        # load-aware placement controller (coord/placement.py): scores
+        # tablets by size x measured load from the workers' Status
+        # reports and heals skew with moves + hot-tablet read replicas
+        from dgraph_tpu_torch.coord.placement import (PlacementConfig,
+                                                      PlacementController,
+                                                      ZeroOpsExecutor,
+                                                      wire_collect)
+
+        class _DynamicZero:
+            # multi-zero promotion swaps svc.zero; always read through ops
+            def tablets(self):
+                return ops.zero.tablets()
+
+            def replicas(self):
+                return ops.zero.replicas()
+
+            def moving_tablets(self):
+                return ops.zero.moving_tablets()
+
+        cfg = PlacementConfig(threshold=args.rebalance_threshold,
+                              max_replicas=args.max_replicas)
+        controller = PlacementController(
+            _DynamicZero(), wire_collect(ops), ZeroOpsExecutor(ops),
+            cfg=cfg, logger=lg)
+        controller.start(args.rebalance_interval_s)
+        lg.info("placement controller up",
+                interval_s=args.rebalance_interval_s,
+                threshold=args.rebalance_threshold,
+                max_replicas=args.max_replicas)
+    httpd, hport = serve_zero_http(svc, ops, args.host, args.http_port,
+                                   controller=controller)
+    lg.info(f"zero ops HTTP on {args.host}:{hport}")
+    if args.rebalance_interval > 0 and not args.no_rebalance:
+        def loop():
+            while True:
+                time.sleep(args.rebalance_interval)
+                try:
+                    out = ops.rebalance_once()
+                    if out:
+                        lg.info("rebalanced", **out)
+                except Exception as e:       # noqa: BLE001 — next tick retries
+                    lg.error("rebalance error", error=str(e))
+        # dgraph: allow(ctxvar-copy) detached console-stats bg loop
+        threading.Thread(target=loop, daemon=True).start()
+    lg.info(f"zero serving {args.groups} groups on {args.host}:{port}")
+    try:
+        while True:
+            time.sleep(3600)
+    except KeyboardInterrupt:
+        pass
+    finally:
+        httpd.shutdown()
+        server.stop(0)
     return 0
 
 
@@ -447,6 +636,86 @@ def build_parser() -> argparse.ArgumentParser:
                          "on (default cuda, which fails without CUDA)")
     lp.set_defaults(fn=cmd_live)
 
+    wp = sub.add_parser("worker", help="serve one group's tablets over the "
+                                       "internal worker protocol")
+    wp.add_argument("--host", default="127.0.0.1")
+    wp.add_argument("--port", type=int, default=7080)
+    wp.add_argument("-p", "--postings", required=True)
+    wp.add_argument("--schema", default=None, help="schema file to apply")
+    wp.add_argument("--zero", default=None,
+                    help="zero address to register with (host:port)")
+    wp.add_argument("--group", type=int, default=-1,
+                    help="group to join (-1 = let zero assign)")
+    wp.add_argument("--advertise_host", default=None,
+                    help="host peers should dial back (needed when binding "
+                         "0.0.0.0, e.g. in containers)")
+    wp.add_argument("--membership_interval", type=float, default=30,
+                    help="seconds between membership re-registrations with "
+                         "zero (0 = register once)")
+    wp.add_argument("--batch_window_ms", type=float, default=2.0,
+                    help="batched-dispatch collect window in ms; a batch "
+                         "fires immediately when the device is idle")
+    wp.add_argument("--batch_max", type=int, default=16,
+                    help="max tasks packed into one batched device kernel")
+    wp.add_argument("--no_batch", action="store_true",
+                    help="disable batched multi-query device execution "
+                         "(exact per-task dispatch)")
+    wp.add_argument("--no_cost_ledger", action="store_true",
+                    help="disable per-RPC cost accounting + the cost "
+                         "record shipped back in ServeTask trailing "
+                         "metadata")
+    wp.add_argument("--no_lazy_folds", action="store_true",
+                    help="fold every tablet eagerly at snapshot assembly "
+                         "instead of on-demand at first read")
+    wp.add_argument("--delta_journal_max_keys", type=int, default=0,
+                    help="per-predicate delta-journal key bound (0 = "
+                         "default 8192)")
+    wp.add_argument("--device", default="cuda",
+                    help="torch device the worker's snapshots and expands "
+                         "run on (default cuda, which fails without CUDA; "
+                         "cpu runs the plain PyTorch versions on the host)")
+    wp.set_defaults(fn=cmd_worker)
+
+    zp = sub.add_parser("zero", help="run the cluster coordinator process")
+    zp.add_argument("--host", default="127.0.0.1")
+    zp.add_argument("--port", type=int, default=5080)
+    zp.add_argument("--http_port", type=int, default=0,
+                    help="ops HTTP port: /state /moveTablet /removeNode "
+                         "(0 = ephemeral)")
+    zp.add_argument("--groups", type=int, default=1,
+                    help="number of server groups to balance tablets over")
+    zp.add_argument("-w", "--wal", default=None,
+                    help="durable state dir: lease ceilings + tablet map "
+                         "survive restarts (a crash skips at most one "
+                         "10k lease block, assign.go semantics)")
+    zp.add_argument("--rebalance_interval", type=float, default=0,
+                    help="seconds between LEGACY size-based rebalance ticks "
+                         "(tablet.go:60-74; 0 = off)")
+    zp.add_argument("--rebalance_interval_s", type=float, default=0,
+                    help="seconds between load-aware placement controller "
+                         "ticks (coord/placement.py: scores tablets by "
+                         "size x measured load, heals skew with moves + "
+                         "hot-tablet read replicas; 0 = off)")
+    zp.add_argument("--rebalance_threshold", type=float, default=0.35,
+                    help="group utilization spread (max-min)/max above "
+                         "which the controller acts")
+    zp.add_argument("--max_replicas", type=int, default=2,
+                    help="read-replica holders per tablet (0 disables "
+                         "replication; moves still run)")
+    zp.add_argument("--no_rebalance", action="store_true",
+                    help="disable ALL automatic placement (both the "
+                         "size-based tick and the load controller): "
+                         "placement stays exactly as manual moves left it")
+    zp.add_argument("--peers", default="",
+                    help="multi-zero: comma-separated addresses of ALL "
+                         "zeros (incl. this one); state replicates to a "
+                         "quorum and standbys elect on leader failure "
+                         "(reference --peer, dgraph/cmd/zero/run.go)")
+    zp.add_argument("--idx", type=int, default=0,
+                    help="this zero's position in --peers (0 bootstraps "
+                         "as leader)")
+    zp.set_defaults(fn=cmd_zero)
+
     gp = sub.add_parser("ldbc_gen",
                         help="deterministic LDBC-SNB-shaped synthetic "
                              "CSV dump (feed to `convert --ldbc`)")
@@ -469,7 +738,7 @@ def build_parser() -> argparse.ArgumentParser:
                     help="predicate for geometries")
     cp.set_defaults(fn=cmd_convert)
 
-    for sp_ in (sp, bp, ep, lp, cp):
+    for sp_ in (sp, bp, ep, lp, cp, wp, zp):
         sp_.add_argument("--log_json", action="store_true",
                          help="structured single-line JSON logs instead of "
                               "text (log shippers ingest these directly)")

@@ -2,9 +2,11 @@
 tablets by live load and heals skew with moves + hot-tablet read replicas.
 
 Port of dgraph_tpu/coord/placement.py, whole: host code only. The Node
-feeds its TabletLoadBook (reads at the task seam, writes at mutate);
-PlacementController and ZeroOpsExecutor come as they are, and their live
-wiring arrives with the wire cluster (coord/zero_service).
+feeds its TabletLoadBook (reads at the task seam, writes at mutate); a
+wire worker feeds its own and reports it on Status. `python -m
+dgraph_tpu_torch zero --rebalance_interval_s N` runs the
+PlacementController over `wire_collect` and a ZeroOpsExecutor
+(coord/zero_service.ZeroOps), as the JAX zero does.
 
 The reference's Zero rebalances by SIZE alone (dgraph/cmd/zero/tablet.go:
 60-74); under the Zipfian traffic the north star assumes, one hot

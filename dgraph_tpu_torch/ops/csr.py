@@ -19,9 +19,10 @@ expand_dest is the union of many rows (index root functions union the uid
 rows of their tokens): expand, sort, dedup. expand_masked is the base-side
 half of a delta-overlay merge-on-read (storage/delta.OverlayCSR): the
 frontier expands over the unchanged base with the patched slots masked to
-the sentinel. UNIONS and MASKED count the calls of expand_dest and
-expand_masked by the device type of the tensors they were given, so a
-caller can show which side ran.
+the sentinel. EXPANDS, UNIONS and MASKED count the calls of expand (the
+gather under the other two as well), expand_dest and expand_masked by the
+device type of the tensors they were given, so a caller can show which
+side ran.
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ import torch
 
 from dgraph_tpu_torch.ops.uidset import _dedup_sorted, sentinel
 
+EXPANDS = {"cuda": 0, "cpu": 0}
 UNIONS = {"cuda": 0, "cpu": 0}
 MASKED = {"cuda": 0, "cpu": 0}
 
@@ -69,6 +71,7 @@ def expand(indptr: torch.Tensor, indices: torch.Tensor, rows: torch.Tensor,
     """Expand a frontier of CSR row ids into the concatenated neighbor
     lists. rows: sentinel-padded int32 row indices."""
     dev = rows.device
+    EXPANDS[dev.type] = EXPANDS.get(dev.type, 0) + 1
     if indices.numel() == 0 or rows.numel() == 0:
         return ExpandResult(
             torch.full((out_cap,), int(sentinel(indices.dtype)),

@@ -1207,7 +1207,18 @@ class Executor:
                 return got
         ordered = [int(u) for u in uids]
         for o in reversed(gq.order):
-            present = [(self._order_key(o, u), u) for u in ordered]
+            remote_keys = None
+            if not o.is_val and self.snap.pred(o.attr) is None:
+                # sort key lives on a remote tablet: fetch the values once
+                # through the dispatch seam (ProcessTaskOverNetwork)
+                cand = sorted(ordered)
+                res = self._dispatch(TaskQuery(
+                    o.attr, frontier=np.asarray(cand, np.int64),
+                    lang=o.lang))
+                remote_keys = {u: sort_key(vals[0]) for u, vals in
+                               zip(cand, res.value_matrix) if vals}
+            present = [((remote_keys.get(u) if remote_keys is not None
+                         else self._order_key(o, u)), u) for u in ordered]
             have = [(k, u) for k, u in present if k is not None]
             missing = [u for k, u in present if k is None]
             have.sort(key=lambda t: t[0], reverse=o.desc)

@@ -169,6 +169,53 @@ def _expand_dedup(csr, frontier: np.ndarray, seen: np.ndarray,
     return matrix, total
 
 
+def _dedup_task_edges(seen_keys: dict, attr: str, frontier: np.ndarray,
+                      uid_matrix, allow_loop: bool) -> list[np.ndarray]:
+    """First-traversal dedup of a per-task level on (attr, from, to) keys
+    (reference recurse.go:129-141): an edge seen at an earlier level, or
+    earlier in this one, is dropped unless loop is allowed. Vectorized:
+    from and to pack into one int64 key and seen_keys[attr] holds the
+    sorted keys seen so far; the kept targets are exactly a per-edge set
+    walk's, in the same order. The uids of a folded uid tablet lie below
+    2**31 - 1 (the fold refuses larger ones), so a task result past that
+    range, from another process, is refused."""
+    counts = np.fromiter((len(t) for t in uid_matrix), dtype=np.int64,
+                         count=len(frontier))
+    offs = np.zeros(len(frontier) + 1, dtype=np.int64)
+    np.cumsum(counts, out=offs[1:])
+    flat = (np.concatenate([np.asarray(t, dtype=np.int64)
+                            for t in uid_matrix])
+            if offs[-1] else np.zeros(0, np.int64))
+    if allow_loop:
+        keep = np.ones(len(flat), dtype=bool)
+    else:
+        src = np.repeat(np.asarray(frontier, dtype=np.int64), counts)
+        if len(flat) and (min(src.min(), flat.min()) < 0
+                          or max(src.max(), flat.max()) >= (1 << 31) - 1):
+            raise QueryError(f"recurse over {attr!r}: an edge outside the "
+                             f"uid space [0, 2**31 - 1)")
+        keys = (src << 31) | flat
+        # a sorted frontier over sorted rows gives increasing keys already
+        order = (None if np.all(keys[1:] > keys[:-1])
+                 else np.argsort(keys, kind="stable"))
+        sk = keys if order is None else keys[order]
+        first = np.ones(len(sk), dtype=bool)
+        first[1:] = sk[1:] != sk[:-1]
+        seen = seen_keys.get(attr, np.zeros(0, np.int64))
+        if len(seen):
+            at = np.minimum(np.searchsorted(seen, sk), len(seen) - 1)
+            first &= seen[at] != sk
+        if order is None:
+            keep = first
+        else:
+            keep = np.empty(len(sk), dtype=bool)
+            keep[order] = first
+        seen_keys[attr] = np.sort(np.concatenate([seen, sk[first]]),
+                                  kind="stable")
+    return [flat[offs[i]: offs[i + 1]][keep[offs[i]: offs[i + 1]]]
+            for i in range(len(frontier))]
+
+
 def _set_list_result(child: SubGraph, matrix: list[np.ndarray]) -> None:
     """uidMatrix + per-source counts + merged dest set."""
     child.uid_matrix = matrix
@@ -199,7 +246,7 @@ def recurse(ex, sg: SubGraph) -> None:
     val_children = [c for c in gq.children if c not in uid_children]
     seen_masks: dict[str, np.ndarray] = {}     # host path: attr -> bool[E]
     kstates: dict[str, dict] = {}              # kernel path: attr -> g, seen
-    seen_edges: set[tuple[str, int, int]] = set()   # dist-CSR fallback only
+    seen_keys: dict[str, np.ndarray] = {}      # per-task path: attr -> keys
     edges = 0
 
     def _csr_for(cgq):
@@ -329,29 +376,19 @@ def recurse(ex, sg: SubGraph) -> None:
                     raise QueryError(
                         "recurse exceeded edge budget (ErrTooBig)")
                 _set_list_result(child, matrix)
-            elif csr is not None:
-                # mesh-sharded tablet: expand per task, dedup on
-                # (attr, from, to) keys (reference recurse.go:129-141)
+            else:
+                # mesh-sharded, tablet-routed or missing adjacency: expand
+                # per task through the dispatch seam (over the wire under
+                # a ClusterClient), dedup on (attr, from, to) keys
+                # (reference recurse.go:129-141)
                 res = ex._dispatch(TaskQuery(cgq.attr, frontier=frontier))
                 edges += res.traversed_edges
                 if edges > ex.edge_budget():
                     raise QueryError(
                         "recurse exceeded edge budget (ErrTooBig)")
-                matrix = []
-                for u, targets in zip(frontier, res.uid_matrix):
-                    kept = []
-                    for t in targets:
-                        ek = (cgq.attr, int(u), int(t))
-                        if not spec.allow_loop and ek in seen_edges:
-                            continue
-                        seen_edges.add(ek)
-                        kept.append(int(t))
-                    matrix.append(np.asarray(kept, dtype=np.int64))
-                _set_list_result(child, matrix)
-            else:
-                # no adjacency for the predicate: no edges to expand
-                _set_list_result(child, [np.zeros(0, np.int64)
-                                         for _ in frontier])
+                _set_list_result(child, _dedup_task_edges(
+                    seen_keys, cgq.attr, frontier, res.uid_matrix,
+                    spec.allow_loop))
             child.dest_uids = ex._apply_filter(cgq.filter, child.dest_uids)
             if len(child.dest_uids):
                 child.children = build_level(child.dest_uids, remaining - 1)

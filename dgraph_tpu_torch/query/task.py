@@ -35,7 +35,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from dgraph_tpu_torch.obs import otrace
+from dgraph_tpu_torch.obs import costs, otrace
 from dgraph_tpu_torch.ops import csr as csrops
 from dgraph_tpu_torch.ops import uidset as us
 from dgraph_tpu_torch.storage.csr_build import (GraphSnapshot, PredCSR,
@@ -196,11 +196,23 @@ def _expand_overlay(ov, uids: np.ndarray,
             base_targets = _gather_rows_host(indptr_h, indices_h, rb,
                                              deg_b, offs)
         else:
-            res = csrops.expand_masked(
-                indptr_d, indices_d, torch.from_numpy(rb).to(base.device),
-                torch.from_numpy(ro >= 0).to(base.device), out_cap=cap)
-            base_targets = res.targets[:need_base].cpu().numpy().astype(
-                np.int64)
+            with otrace.span("device_kernel", kernel="csr.expand_masked",
+                             need=need_base,
+                             cutover=int(cutover or HOST_EXPAND_MAX)) as sp, \
+                    costs.kernel("csr.expand_masked") as ck:
+                res = csrops.expand_masked(
+                    indptr_d, indices_d,
+                    torch.from_numpy(rb).to(base.device),
+                    torch.from_numpy(ro >= 0).to(base.device), out_cap=cap)
+                # one D2H, which is also the sync that lands the kernel's
+                # time in this span
+                targets_h = res.targets.cpu().numpy()
+                ck.set(h2d=int(rb.nbytes), d2h=int(targets_h.nbytes))
+                if sp:
+                    sp.set(edges=need_base,
+                           transfer_h2d_bytes=int(rb.nbytes),
+                           transfer_d2h_bytes=int(targets_h.nbytes))
+            base_targets = targets_h[:need_base].astype(np.int64)
     matrix = [base_targets[offs[i]: offs[i + 1]] for i in range(len(uids))]
     for i in np.flatnonzero(ro >= 0).tolist():
         matrix[i] = ov.delta.rows[ro[i]]
@@ -250,10 +262,18 @@ def _expand_csr(csr: PredCSR, uids: np.ndarray, first: int = 0,
                                      deg, uids, need, cutover)
         return apply_first(matrix, first), need
     cap = 1 << max(int(np.ceil(np.log2(need + 1))), 4)
-    rows_d = torch.from_numpy(rows).to(csr.device)
-    res = csrops.expand(indptr_d, indices_d, rows_d, out_cap=cap)
-    total = int(res.total)                       # device sync point
-    targets = res.targets[:total].cpu().numpy().astype(np.int64)
+    with otrace.span("device_kernel", kernel="csr.expand", need=need,
+                     cutover=int(cutover or HOST_EXPAND_MAX)) as sp, \
+            costs.kernel("csr.expand") as ck:
+        rows_d = torch.from_numpy(rows).to(csr.device)
+        res = csrops.expand(indptr_d, indices_d, rows_d, out_cap=cap)
+        total = int(res.total)                   # device sync point
+        targets = res.targets[:total].cpu().numpy()
+        ck.set(h2d=int(rows.nbytes), d2h=int(targets.nbytes))
+        if sp:
+            sp.set(edges=total, transfer_h2d_bytes=int(rows.nbytes),
+                   transfer_d2h_bytes=int(targets.nbytes))
+    targets = targets.astype(np.int64)
     counts = res.counts.cpu().numpy()[: len(uids)]
     offs = np.zeros(len(uids) + 1, dtype=np.int64)
     np.cumsum(counts, out=offs[1:])
@@ -293,6 +313,7 @@ def _index_uids_for_rows(ti: TokenIndex, rows: list[int]) -> np.ndarray:
         parts = [uids_h[indptr_h[r]: indptr_h[r + 1]] for r in rows]
         return np.unique(np.concatenate(parts))
 
+    costs.add_rows(total)
     if total <= HOST_EXPAND_MAX or _tier_prefer_host(ti):
         return host_union()
     try:
@@ -304,12 +325,19 @@ def _index_uids_for_rows(ti: TokenIndex, rows: list[int]) -> np.ndarray:
     rows_arr = us.make_set(np.asarray(rows, dtype=np.int32),
                            capacity=len(rows), device=ti.device)
     cap = int(indptr_h[-1]) or 1
-    dest, _total = csrops.expand_dest(indptr_d, uids_d, rows_arr,
-                                      out_cap=cap)
-    # the union is at most the whole index (cap), so it is complete; the
-    # sentinel tail stays on the device
-    n = int(us.size(dest))
-    return dest[:n].cpu().numpy().astype(np.int64)
+    with otrace.span("device_kernel", kernel="csr.expand_dest",
+                     need=total, rows=len(rows)) as sp, \
+            costs.kernel("csr.expand_dest") as ck:
+        dest, _total = csrops.expand_dest(indptr_d, uids_d, rows_arr,
+                                          out_cap=cap)
+        # the union is at most the whole index (cap), so it is complete;
+        # the sentinel tail stays on the device
+        n = int(us.size(dest))
+        out = dest[:n].cpu().numpy().astype(np.int64)
+        ck.set(d2h=int(out.nbytes))
+        if sp:
+            sp.set(edges=int(len(out)), transfer_d2h_bytes=int(out.nbytes))
+    return out
 
 
 def _index_uids_intersect_rows(ti: TokenIndex, rows: list[int]) -> np.ndarray:
@@ -444,6 +472,7 @@ def process_task(snap: GraphSnapshot, q: TaskQuery,
     # vectorized presence over the value subjects: one searchsorted instead
     # of a dict probe per frontier uid (handleValuePostings' per-uid posting
     # fetch, worker/task.go:319)
+    costs.add_rows(len(frontier))      # value rows scanned host-side
     if pd.value_subjects_host is not None:
         vsub = pd.value_subjects_host
         pos = np.searchsorted(vsub, frontier)

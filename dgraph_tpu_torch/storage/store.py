@@ -935,18 +935,18 @@ class Store:
         with self._lock:
             self._packed_tablets.clear()   # direct installs bypass get()
             for kb, pl in lists.items():
-                key = K.parse_key(kb)
+                kind, attr = K.kind_attr_of(kb)
                 self.lists[kb] = pl
-                self.by_pred.setdefault((int(key.kind), key.attr), set()).add(kb)
-                if commit_ts > self.pred_commit_ts.get(key.attr, 0):
-                    self.pred_commit_ts[key.attr] = commit_ts
-                    mark = self._applied_marks.get(key.attr)
+                self.by_pred.setdefault((kind, attr), set()).add(kb)
+                if commit_ts > self.pred_commit_ts.get(attr, 0):
+                    self.pred_commit_ts[attr] = commit_ts
+                    mark = self._applied_marks.get(attr)
                     if mark is not None:
                         mark.set_done_until(commit_ts)
                 # installs bypass the delta journal: stamping resumes after
                 # the next full fold re-bases these tablets
-                self._delta_floor[key.attr] = max(
-                    self._delta_floor.get(key.attr, 0), commit_ts)
+                self._delta_floor[attr] = max(
+                    self._delta_floor.get(attr, 0), commit_ts)
             self.max_seen_commit_ts = max(self.max_seen_commit_ts, commit_ts)
 
     # -- WAL ----------------------------------------------------------------

@@ -1,8 +1,6 @@
 """Unified retry policy + per-endpoint circuit breaking.
 
-Copy of dgraph_tpu/utils/retry.py for the PyTorch port. The replication
-layer's NoQuorum joins transport_errors() with the cluster slice; until
-then the port has no replication layer to raise it.
+Copy of dgraph_tpu/utils/retry.py for the PyTorch port.
 
 Reference semantics: the reference client retries aborted txns and failed
 RPCs with backoff (x/x.go RetryUntilSuccess-shape loops, conn/pool.go
@@ -51,8 +49,10 @@ def transport_errors() -> tuple:
     programming error: connection loss, RPC failure, and the replication
     layer's quorum loss. RuntimeError is included for the repo's
     'no live leader' / 'no connection to group' routing errors."""
+    from ..parallel.remote import NoQuorum
+
     errs: list[type] = [ConnectionError, OSError, TimeoutError,
-                        RuntimeError]
+                        NoQuorum, RuntimeError]
     try:
         import grpc
 

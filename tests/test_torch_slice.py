@@ -476,6 +476,40 @@ mesh_out = (mesh_out, mn.metrics.counter(
     "dgraph_mesh_fused_queries_total").value,
     mn.analytics("cc", "friend")["device"])
 mn.close()
+from dgraph_tpu_torch.coord.cluster import Cluster
+from dgraph_tpu_torch.coord.replication import ReplicaGroup
+from dgraph_tpu_torch.coord.zero import Zero
+from dgraph_tpu_torch.coord.zero_service import serve_zero
+from dgraph_tpu_torch.parallel.client import ClusterClient
+from dgraph_tpu_torch.parallel.remote import serve_worker
+from dgraph_tpu_torch.parallel.mesh import make_mesh
+from dgraph_tpu_torch.parallel.worker import distribute_snapshot
+from dgraph_tpu_torch.protos import internal_pb2
+wz = Zero(2)
+wz.move_tablet("friend", 0)
+wz.move_tablet("age", 1)
+zsrv, zport, _ = serve_zero(wz, "localhost:0")
+wsrv = []
+for g in range(2):
+    ws = Store()
+    for e in parse_schema("friend: [uid] .\nage: int ."):
+        ws.set_schema(e)
+    wsrv.append(serve_worker(ws, "localhost:0", device="cpu"))
+cc = ClusterClient("localhost:%d" % zport,
+                   {g: ["localhost:%d" % wsrv[g][1]] for g in range(2)})
+cc.mutate(set_nquads='<0x1> <friend> <0x2> .\n<0x2> <age> "7"^^<xs:int> .')
+out["wire"] = cc.query("{ q(func: uid(0x1)) { friend { age } } }")
+cc.close()
+for w, _p in wsrv:
+    w.stop(0)
+zsrv.stop(0)
+cl = Cluster(2, device="cpu")
+cl.alter("friend: [uid] .")
+cl.mutate(set_nquads="<0x1> <friend> <0x2> .")
+out["cluster"] = cl.query("{ q(func: uid(0x1)) { friend { uid } } }")
+rg = ReplicaGroup(tempfile.mkdtemp(), n=3, serve_reads=True, device="cpu")
+rg.close()
+dsnap = distribute_snapshot(snap, make_mesh(2, devices=["cpu"] * 2))
 libs = [ln.split()[-1] for ln in open("/proc/self/maps") if "libdgt" in ln]
 new = set(sys.modules) - before
 bad = sorted(m for m in new if m.split(".")[0] in ("jax", "jaxlib")
@@ -485,7 +519,9 @@ print(json.dumps({"bad": bad, "levels": len(json.dumps(out)),
                   "native": nat, "libs": sorted(set(libs)),
                   "vector": out["vector"], "bulk_edges": bst.uid_edges,
                   "worker_torch": worker_torch, "packed": out["packed"],
-                  "mesh": mesh_out}))
+                  "mesh": mesh_out, "wire": out["wire"],
+                  "cluster": out["cluster"],
+                  "pb": internal_pb2.TaskRequest.DESCRIPTOR.full_name}))
 """
 
 
@@ -510,6 +546,11 @@ def test_port_never_imports_jax():
     # a mesh Node: the fused chain's JSON equals the unsharded Executor's,
     # and analytics runs on the mesh
     assert res["mesh"] == [True, 1, True]
+    # the wire cluster: a port Zero, two port workers and a ClusterClient
+    # over loopback gRPC; the embedded Cluster; the wire's package name
+    assert res["wire"] == {"q": [{"friend": [{"age": 7}]}]}
+    assert res["cluster"] == {"q": [{"friend": [{"uid": "0x2"}]}]}
+    assert res["pb"] == "dgraph_tpu.internal.TaskRequest"
     # the port's own codec build, never the JAX package's native/libdgt.so
     assert res["native"] and res["libs"]
     for lib in res["libs"]:
@@ -539,7 +580,10 @@ def test_port_sources_import_no_jax():
             "models/ldbc.py", "models/film.py", "parallel/mesh.py",
             "parallel/dist.py", "parallel/mesh_exec.py",
             "query/fusedplan.py", "query/analytics.py",
-            "coord/placement.py"} <= scanned
+            "coord/placement.py", "protos/internal_pb2.py",
+            "parallel/remote.py", "parallel/client.py", "parallel/worker.py",
+            "coord/zero_service.py", "coord/cluster.py",
+            "coord/replication.py", "utils/ballot.py"} <= scanned
 
 
 @pytest.mark.parametrize("scale,ef,seed", [(6, 4, 1), (10, 16, 7), (12, 8, 9),
