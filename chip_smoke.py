@@ -195,7 +195,13 @@ it:
      `launches_cluster`; (b) `python -m dgraph_tpu_torch zero --groups 2`
      and two `worker --device cuda` processes: the golden battery loaded
      through ClusterClient.mutate, every query equal to expected.json;
-  15. prints the card line, a {"kernels": [...]} line and the final
+  15. runs the port's project-invariant analyzer as a user runs it,
+     `python -m dgraph_tpu_torch.analysis --format=json dgraph_tpu_torch`
+     in a subprocess over the checkout: exit 0, no finding, and under
+     ANALYSIS_MAX_S of wall clock (interpreter start included); its line
+     carries the files analyzed, the findings by rule, the wall seconds
+     and the analyzer's own;
+  16. prints the card line, a {"kernels": [...]} line and the final
      {"ok": true, "device": {...}} line.
 Any mismatch raises and the script exits non-zero. It never imports jax or
 the JAX package.
@@ -226,6 +232,7 @@ INT32_OPS_PER_S = 64 * 132 * 1.98e9
 OPS_PER_EDGE = {"active_prefix": 22, "active_prefix_sparse": 19}
 RACE_LAUNCHES = 50
 JSON_MAX_BYTES = 10 << 20
+ANALYSIS_MAX_S = 10.0       # phase 15: the analyzer's budget, as its tests
 # phase 7: value predicates on every node id, names from a 64-word
 # vocabulary (three words each: one word's term row holds ~47k uids)
 VALUES_SCHEMA = """
@@ -1027,7 +1034,10 @@ def main() -> int:
     say("cluster_phase_done", seconds=time.perf_counter() - t0,
         script_seconds=time.perf_counter() - t_start)
 
-    # ---- 15. summary lines -------------------------------------------------
+    # ---- 15. the port's project-invariant analyzer --------------------------
+    analysis_phase()
+
+    # ---- 16. summary lines -------------------------------------------------
     kern_line = {"kernels": [
         {k: v for k, v in kernels[n].items() if k not in ("e_pad", "stream")}
         for n in ("active_prefix", "active_prefix_sparse")]}
@@ -3805,6 +3815,32 @@ def cli(*args, timeout=600) -> tuple[float, str]:
     t0 = time.perf_counter()
     out = cli_wait(cli_start(*args), timeout)
     return time.perf_counter() - t0, out
+
+
+def analysis_phase() -> None:
+    """Phase 15: `python -m dgraph_tpu_torch.analysis` over the checkout's
+    port package. A finding, a non-zero exit or ANALYSIS_MAX_S of wall
+    clock or more fails the run."""
+    from dgraph_tpu_torch.analysis import RULES
+
+    t0 = time.perf_counter()
+    p = subprocess.run(
+        [sys.executable, "-m", "dgraph_tpu_torch.analysis", "--format=json",
+         "dgraph_tpu_torch"], cwd=Path(__file__).resolve().parent,
+        capture_output=True, text=True, timeout=120)
+    wall = time.perf_counter() - t0
+    if p.returncode != 0:
+        raise SystemExit(f"analysis: exit {p.returncode}: "
+                         f"{(p.stdout + p.stderr)[-2000:]}")
+    out = json.loads(p.stdout)
+    by_rule = {r: 0 for r in sorted(RULES)}
+    for f in out["findings"]:
+        by_rule[f["rule"]] += 1
+    say("analysis", files=out["files"], findings=by_rule, seconds=wall,
+        analyzer_seconds=out["elapsed_s"])
+    if out["findings"] or wall >= ANALYSIS_MAX_S:
+        raise SystemExit(f"analysis: {len(out['findings'])} finding(s) in "
+                         f"{wall} s (budget {ANALYSIS_MAX_S} s)")
 
 
 def kernel_launches(port) -> dict:

@@ -626,8 +626,9 @@ class LazyPreds(dict):
             from dgraph_tpu_torch.utils import deadline as dl
 
             pool = _fold_pool()
-            # folds build shared snapshot state: they must not inherit any
-            # one request's deadline context
+            # dgraph: allow(ctxvar-copy) folds build SHARED snapshot
+            # state cached across requests — they must not inherit any
+            # one request's deadline/trace context
             futs = [pool.submit(self.resolve, a, trigger) for a in pending]
             for f in futs:
                 try:
@@ -1082,6 +1083,9 @@ def _fold_attrs(store: Store, attrs: list[str], read_ts: int,
             with sem:
                 return one(a)
 
+        # dgraph: allow(ctxvar-copy) folds build SHARED snapshot state
+        # cached across requests — they must not inherit any one
+        # request's deadline/trace context
         futs = [pool.submit(run, a) for a in attrs]
         return [f.result() for f in futs]
     return [one(a) for a in attrs]

@@ -450,6 +450,10 @@ class Registry:
             labels=("tier",))
         self.keyed_gauges["dgraph_devprof_hbm_highwater_bytes"] = \
             KeyedGauge(labels=("tier",))
+        # the hand kernels' launches in this process (ops/prefix.py's
+        # LAUNCHES), copied in at scrape time by api/http.py's /metrics
+        self.keyed_gauges["dgraph_kernel_launches"] = KeyedGauge(
+            labels=("kernel",))
         # multi-tenant QoS (dgraph_tpu/tenancy/): per-tenant
         # cost attribution in cost-ledger units plus the shed counter —
         # labeled series so one Grafana row ranks tenants. Values are
