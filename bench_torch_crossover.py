@@ -4,8 +4,9 @@
     python3 bench_torch_crossover.py              # all sections
     python3 bench_torch_crossover.py groupby      # section 4 alone
     python3 bench_torch_crossover.py unique       # section 5 alone
+    python3 bench_torch_crossover.py sets         # section 6 alone
 
-Seven path choices in the port are made by size. Each picks a path and
+Eight path choices in the port are made by size. Each picks a path and
 never an answer's value; this script times each side of them on the card
 and its host (needs one CUDA card):
 
@@ -52,6 +53,17 @@ and its host (needs one CUDA card):
      snapshot of chip_smoke.py phases 8 and 9 hands _known_uids (`friend`
      and `~friend` subjects and objects, `age` subjects), and on 2^22
      uids drawn below 1/16..64 times their count; the results must agree.
+  6. uidset.HOST_CUTOVER: the engine's set combines (intersect_host,
+     union_host, difference_host) run as numpy below it and as int64 torch
+     ops on the card from it (min(len(a), len(b))). Pairs of sorted-unique
+     int64 uid arrays, the smaller of SET_SIZES (2^10..2^22) uids and the
+     larger 1 or 16 times that, each drawn below 4 times the larger size
+     (default_rng(29)), run all three combines both ways: numpy, and the
+     device path with its host-to-device and device-to-host copies (the
+     engine hands numpy in and takes numpy out). The results must be
+     equal. A last line names the smallest power of two from which the
+     device path wins all three ops at every larger size measured, both
+     ratios (above the largest size when it wins at none).
 
 Each line of output is one JSON object; times are host-clock milliseconds
 (torch.cuda.synchronize before each reading), the median and band of REPS
@@ -73,6 +85,10 @@ JSON_MAX_SCALE = 12          # whole-request JSON above this grows past ~10 MB
 EDGE_FACTOR, SEED = 16, 7
 EXPAND_NEEDS = tuple(1 << k for k in range(8, 23, 2))
 REPS = 5
+SET_SIZES = tuple(1 << k for k in range(10, 23))
+SET_RATIOS = (1, 16)
+SET_REPS = 3                 # section 6: samples after the warm run
+SET_SLOW_MS = 1000.0         # a call slower than this is timed once
 HOST_SHORTEST_MAX_S = 20.0   # the host tier stops after a scale past this
 
 
@@ -81,11 +97,18 @@ def band(ms: list[float]) -> dict:
     return {"min": s[0], "median": s[len(s) // 2], "max": s[-1]}
 
 
-def timed(fn, sync) -> tuple[object, dict]:
+def timed(fn, sync, reps=REPS, slow_ms=None) -> tuple[object, dict]:
+    """The warm run, then `reps` timed runs; with slow_ms, a warm run
+    slower than that is the one sample (numpy's set ops on 2^26 uids take
+    tens of seconds on the card's host)."""
+    t0 = time.perf_counter()
     out = fn()
     sync()
+    first = (time.perf_counter() - t0) * 1e3
+    if slow_ms is not None and first > slow_ms:
+        return out, band([first])
     ms = []
-    for _ in range(REPS):
+    for _ in range(reps):
         t0 = time.perf_counter()
         fn()
         sync()
@@ -178,6 +201,64 @@ def unique_section() -> None:
         print(json.dumps(line), flush=True)
 
 
+def sorted_uids(rng, n: int, hi: int) -> np.ndarray:
+    """n distinct int64 uids below hi, sorted, drawn uniformly: each uid
+    kept with a probability a little above n / hi, the surplus dropped at
+    random (no np.unique: it is hash-based and slow on the card's host)."""
+    p = min(1.0, (n + 4 * np.sqrt(n) + 16) / hi)
+    while True:
+        u = np.flatnonzero(rng.random(hi, dtype=np.float32) < p)
+        if len(u) >= n:
+            return np.delete(u, rng.choice(len(u), len(u) - n,
+                                           replace=False))
+
+
+def sets_section(dev, sync, sizes=SET_SIZES) -> int:
+    """Section 6: the engine's set combines, numpy vs the device path.
+    Returns the measured cutover (a power of two)."""
+    from dgraph_tpu_torch.ops import uidset as us
+
+    rng = np.random.default_rng(29)
+    keep = us.HOST_CUTOVER
+    wins = {}                                   # (n, ratio) -> all 3 won
+    for ratio in SET_RATIOS:
+        for n in sizes:
+            a = sorted_uids(rng, n, 4 * n * ratio)
+            b = sorted_uids(rng, n * ratio, 4 * n * ratio)
+            line = {"phase": "set_combine", "min_len": n, "ratio": ratio,
+                    "len_b": int(len(b))}
+            won = True
+            for op, fn in (("intersect", us.intersect_host),
+                           ("union", us.union_host),
+                           ("difference", us.difference_host)):
+                got = {}
+                for path, cut in (("host", 1 << 62), ("device", 0)):
+                    us.HOST_CUTOVER = cut
+                    try:
+                        got[path], line[f"{op}_{path}_ms"] = timed(
+                            lambda: fn(a, b, dev), sync, SET_REPS,
+                            SET_SLOW_MS)
+                    finally:
+                        us.HOST_CUTOVER = keep
+                if not np.array_equal(got["host"], got["device"]):
+                    raise SystemExit(f"{op} {n}:{n * ratio}: the paths "
+                                     f"differ")
+                line[f"{op}_out"] = int(len(got["host"]))
+                won &= line[f"{op}_device_ms"]["median"] < \
+                    line[f"{op}_host_ms"]["median"]
+            wins[n, ratio] = won
+            print(json.dumps(line), flush=True)
+    cut = 2 * max(sizes)
+    for n in sorted(sizes, reverse=True):
+        if not all(wins[n, r] for r in SET_RATIOS):
+            break
+        cut = n
+    print(json.dumps({"phase": "set_cutover", "host_cutover": cut,
+                      "device_won_at_none": cut > max(sizes),
+                      "in_use": keep}), flush=True)
+    return cut
+
+
 def main() -> int:
     import torch
 
@@ -208,6 +289,9 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["unique"]:
         unique_section()
+        return 0
+    if sys.argv[1:] == ["sets"]:
+        sets_section(dev, sync)
         return 0
     schema = SchemaState()
     for e in parse_schema("friend: [uid] ."):
@@ -352,6 +436,9 @@ def main() -> int:
 
     # ---- 5. the known-uid merge: bitmap vs np.unique, by density ----------
     unique_section()
+
+    # ---- 6. the set combines: numpy vs the device path, by size ----------
+    sets_section(dev, sync)
     return 0
 
 

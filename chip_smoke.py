@@ -44,11 +44,23 @@ it:
      Executor.execute: an index range root, BASELINE config 2's one-hop
      expand with a value filter, an anyofterms root ordered by score, an
      exact-match root, @recurse with value children and a value filter,
-     and val/math/aggregates over value variables. Each one's JSON is
-     byte-identical between the default path and the host path, and held to
-     numpy over the same data; the device union (ops/csr.expand_dest) must
-     run for the two index roots and K1 or K2 for the recurse; each request
-     is timed (p50, min..max of 5 runs) and two are profiled;
+     and val/math/aggregates over value variables, and a seventh whose
+     filter combines an anyofterms leaf and two value compares with AND,
+     OR and NOT over all ids (every operand >= COMBINE_OPERAND_MIN uids).
+     Each one's JSON is byte-identical between the default path and the
+     host path (numpy set combines included), and held to numpy over the
+     same data; the device union (ops/csr.expand_dest) must run for the two
+     index roots, K1 or K2 for the recurse, and each combine of the seventh
+     on the card where its operands reach uidset.HOST_CUTOVER; each request
+     is timed (p50, min..max of 3 runs; the seventh on the host path too)
+     and two are profiled. Before the folds, the `set_algebra` line holds
+     the three set combines, forced onto the card, to numpy at min(len)
+     2^13, 2^17 and 2^22 (uids past 2^32, the uid 2^31 - 1, an unsorted
+     input with repeats) and the five set ops (apply_filter, merge_many,
+     intersect_many, index_of, paginate) on int64 sets of 2^20 ids to their
+     numpy meaning. After phase 14 a `combines` line counts the combines of
+     phases 7-14 that reached HOST_CUTOVER, and says so plainly if none
+     did;
   8. loads the headline graph (with its REVERSE keys) and `age` on every
      node id into the port's Store (posting lists packed by the native
      codec, Store.bulk_install), folds it eagerly (held to the input
@@ -241,6 +253,13 @@ score: float @index(float) .
 name: string @index(exact, term) .
 """
 VOCAB = tuple(f"w{chr(97 + i // 8)}{chr(97 + i % 8)}" for i in range(64))
+# phase 7's set_algebra line: the three combines forced onto the card at
+# these min(len) sizes, the five set ops on int64 sets of SET_OPS_N uids;
+# and a request whose filter combines operands of at least
+# COMBINE_OPERAND_MIN uids each
+SET_COMBINE_SIZES = (1 << 13, 1 << 17, 1 << 22)
+SET_OPS_N = 1 << 20
+COMBINE_OPERAND_MIN = 1 << 17
 # phase 8: the headline graph and age in the port's Store, then a seeded
 # program of COMMITS transactions over a pool of COMMIT_POOL subjects (32
 # transactions since phase 10 came, 16 since phase 14 came: the script's
@@ -532,17 +551,29 @@ def band(samples):
 
 
 def on_host(fn):
-    """fn() with every expand, union and recurse level on the host
-    mirrors (the reference each request's default path is held to)."""
+    """fn() with every expand, union, set combine and recurse level on the
+    host mirrors (the reference each request's default path is held
+    to)."""
+    from dgraph_tpu_torch.ops import uidset
     from dgraph_tpu_torch.query import recurse as rec
     from dgraph_tpu_torch.query import task
 
-    kept = rec.KERNEL_MIN_EDGES, task.HOST_EXPAND_MAX
-    rec.KERNEL_MIN_EDGES = task.HOST_EXPAND_MAX = 1 << 62
+    kept = rec.KERNEL_MIN_EDGES, task.HOST_EXPAND_MAX, uidset.HOST_CUTOVER
+    rec.KERNEL_MIN_EDGES = task.HOST_EXPAND_MAX = uidset.HOST_CUTOVER = \
+        1 << 62
     try:
         return fn()
     finally:
-        rec.KERNEL_MIN_EDGES, task.HOST_EXPAND_MAX = kept
+        rec.KERNEL_MIN_EDGES, task.HOST_EXPAND_MAX, uidset.HOST_CUTOVER = \
+            kept
+
+
+def device_combines() -> int:
+    """Set combines run on the device branch so far (uidset.COMBINES, every
+    op and device type)."""
+    from dgraph_tpu_torch.ops import uidset
+
+    return sum(sum(c.values()) for c in uidset.COMBINES.values())
 
 
 def say(tag: str, **kw) -> None:
@@ -926,12 +957,14 @@ def main() -> int:
 
     # ---- 7. value predicates, index roots, filters, order, aggregates ------
     t0 = time.perf_counter()
-    value_launches = values_phase(snap, schema, (subjects, indptr, indices),
-                                  seeds, dev)
+    combines_before = device_combines()
+    value_launches, forced_combines = values_phase(
+        snap, schema, (subjects, indptr, indices), seeds, dev)
     for name, n in value_launches.items():
         kernels[name]["launches_values"] = n
     say("values_phase", seconds=time.perf_counter() - t0,
-        script_seconds=time.perf_counter() - t_start)
+        script_seconds=time.perf_counter() - t_start,
+        combines=device_combines())
 
     # ---- 7b. @groupby: a uid key and a value key on the device route -------
     t0 = time.perf_counter()
@@ -939,7 +972,8 @@ def main() -> int:
     groupby_jsons = groupby_phase(snap, schema, (subjects, indptr, indices),
                                   wide)
     say("groupby_phase", seconds=time.perf_counter() - t0,
-        script_seconds=time.perf_counter() - t_start)
+        script_seconds=time.perf_counter() - t_start,
+        combines=device_combines())
 
     # ---- 8. the Store, commits and overlays ---------------------------------
     json_recurse = shapes["loop_recurse"][0].replace(", loop: true", "")
@@ -953,7 +987,8 @@ def main() -> int:
             kernels[name]["launches_storage"] = n
         torch.cuda.empty_cache()
         say("storage_phase", seconds=time.perf_counter() - t0,
-            script_seconds=time.perf_counter() - t_start)
+            script_seconds=time.perf_counter() - t_start,
+            combines=device_combines())
 
         # ---- 9. serving through the Node, and 10. the wire ------------------
         def wire(node):
@@ -993,7 +1028,8 @@ def main() -> int:
         for name, n in batch_launches.items():
             kernels[name]["launches_batch"] = n
         say("serve_phase", seconds=time.perf_counter() - t0,
-            script_seconds=time.perf_counter() - t_start)
+            script_seconds=time.perf_counter() - t_start,
+            combines=device_combines())
 
     # ---- 9b. the mesh on the one card ---------------------------------------
     t0 = time.perf_counter()
@@ -1004,7 +1040,8 @@ def main() -> int:
         kernels[name]["launches_mesh"] = n
     torch.cuda.empty_cache()
     say("mesh_phase", seconds=time.perf_counter() - t0,
-        script_seconds=time.perf_counter() - t_start)
+        script_seconds=time.perf_counter() - t_start,
+        combines=device_combines())
 
     # ---- 12. vectors at sift-128-euclidean's shape --------------------------
     t0 = time.perf_counter()
@@ -1013,7 +1050,8 @@ def main() -> int:
         kernels[name]["launches_vector"] = n
     torch.cuda.empty_cache()
     say("vector_phase_done", seconds=time.perf_counter() - t0,
-        script_seconds=time.perf_counter() - t_start)
+        script_seconds=time.perf_counter() - t_start,
+        combines=device_combines())
 
     # ---- 13. the loader chain, then serve -----------------------------------
     t0 = time.perf_counter()
@@ -1021,7 +1059,8 @@ def main() -> int:
     for name, n in loader_launches.items():
         kernels[name]["launches_loader"] = n
     say("loader_phase_done", seconds=time.perf_counter() - t0,
-        script_seconds=time.perf_counter() - t_start)
+        script_seconds=time.perf_counter() - t_start,
+        combines=device_combines())
 
     # ---- 14. the wire cluster: Zero, workers on the card, ClusterClient ----
     t0 = time.perf_counter()
@@ -1032,7 +1071,23 @@ def main() -> int:
     for name, n in cluster_launches.items():
         kernels[name]["launches_cluster"] = n
     say("cluster_phase_done", seconds=time.perf_counter() - t0,
-        script_seconds=time.perf_counter() - t_start)
+        script_seconds=time.perf_counter() - t_start,
+        combines=device_combines())
+
+    # the set combines of phases 7-14 (this process; the CLI servers'
+    # own are not counted) that reached uidset.HOST_CUTOVER, set_algebra's
+    # forced ones left out
+    from dgraph_tpu_torch.ops import uidset
+
+    reached = device_combines() - combines_before - forced_combines
+    say("combines", reached_cutover=reached,
+        host_cutover=uidset.HOST_CUTOVER,
+        by_op={op: dict(c) for op, c in uidset.COMBINES.items()},
+        forced_by_set_algebra=forced_combines)
+    if reached == 0:
+        print(f"no set combine in phases 7-14 reached HOST_CUTOVER "
+              f"({uidset.HOST_CUTOVER} uids): every one ran on numpy",
+              flush=True)
 
     # ---- 15. the port's project-invariant analyzer --------------------------
     analysis_phase()
@@ -1219,13 +1274,143 @@ def shortest_phase(snap, schema, csr, rev, src, num_nodes, dev) -> dict:
                       "hops": int(hd[picks["far"]])}
 
 
-def values_phase(snap, schema, csr, seeds, dev) -> dict:
-    """Phase 7 on the headline snapshot: adds age, score and name on every
-    node id and runs the six value requests. Returns the K1/K2 launches of
-    the requests' default-path runs."""
+def sorted_unique(x: np.ndarray) -> np.ndarray:
+    """np.unique by a sort: numpy's unique is hash-based on the card's host
+    and takes seconds for millions of uids."""
+    x = np.sort(x)
+    return x[np.concatenate([[True], x[1:] != x[:-1]])] if len(x) else x
+
+
+def member(x: np.ndarray, y: np.ndarray) -> np.ndarray:
+    """Mask over x: x[i] in the sorted array y."""
+    if not len(y):
+        return np.zeros(len(x), bool)
+    i = np.searchsorted(y, x)
+    return y[np.minimum(i, len(y) - 1)] == x
+
+
+def set_algebra(dev, ids) -> int:
+    """Phase 7's `set_algebra` line: intersect_host, union_host and
+    difference_host forced onto the card (HOST_CUTOVER = 0) at each min(len)
+    of SET_COMBINE_SIZES, on a pair whose first set holds uids at and past
+    2^32 and 2^31 - 1 (a real uid here, JAX's int32 sentinel), unsorted
+    with repeats, in both orders, each equal to numpy's meaning of the op
+    (computed with sorted_unique and searchsorted); then the five set ops
+    on int64 sets of SET_OPS_N of phase 7's ids on the card, each equal to
+    its numpy meaning. Returns the device-branch combines it ran."""
+    import torch
+
+    from dgraph_tpu_torch.ops import uidset as us
+
+    rng = np.random.default_rng(13)
+
+    def draw(m, hi):
+        """m distinct sorted uids below hi."""
+        u = np.flatnonzero(rng.random(hi, dtype=np.float32) < 0.5)
+        return np.sort(rng.choice(u, m, replace=False))
+
+    def fail(msg):
+        raise SystemExit(f"set_algebra: {msg}")
+
+    ref = {"intersect": lambda x, y: x[member(x, y)],
+           "union": lambda x, y: sorted_unique(np.concatenate([x, y])),
+           "difference": lambda x, y: x[~member(x, y)]}
+    line = {"combines": []}
+    t_all, c_all = time.perf_counter(), device_combines()
+    keep = us.HOST_CUTOVER
+    for m in SET_COMBINE_SIZES:
+        q = m // 4
+        a_set = np.concatenate([draw(m - q - 1, 4 * m), [2 ** 31 - 1],
+                                (1 << 32) + draw(q, 4 * m)])
+        b_set = np.concatenate([draw(m - q - 1, 4 * m), [2 ** 31 - 1],
+                                (1 << 32) + draw(q, 4 * m)])
+        a_in = rng.permutation(np.concatenate(
+            [a_set, a_set[rng.integers(0, m, m // 8)]]))
+        row = {"min_len": m, "wide_uids": int((a_set >= 1 << 31).sum())}
+        outs = {}
+        for op, fn in (("intersect", us.intersect_host),
+                       ("union", us.union_host),
+                       ("difference", us.difference_host)):
+            for (x, y), (xs, ys) in (((a_in, b_set), (a_set, b_set)),
+                                     ((b_set, a_in), (b_set, a_set))):
+                before = us.COMBINES[op][dev.type]
+                us.HOST_CUTOVER = 0
+                try:
+                    t0 = time.perf_counter()
+                    got = fn(x, y, dev)
+                    dms = (time.perf_counter() - t0) * 1e3
+                finally:
+                    us.HOST_CUTOVER = keep
+                want = ref[op](xs, ys)
+                if us.COMBINES[op][dev.type] != before + 1:
+                    fail(f"{op} at {m} did not run on the card")
+                if got.dtype != np.int64 or not np.array_equal(got, want):
+                    fail(f"{op} at {m}: {len(got)} uids != numpy "
+                         f"{len(want)}")
+                outs[op] = got
+            row[op] = {"out": int(len(want)), "device_ms": dms}
+        if 2 ** 31 - 1 not in outs["intersect"] or \
+                not (outs["union"] >= 1 << 32).any():
+            fail(f"no 2^31 - 1 or no uid past 2^32 came back at {m}")
+        line["combines"].append(row)
+
+    # the five ops on the card, int64 sets of phase 7's ids
+    n = SET_OPS_N
+    rows = [np.sort(rng.choice(ids, n // 2, replace=False))
+            for _ in range(4)]
+    mat = torch.stack([us.make_set(r, capacity=n, dtype=torch.int64,
+                                   device=dev) for r in rows])
+    s0, x0 = mat[0], rows[0]
+    ops = {}
+    got = us.merge_many(mat)
+    ops["merge_many"] = got.shape == (4 * n,) and np.array_equal(
+        us.to_numpy(got), sorted_unique(np.concatenate(rows)))
+    want = rows[0]
+    for r in rows[1:]:
+        want = want[member(want, r)]
+    got = us.intersect_many(mat, out_size=n)
+    ops["intersect_many"] = got.shape == (n,) and \
+        np.array_equal(us.to_numpy(got), want)
+    mask = rng.random(n) < 0.3
+    got = us.apply_filter(s0, torch.from_numpy(mask).to(dev))
+    ops["apply_filter"] = got.shape == (n,) and \
+        np.array_equal(us.to_numpy(got), x0[mask[: len(x0)]])
+    probe = np.concatenate([x0[rng.integers(0, len(x0), 1000)],
+                            ids[~member(ids, x0)][:1000],
+                            [int(us.SENTINEL64)]])
+    got = us.index_of(s0, torch.from_numpy(probe).to(dev))
+    ops["index_of"] = got.dtype == torch.int32 and np.array_equal(
+        got.cpu().numpy(), us.host_rank_of(x0, probe, -1))
+    total, page_ok = len(x0), True
+    for off, cnt in ((1000, 500), (-700, -1), (0, -1), (-(n + 5), 100),
+                     (total - 3, 10)):
+        o = max(total + off, 0) if off < 0 else off
+        want = x0[o: total if cnt < 0 else o + cnt]
+        got = us.paginate(s0, off, cnt)
+        page_ok &= got.shape == (n,) and \
+            np.array_equal(us.to_numpy(got), want)
+    ops["paginate"] = bool(page_ok)
+    torch.cuda.synchronize()
+    bad = [k for k, ok in ops.items() if not ok]
+    if bad:
+        fail(f"{bad} differ from numpy at {n}")
+    del mat
+    forced = device_combines() - c_all
+    say("set_algebra", seconds=time.perf_counter() - t_all,
+        host_cutover=keep, forced_combines=forced, ops_n=n, ops=sorted(ops),
+        **line)
+    return forced
+
+
+def values_phase(snap, schema, csr, seeds, dev) -> tuple[dict, int]:
+    """Phase 7 on the headline snapshot: the set_algebra line, then adds
+    age, score and name on every node id and runs the seven value
+    requests. Returns the K1/K2 launches of the requests' default-path runs
+    and the combines set_algebra forced onto the card."""
     import torch
 
     from dgraph_tpu_torch.ops import csr as csrops
+    from dgraph_tpu_torch.ops import uidset as us
     from dgraph_tpu_torch.ops import prefix as px
     from dgraph_tpu_torch.query import dql
     from dgraph_tpu_torch.query import engine as eng
@@ -1238,6 +1423,7 @@ def values_phase(snap, schema, csr, seeds, dev) -> dict:
     eng.set_query_edge_limit(1 << 31)      # phase 6 left it at 1 << 18
     n = 1 << SCALE
     ids = np.arange(1, n + 1, dtype=np.int64)
+    forced = set_algebra(dev, ids)
     rng = np.random.default_rng(11)
     age = rng.integers(0, 100, n)
     cents = rng.integers(0, 10000, n)       # score: [0, 100), 2 decimals
@@ -1301,6 +1487,12 @@ def values_phase(snap, schema, csr, seeds, dev) -> dict:
                    "mx: max(val(a)) sm: sum(val(a)) } q(func: uid(m), "
                    "orderdesc: val(m), first: 10) { uid val(m) } }"
                    % seed_list,
+        # AND / OR / NOT over an index-backed function and value compares
+        # on all ids: every combine's operands pass COMBINE_OPERAND_MIN
+        "combine_filter": '{ F as var(func: has(age)) @filter((anyofterms('
+                          'name, "%s") OR ge(score, 60)) AND NOT le(age, 20)) '
+                          'q(func: uid(F), first: 1000) { uid age score } }'
+                          % w3,
     }
     rtext = ("{ q(func: uid(%s)) @recurse(depth: 3) { age friend "
              "@filter(lt(age, %%d)) } }" % seed_list)
@@ -1313,7 +1505,7 @@ def values_phase(snap, schema, csr, seeds, dev) -> dict:
     else:
         fail("recurse_values", "no k gives 1 KB..10 MB of JSON")
     order = ["index_range", "expand_filter", "terms_order", "eq_exact",
-             "recurse_values", "val_agg"]
+             "recurse_values", "val_agg", "combine_filter"]
     for name in order:
         if name not in hosts:
             hosts[name] = host_json(texts[name])
@@ -1322,7 +1514,8 @@ def values_phase(snap, schema, csr, seeds, dev) -> dict:
     outs, stats = {}, {}
     px.reset_launches()
     for name in order:
-        before = (dict(px.LAUNCHES), csrops.UNIONS["cuda"])
+        before = (dict(px.LAUNCHES), csrops.UNIONS["cuda"],
+                  {op: c[dev.type] for op, c in us.COMBINES.items()})
         t0 = time.perf_counter()
         got = execute(texts[name])
         sync()
@@ -1333,7 +1526,9 @@ def values_phase(snap, schema, csr, seeds, dev) -> dict:
         stats[name] = {
             "first_ms": first_ms, "json_bytes": len(got),
             "launches": {k: v - before[0][k] for k, v in px.LAUNCHES.items()},
-            "device_unions": csrops.UNIONS["cuda"] - before[1]}
+            "device_unions": csrops.UNIONS["cuda"] - before[1],
+            "device_combines": {op: c[dev.type] - before[2][op]
+                                for op, c in us.COMBINES.items()}}
     launches = dict(px.LAUNCHES)
 
     # held to numpy
@@ -1405,6 +1600,36 @@ def values_phase(snap, schema, csr, seeds, dev) -> dict:
         if stats[name]["device_unions"] == 0:
             fail(name, "the device union did not run")
 
+    sets = {"anyofterms": picked, "ge_score": score >= 60,
+            "le_age": age <= 20}
+    sets["or"] = sets["anyofterms"] | sets["ge_score"]
+    sets["not"] = ~sets["le_age"]
+    keep = sets["or"] & sets["not"]
+    want = ids[keep]
+    ex = eng.Executor(snap, schema)
+    ex.execute(dql.parse(texts["combine_filter"]))
+    got = ex.vars["F"].uids
+    if not np.array_equal(got, want):
+        fail("combine_filter", f"F holds {len(got)} uids != numpy "
+             f"{len(want)}")
+    if [(int(o["uid"], 16), o["age"], o["score"])
+            for o in outs["combine_filter"]["q"]] != \
+            [(int(u), int(age[u - 1]), float(score[u - 1]))
+             for u in want[:1000]]:
+        fail("combine_filter", "first 1000 rows differ from numpy")
+    operands = {k: int(v.sum()) for k, v in sets.items()}
+    small = {k: v for k, v in operands.items() if v < COMBINE_OPERAND_MIN}
+    if small:
+        fail("combine_filter", f"operands below {COMBINE_OPERAND_MIN}: "
+             f"{small}")
+    stats["combine_filter"].update(
+        operands=operands, matched=int(len(want)), host_cutover=us.HOST_CUTOVER,
+        reached_cutover=min(operands.values()) >= us.HOST_CUTOVER)
+    if stats["combine_filter"]["reached_cutover"] and \
+            not all(stats["combine_filter"]["device_combines"].values()):
+        fail("combine_filter", "an operand passed HOST_CUTOVER but a "
+             "combine stayed on the host")
+
     # timing: 3 runs after the checked one (5 until phase 9b came: the
     # script's time limit); profiles of two requests
     for name in order:
@@ -1415,10 +1640,17 @@ def values_phase(snap, schema, csr, seeds, dev) -> dict:
             sync()
             ms.append((time.perf_counter() - t0) * 1e3)
         line = dict(stats[name], ms=band(ms), query=texts[name][:120])
-        if name in ("expand_filter", "terms_order"):
+        if name == "combine_filter":
+            hms = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                host_json(texts[name])
+                hms.append((time.perf_counter() - t0) * 1e3)
+            line["host_ms"] = band(hms)
+        if name in ("expand_filter", "terms_order", "combine_filter"):
             line["profile"] = profile_query(lambda: execute(texts[name]))
         say("value_request", request=name, **line)
-    return launches
+    return launches, forced
 
 
 

@@ -218,6 +218,9 @@ class MeshExecutor:
         """One labeled fused-coverage miss."""
         self._k_fallback.inc(reason)
 
+    def fallback_total(self) -> int:
+        return sum(self._k_fallback.snapshot().values())
+
     def note_query(self, fused: bool) -> None:
         """Per-query coverage accounting: fused/(fused+unfused) is the
         coverage ratio surfaced on /debug/metrics."""

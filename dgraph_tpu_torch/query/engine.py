@@ -359,7 +359,7 @@ class Executor:
             return np.zeros(0, np.int64)
         out = uids[0]
         for u in uids[1:]:
-            out = us.union_host(out, u)
+            out = us.union_host(out, u, self.snap.device)
         if self.plan is not None:
             self.plan.record(gq, len(out), self.explain)
         return out
@@ -888,15 +888,16 @@ class Executor:
         if ft.op == "and":
             out = parts[0]
             for p in parts[1:]:
-                out = us.intersect_host(out, p)
+                out = us.intersect_host(out, p, self.snap.device)
             return out
         if ft.op == "or":
             out = parts[0]
             for p in parts[1:]:
-                out = us.union_host(out, p)
+                out = us.union_host(out, p, self.snap.device)
             return out
         if ft.op == "not":
-            return us.difference_host(frontier, parts[0])
+            return us.difference_host(frontier, parts[0],
+                                      self.snap.device)
         raise QueryError(f"bad filter op {ft.op}")
 
     def _eval_filter_func(self, fn: dql.Function,
@@ -908,10 +909,12 @@ class Executor:
             for r in refs:
                 vv = self.vars.get(r)
                 if vv is not None and vv.uids is not None:
-                    sel = us.union_host(sel, vv.uids)
+                    sel = us.union_host(sel, vv.uids, self.snap.device)
                 elif vv is not None:
-                    sel = us.union_host(sel, np.asarray(sorted(vv.vals), dtype=np.int64))
-            return us.intersect_host(frontier, sel)
+                    sel = us.union_host(
+                        sel, np.asarray(sorted(vv.vals), dtype=np.int64),
+                        self.snap.device)
+            return us.intersect_host(frontier, sel, self.snap.device)
         if fn.is_valvar and fn.args and isinstance(fn.args[0], dql.VarRef):
             vv = self.vars.get(fn.args[0].name)
             if vv is None:
@@ -930,7 +933,7 @@ class Executor:
         tid = self.schema.type_of(fn.attr)
         if name == "has" and tid == TypeID.UID:
             root = self._dispatch(TaskQuery(fn.attr, func=("has", []))).dest_uids
-            return us.intersect_host(frontier, root)
+            return us.intersect_host(frontier, root, self.snap.device)
         if name in ("has", "uid_in", "checkpwd") or (
                 name in ("eq", "le", "lt", "ge", "gt") and tid != TypeID.UID):
             # pointwise over the frontier: value presence, a value compare
@@ -940,7 +943,7 @@ class Executor:
             return self._dispatch(q).dest_uids
         # index-backed functions: run at root, intersect with frontier
         root = self._run_root_func(fn)
-        return us.intersect_host(frontier, root)
+        return us.intersect_host(frontier, root, self.snap.device)
 
     # ----------------------------------------------------- fused ANN pipeline
 
@@ -1259,7 +1262,7 @@ class Executor:
         satisfied = False
         for r in rows:
             bucket = tuids[indptr[r]:indptr[r + 1]]
-            inb = us.intersect_host(bucket, cand)
+            inb = us.intersect_host(bucket, cand, self.snap.device)
             if len(inb) == 0:
                 continue
             if tz.lossy and len(inb) > 1:

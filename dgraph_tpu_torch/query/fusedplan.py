@@ -429,10 +429,11 @@ def resolve_leaf(ex, spec: LeafSpec) -> np.ndarray:
         for r in refs:
             vv = ex.vars.get(r)
             if vv is not None and vv.uids is not None:
-                sel = us.union_host(sel, vv.uids)
+                sel = us.union_host(sel, vv.uids, ex.snap.device)
             elif vv is not None:
                 sel = us.union_host(
-                    sel, np.asarray(sorted(vv.vals), dtype=np.int64))
+                    sel, np.asarray(sorted(vv.vals), dtype=np.int64),
+                    ex.snap.device)
         return np.unique(sel)
     if spec.kind == "valvar":
         from dgraph_tpu_torch.query.engine import _match_any_rhs

@@ -349,7 +349,7 @@ def _index_uids_intersect_rows(ti: TokenIndex, rows: list[int]) -> np.ndarray:
     out = None
     for r in rows:
         u = uids_h[indptr[r]: indptr[r + 1]]
-        out = u if out is None else us.intersect_host(out, u)
+        out = u if out is None else us.intersect_host(out, u, ti.device)
         if len(out) == 0:
             break
     return out
@@ -829,7 +829,7 @@ def _regexp_func(pd: PredData, schema, pattern: str, flags: str) -> np.ndarray:
                     rows = [r0] if r0 >= 0 else []
                 uids = _index_uids_for_rows(ti, rows)
                 branch = uids if branch is None \
-                    else us.intersect_host(branch, uids)
+                    else us.intersect_host(branch, uids, ti.device)
                 if not len(branch):
                     break
             if branch is not None and len(branch):

@@ -659,6 +659,28 @@ def test_mesh_write_then_read_fresh(nodes):
     assert outs[1][1].get("overlay", 0) >= 1
 
 
+def test_fallback_total_sums_the_reasons_as_jax(nodes):
+    """MeshExecutor.fallback_total() is the sum of
+    dgraph_mesh_fallbacks_total over its reasons, in both packages, after
+    a forced fallback (a multi-predicate @recurse and an overlay)."""
+    totals = []
+    for cls in (JNode, TNode):
+        n = nodes(cls, mesh_devices=8, mesh_min_edges=1)
+        n.alter(schema_text=CHAIN_SCHEMA)
+        n.mutate(set_nquads=_chain_quads(), commit_now=True)
+        n.task_cache = n.result_cache = None
+        assert n.mesh_exec.fallback_total() == 0
+        n.query('{ q(func: eq(name, "node1")) @recurse(depth: 2) '
+                '{ follows p0 } }')
+        n.mutate(set_nquads="<0x1> <p0> <0x4f> .", commit_now=True)
+        n.query('{ q(func: uid(0x1)) { p0 { uid p1 { uid } } } }')
+        by_reason = _fallbacks(n)
+        assert len(by_reason) >= 2
+        assert n.mesh_exec.fallback_total() == sum(by_reason.values())
+        totals.append((n.mesh_exec.fallback_total(), by_reason))
+    assert totals[1] == totals[0]
+
+
 # ---------------------------------------------------------------------------
 # the per-task path over sharded tablets (tests/test_dist_query.py's
 # queries), at 2, 4 and 8 shards

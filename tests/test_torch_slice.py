@@ -227,7 +227,7 @@ def test_uidset_algebra_matches_jax():
     for jf, tf in ((jus.intersect_host, tus.intersect_host),
                    (jus.union_host, tus.union_host),
                    (jus.difference_host, tus.difference_host)):
-        np.testing.assert_array_equal(tf(a, b), jf(a, b))
+        np.testing.assert_array_equal(tf(a, b, "cpu"), jf(a, b))
 
 
 def test_transpose_csr_matches_reverse_fold():

@@ -521,3 +521,69 @@ def test_term_tokens_equal_jax():
     for t in texts:
         assert ttok._term_tokens(Val(TypeID.STRING, t)) == \
             jtok._term_tokens(JV(JT.STRING, t)), repr(t)
+
+
+# ---------------------------------------------------------------------------
+# filter combines above a lowered uidset.HOST_CUTOVER (torch ops on the CPU)
+# ---------------------------------------------------------------------------
+
+COMBINE_SCHEMA = """
+name: string @index(term) .
+age: int @index(int) .
+"""
+COMBINE_WORDS = ("wa", "wb", "wc", "wd", "we", "wf")
+# unsorted and repeated on purpose: the literal list reaches the combine
+# as written (engine._eval_filter_func)
+COMBINE_DROP = [0x2F, 0x3, 0x1C0, 0x3, 0x11, 0x5A, 0x11] + \
+    list(range(0x100, 0x80, -7))
+COMBINE_QUERIES = (
+    '{ q(func: has(name)) @filter((anyofterms(name, "wa wb") OR ge(age, 50))'
+    ' AND NOT uid(%s)) { uid name age } }'
+    % ", ".join(hex(u) for u in COMBINE_DROP),
+    '{ q(func: has(name)) @filter(uid(0x3, 0x1, 0x1)) { uid name age } }',
+    '{ A as var(func: anyofterms(name, "wc")) B as var(func: ge(age, 70)) '
+    'q(func: uid(A, B)) @filter(NOT uid(%s)) { uid age } }'
+    % ", ".join(hex(u) for u in COMBINE_DROP),
+)
+
+
+@pytest.fixture(scope="module")
+def combine_state():
+    """A few hundred uids with a term-indexed name and an int age."""
+    rng = np.random.default_rng(31)
+    quads = []
+    for u in range(1, 401):
+        w = rng.choice(len(COMBINE_WORDS), 2, replace=False)
+        quads.append(f'<{hex(u)}> <name> "n{u} {COMBINE_WORDS[w[0]]} '
+                     f'{COMBINE_WORDS[w[1]]}" .')
+        quads.append(f'<{hex(u)}> <age> "{int(rng.integers(0, 100))}" .')
+    return _node(COMBINE_SCHEMA, "\n".join(quads))
+
+
+@pytest.mark.parametrize("qi", range(len(COMBINE_QUERIES)))
+def test_filter_combines_on_the_device_branch_equal_jax(combine_state,
+                                                       monkeypatch, qi):
+    """AND / OR / NOT over an index-backed function, a value compare and
+    uid(...) literals, with the port's HOST_CUTOVER lowered to 16 so the
+    combines run as torch ops on the snapshot's device (the CPU here):
+    JSON byte-identical to the JAX Executor, and the combine counter shows
+    the device branch ran."""
+    from dgraph_tpu_torch.ops import uidset as tus
+
+    monkeypatch.setattr(tus, "HOST_CUTOVER", 16)
+    before = {op: c["cpu"] for op, c in tus.COMBINES.items()}
+    want, got = _run(combine_state, COMBINE_QUERIES[qi])
+    assert got == want
+    assert len(json.loads(got)["q"]) > 0
+    moved = {op: c["cpu"] - before[op] for op, c in tus.COMBINES.items()}
+    if qi == 0:
+        # the OR's union, the NOT's difference, the AND's and the
+        # anyofterms leaf's intersections
+        assert moved["union"] >= 1 and moved["difference"] >= 1
+        assert moved["intersect"] >= 2
+    elif qi == 1:
+        assert sum(moved.values()) == 0       # three literals: numpy
+    else:
+        # the root's uid(A, B) union and the literal filter's intersection
+        # (the NOT's difference is over the few dropped uids: numpy)
+        assert moved["union"] >= 1 and moved["intersect"] >= 1
