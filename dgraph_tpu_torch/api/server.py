@@ -222,7 +222,8 @@ class Node:
         # /debug/traces/<id>. slow_query_ms > 0 arms the slow-query log.
         self.slow_log = SlowQueryLog(slow_query_ms, path=slow_query_log)
         self.tracer = otrace.Tracer(fraction=span_sample, proc="node",
-                                    rng=trace_rng, slowlog=self.slow_log)
+                                    rng=trace_rng, slowlog=self.slow_log,
+                                    metrics=self.metrics)
         # serving tier: parsed-plan cache, snapshot-keyed task
         # result LRU (+ singleflight), bounded device-dispatch gate.
         # Size 0 disables a tier (bench.py's cold-cache mode).
@@ -775,10 +776,11 @@ class Node:
         recursive-descent parser entirely. Parsed trees are read-only
         during execution (engine only builds NEW GraphQuery nodes), so one
         AST serves every replay."""
-        if self.plan_cache is not None:
-            return self.plan_cache.parse(q, variables,
-                                         ns=tnc.current())
-        return dql.parse(q, variables)
+        with otrace.span("parse"):
+            if self.plan_cache is not None:
+                return self.plan_cache.parse(q, variables,
+                                             ns=tnc.current())
+            return dql.parse(q, variables)
 
     # -- Query ---------------------------------------------------------------
 
@@ -875,9 +877,20 @@ class Node:
         physical plan tree with estimated vs actual cardinality per step
         (the ?explain=true HTTP surface). Explain requests bypass the
         whole-query result cache so the actuals are real."""
+        # the root span covers the whole call, the bookkeeping in _query's
+        # `finally` included: its duration is the call's wall time
+        with self._span("query") as sp:
+            return self._query(sp, q, variables, start_ts, read_only,
+                               edge_limit, explain, timeout_ms,
+                               _cost_endpoint, _cost_subs)
+
+    def _query(self, sp, q, variables, start_ts, read_only, edge_limit,
+               explain, timeout_ms, _cost_endpoint,
+               _cost_subs) -> tuple[dict, TxnContext]:
         qtitle = q.strip().splitlines()[0][:120] if q.strip() else ""
+        if sp:
+            sp.set(query=qtitle)
         tr = self.traces.start("query", qtitle)
-        sp = self._span("query", query=qtitle)
         m = self.metrics
         m.counter("dgraph_num_queries_total").inc()
         m.counter("dgraph_pending_queries_total").inc()
@@ -900,7 +913,7 @@ class Node:
             # equally among them
             lg.subs = tuple(_cost_subs)
         try:
-          with sp, self._deadline_scope(timeout_ms), costs.scope(lg):
+          with self._deadline_scope(timeout_ms), costs.scope(lg):
             self._admit_tenant(tenant)
             req = self._parse(q, variables)
             tr.printf("parsed: %d query blocks", len(req.queries))
@@ -943,7 +956,8 @@ class Node:
                     # needs (and the miss-path call below would re-submit)
                     pend = [a for a in pf_attrs if is_pending(a)]
                     if pend:
-                        self.residency.prefetch(pend, snap)
+                        with otrace.span("prefetch"):
+                            self.residency.prefetch(pend, snap)
             # whole-query result tier: keyed on (plan key, per-predicate
             # token tuple of the plan's read set, edge budget). A commit to
             # predicate P rotates only P's PredData token, so replays that
@@ -954,23 +968,25 @@ class Node:
             rkey = None
             if self.result_cache is not None and not req.mutations \
                     and not explain:
-                pk = qcache.plan_key(q, variables, tenant)
-                if pk is not None:
-                    # the EFFECTIVE budget is part of the key: a shrunk
-                    # budget (per-request or via set_query_edge_limit) must
-                    # re-execute, not serve a result computed under a
-                    # larger one (and vice versa)
-                    from dgraph_tpu_torch.query import engine as _eng
+                with otrace.span("result_cache"):
+                    pk = qcache.plan_key(q, variables, tenant)
+                    if pk is not None:
+                        # the EFFECTIVE budget is part of the key: a
+                        # shrunk budget (per-request or via
+                        # set_query_edge_limit) must re-execute, not serve
+                        # a result computed under a larger one (and vice
+                        # versa)
+                        from dgraph_tpu_torch.query import engine as _eng
 
-                    eff = edge_limit if edge_limit is not None \
-                        else _eng.MAX_QUERY_EDGES
-                    rkey = (pk, qcache.result_token(req, snap), eff)
-                    cached = self.result_cache.get(rkey)
-                    if cached is not None:
-                        tr.printf("result cache hit")
-                        sp.set(result_cache="hit")
-                        costs.note("result_cache_hit")
-                        return cached, TxnContext(start_ts=read_ts)
+                        eff = edge_limit if edge_limit is not None \
+                            else _eng.MAX_QUERY_EDGES
+                        rkey = (pk, qcache.result_token(req, snap), eff)
+                        cached = self.result_cache.get(rkey)
+                        if cached is not None:
+                            tr.printf("result cache hit")
+                            sp.set(result_cache="hit")
+                            costs.note("result_cache_hit")
+                            return cached, TxnContext(start_ts=read_ts)
             # cost-based plan (order decisions only): cached alongside the
             # AST, keyed on the per-predicate stats tokens of the plan's
             # read set — a commit to P rebuilds only plans that read P
@@ -985,9 +1001,10 @@ class Node:
                                             top_k=self.stats_top_k,
                                             trace=tr)
                 try:
-                    plan = (self.plan_cache.plan(q, variables, req, snap,
-                                                 build, ns=tenant)
-                            if self.plan_cache is not None else build())
+                    with otrace.span("plan"):
+                        plan = (self.plan_cache.plan(q, variables, req,
+                                                     snap, build, ns=tenant)
+                                if self.plan_cache is not None else build())
                 except Exception:
                     # stats/planner trouble must never fail a query —
                     # parse-order execution is always available
@@ -1006,7 +1023,8 @@ class Node:
                 # warm→HBM UPLOAD prefetch: after the result cache missed,
                 # start async uploads for the read set so the transfer
                 # overlaps the preceding host work / device step
-                self.residency.prefetch(pf_attrs, snap)
+                with otrace.span("prefetch"):
+                    self.residency.prefetch(pf_attrs, snap)
             out = Executor(snap, schema,
                            cache=self.task_cache, gate=self.dispatch_gate,
                            edge_limit=edge_limit, plan=plan,

@@ -1163,7 +1163,7 @@ class ZeroClient:
                 ddl = dl.to_metadata()
                 if ddl is not None:
                     md.append(ddl)
-                if rsp is None:
+                if not rsp:              # unsampled: no context on the wire
                     if not md:
                         return stub(req, timeout=call_timeout)
                     return stub(req, timeout=call_timeout,

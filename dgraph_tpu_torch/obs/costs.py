@@ -24,8 +24,14 @@ payload), so the root assembles ONE cluster-wide cost record with
 per-group sub-records; there is no out-of-band collector.
 
 The unarmed fast path is one contextvar read returning None: a node
-started with --no_cost_ledger must measure nothing (bench.py `obs` gates
-the armed overhead < 2% on the warm mixed battery).
+started with --no_cost_ledger books no ledger. The armed ledger runs in
+every request `graphbench` drives, so its cost shows in the benchmark's
+end-to-end metrics.
+
+`kernel()` is the one device seam: it opens the `device_kernel` span
+(obs/otrace.py, layer `device`) around the ledger's timer, and its bytes
+feed the ledger, the sampled span's attrs and the tracer's
+dgraph_transfer_{h2d,d2h}_bytes_total counters alike.
 
 Completed records land in a CostBook: a bounded sliding window that
 powers GET /debug/top (rank plan shapes / predicates / endpoints by
@@ -44,7 +50,7 @@ import threading
 import time
 from collections import deque
 
-from . import devprof
+from . import devprof, otrace
 
 # gRPC trailing-metadata key for the shipped record (-bin carries bytes)
 WIRE_KEY = "dgt-cost-bin"
@@ -384,11 +390,16 @@ class CostLedger:
 
 
 class _KernelTimer:
-    """`with costs.kernel("csr.expand") as ck:` — times the enclosed
-    device execution against the current ledger; a no-op (still yielding
-    a settable object) when no ledger is armed. Bytes attach via
-    ck.set(h2d=, d2h=). Exceptions still charge the elapsed time (a
-    faulted upload consumed the wall clock it consumed).
+    """`with costs.kernel("csr.expand", need=n) as ck:` — the one device
+    seam. It opens the `device_kernel` span (extra keywords become a
+    sampled span's attrs, beside kernel=<name>) and times the enclosed
+    device execution against the current ledger. Bytes attach via
+    ck.set(h2d=, d2h=): the ledger, the span's transfer_* attrs and the
+    tracer's byte counters all take them; ck.annotate(**kw) adds attrs to
+    a sampled span. With no ledger armed the timer charges nothing; with
+    charge=False it never charges the ledger (the batcher apportions one
+    launch to its members itself). Exceptions still charge the elapsed
+    time (a faulted upload consumed the wall clock it consumed).
 
     Several sites wrap a GATED call (the timer must bracket the lazy
     device value's host materialization, which happens after the gate
@@ -400,18 +411,21 @@ class _KernelTimer:
     clamped at zero against concurrent hedge-thread waits)."""
 
     __slots__ = ("_lg", "_kernel", "_attr", "_t0", "_gw0", "h2d", "d2h",
-                 "ms", "_pushed")
+                 "ms", "_pushed", "_sp")
 
-    def __init__(self, kernel: str, attr: str | None = None) -> None:
-        self._lg = _current.get()
+    def __init__(self, kernel: str, attr: str | None, charge: bool,
+                 attrs: dict) -> None:
+        self._lg = _current.get() if charge else None
         self._kernel = kernel
         self._attr = attr
         self.h2d = 0
         self.d2h = 0
         self.ms = 0.0          # charged wall ms, readable after exit
         self._pushed = False
+        self._sp = otrace.span(KERNEL_SPAN, kernel=kernel, **attrs)
 
     def __enter__(self):
+        self._sp.__enter__()
         lg = self._lg
         if lg is not None:
             with lg._lock:
@@ -429,10 +443,21 @@ class _KernelTimer:
         return self
 
     def set(self, h2d: int = 0, d2h: int = 0) -> None:
-        self.h2d += int(h2d)
-        self.d2h += int(d2h)
+        h2d, d2h = int(h2d), int(d2h)
+        self.h2d += h2d
+        self.d2h += d2h
+        self._sp.transfer(h2d, d2h)
 
-    def __exit__(self, *a):
+    @property
+    def sampled(self) -> bool:
+        """True when the span keeps attrs (a sampled request)."""
+        return bool(self._sp)
+
+    def annotate(self, **kw) -> None:
+        if self._sp:
+            self._sp.set(**kw)
+
+    def __exit__(self, et, ev, tb):
         lg = self._lg
         if lg is not None:
             dt = (time.perf_counter() - self._t0) * 1e3
@@ -444,11 +469,29 @@ class _KernelTimer:
             self.ms = max(dt - waited, 0.0)
             lg.add_kernel(self._kernel, self.ms,
                           h2d=self.h2d, d2h=self.d2h, attr=self._attr)
+        self._sp.__exit__(et, ev, tb)
         return False
 
 
-def kernel(name: str, attr: str | None = None) -> _KernelTimer:
-    return _KernelTimer(name, attr)
+# the span every device seam opens (obs/otrace.SPAN_LAYERS: "device")
+KERNEL_SPAN = "device_kernel"
+
+
+def kernel(name: str, attr: str | None = None, charge: bool = True,
+           **attrs) -> _KernelTimer:
+    return _KernelTimer(name, attr, charge, attrs)
+
+
+def transfer(h2d: int = 0, d2h: int = 0) -> None:
+    """Bytes a copy moved inside an enclosing kernel() seam that the copy's
+    own code cannot reach (parallel/mesh_exec.py's programs): the current
+    ledger's totals and the current span's counters."""
+    lg = _current.get()
+    if lg is not None:
+        with lg._lock:
+            lg.h2d_bytes += int(h2d)
+            lg.d2h_bytes += int(d2h)
+    otrace.transfer(int(h2d), int(d2h))
 
 
 def note(outcome: str, n: int = 1) -> None:
@@ -469,6 +512,7 @@ def add_upload(nbytes: int) -> None:
     lg = _current.get()
     if lg is not None:
         lg.add_upload(nbytes)
+    otrace.transfer(h2d=int(nbytes))
 
 
 def add_gate_wait(ms: float) -> None:

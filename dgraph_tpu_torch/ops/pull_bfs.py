@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from dgraph_tpu_torch import resolve_device
+from dgraph_tpu_torch.obs import costs
 from dgraph_tpu_torch.ops.csr import degrees as _csr_degrees
 from dgraph_tpu_torch.ops.csr import expand as _csr_expand
 from dgraph_tpu_torch.ops.prefix import (EDGE_BLOCK, FRONTIER_CAP, INT32_MAX,
@@ -541,6 +542,7 @@ def shortest_bfs(g: PullGraph, src: int, dst: int, max_hops: int):
         g.in_subjects, seeds_mask, dr, max_hops, chunks=g.chunks,
         chunks_d=g.chunks_d)
     dist = dist_d.cpu().numpy()                        # the one fetch
+    costs.transfer(d2h=int(dist.nbytes))
     if dist[dr] == DIST_UNREACHED:
         return None
 

@@ -22,6 +22,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from dgraph_tpu_torch.obs import costs
+
 SENTINEL32 = np.int32(np.iinfo(np.int32).max)
 SENTINEL64 = np.int64(np.iinfo(np.int64).max)
 
@@ -241,14 +243,22 @@ def _device_combine(op: str, a, b, device) -> np.ndarray:
     for inputs in any order, with repeats, and for every int64 uid."""
     from dgraph_tpu_torch import resolve_device
 
-    dev = resolve_device(device)
+    with costs.kernel("uidset." + op, n=len(a) + len(b)) as ck:
+        out = _device_combine_on(op, a, b, resolve_device(device))
+        ck.set(h2d=8 * (len(a) + len(b)), d2h=int(out.nbytes))
+    return out
+
+
+def _device_combine_on(op: str, a, b, dev: torch.device) -> np.ndarray:
     ta, tb = _to_device(a, dev), _to_device(b, dev)
     if op == "union":
         out = torch.unique(torch.cat([ta, tb]))
     else:
         # one read-back says which inputs are not sorted-unique (a uid(...)
         # literal list may be neither): those are sorted on the device
-        ok = torch.stack([(t[1:] > t[:-1]).all() for t in (ta, tb)]).tolist()
+        okd = torch.stack([(t[1:] > t[:-1]).all() for t in (ta, tb)])
+        ok = okd.tolist()
+        costs.transfer(d2h=okd.numel() * okd.element_size())
         ta, tb = (t if good else torch.unique(t)
                   for t, good in zip((ta, tb), ok))
         if op == "intersect" and ta.numel() > tb.numel():

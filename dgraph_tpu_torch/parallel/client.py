@@ -148,7 +148,7 @@ class ClusterClient:
         # assembles the full cross-process tree (worker + zero spans ride
         # back over RPC trailing metadata) in tracer.sink
         self.tracer = otrace.Tracer(fraction=span_sample, proc="client",
-                                    rng=trace_rng)
+                                    rng=trace_rng, metrics=self.metrics)
         # cost ledger: the querying CLIENT is the root that
         # assembles ONE cluster-wide cost record per query — each
         # worker's charges ship back in ServeTask trailing metadata and

@@ -20,6 +20,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from dgraph_tpu_torch.obs import costs
+
 
 class Mesh:
     """Shard-axis device list: `shape["shard"]` reads as on a JAX Mesh."""
@@ -38,6 +40,7 @@ class Mesh:
         """[S, ...] host array → S tensors, shard s on devices[s] (the
         device_put(..., P("shard")) counterpart)."""
         assert arr.shape[0] == len(self.devices), (arr.shape, self.devices)
+        costs.transfer(h2d=int(arr.nbytes))
         return [torch.from_numpy(np.ascontiguousarray(arr[s])).to(d)
                 for s, d in enumerate(self.devices)]
 
@@ -55,7 +58,9 @@ class Mesh:
 
     def put(self, arr) -> list[torch.Tensor]:
         """Host array or scalar → replicated tensors (P() in_specs)."""
-        return self.replicate(torch.as_tensor(np.asarray(arr)))
+        arr = np.asarray(arr)
+        costs.transfer(h2d=int(arr.nbytes) * len(set(self.devices)))
+        return self.replicate(torch.as_tensor(arr))
 
     # -- collectives ----------------------------------------------------------
 

@@ -42,7 +42,7 @@ from dataclasses import replace
 import numpy as np
 import torch
 
-from dgraph_tpu_torch.obs import otrace
+from dgraph_tpu_torch.obs import costs, otrace
 from dgraph_tpu_torch.parallel.dist import (SNT, DistPredCSR, _local_rows,
                                             pad_frontier)
 from dgraph_tpu_torch.parallel.mesh import Mesh, make_mesh
@@ -620,42 +620,45 @@ class MeshExecutor:
                           for av in avals]}
         fr0 = self.mesh.put(pad_frontier(seeds, fcap0))
         prog = self._plan_program(fcap0, tuple(meta), term)
-        with otrace.span("device_kernel", kernel="mesh.plan",
-                         hops=len(hops), terminal=bool(term),
-                         devices=self.n_devices) as sp:
-            flat = prog(hops[0][0].sharded.subjects, hop_args, tstage, fr0)
-            flat = [t.cpu().numpy() for t in flat]   # ONE fetch, at the end
-            self._c_dispatch.inc()
-            self._c_hops.inc(len(hops))
-            levels = []
-            frontier = seeds
-            total = 0
-            for h in range(len(hops)):
-                mask, trav = flat[2 * h], int(flat[2 * h + 1])
-                nxt = tgts[h][mask].astype(np.int64)
-                total += trav
-                otrace.event("mesh_hop", hop=h, edges=trav,
-                             frontier=len(frontier), dest=len(nxt))
-                levels.append((frontier, trav, nxt))
-                frontier = nxt
-            term_out = None
-            if term is not None:
-                base = 2 * len(hops)
-                counts = np.asarray(flat[base], dtype=np.int64)
-                ttrav = int(flat[base + 1])
-                total += ttrav
-                aggs = [(flat[base + 2 + 2 * a], flat[base + 3 + 2 * a])
-                        for a in range(len(term[3]))]
-                otrace.event("mesh_hop", hop=len(hops), edges=ttrav,
-                             frontier=len(frontier),
-                             dest=int(np.count_nonzero(counts)),
-                             terminal=True)
-                term_out = {"table": tgt_t.astype(np.int64),
-                            "counts": counts, "traversed": ttrav,
-                            "aggs": aggs}
-            self._c_edges.inc(total)
-            if sp:
-                sp.set(edges=total)
+        # in the caller's device seam (obs/costs.kernel)
+        sp = otrace.current()
+        if sp:
+            sp.set(hops=len(hops), terminal=bool(term),
+                   devices=self.n_devices)
+        flat = prog(hops[0][0].sharded.subjects, hop_args, tstage, fr0)
+        flat = [t.cpu().numpy() for t in flat]   # ONE fetch, at the end
+        costs.transfer(d2h=sum(int(a.nbytes) for a in flat))
+        self._c_dispatch.inc()
+        self._c_hops.inc(len(hops))
+        levels = []
+        frontier = seeds
+        total = 0
+        for h in range(len(hops)):
+            mask, trav = flat[2 * h], int(flat[2 * h + 1])
+            nxt = tgts[h][mask].astype(np.int64)
+            total += trav
+            otrace.event("mesh_hop", hop=h, edges=trav,
+                         frontier=len(frontier), dest=len(nxt))
+            levels.append((frontier, trav, nxt))
+            frontier = nxt
+        term_out = None
+        if term is not None:
+            base = 2 * len(hops)
+            counts = np.asarray(flat[base], dtype=np.int64)
+            ttrav = int(flat[base + 1])
+            total += ttrav
+            aggs = [(flat[base + 2 + 2 * a], flat[base + 3 + 2 * a])
+                    for a in range(len(term[3]))]
+            otrace.event("mesh_hop", hop=len(hops), edges=ttrav,
+                         frontier=len(frontier),
+                         dest=int(np.count_nonzero(counts)),
+                         terminal=True)
+            term_out = {"table": tgt_t.astype(np.int64),
+                        "counts": counts, "traversed": ttrav,
+                        "aggs": aggs}
+        self._c_edges.inc(total)
+        if sp:
+            sp.set(edges=total)
         if terminal is not None:
             return levels, term_out
         return levels
@@ -729,27 +732,30 @@ class MeshExecutor:
         prog = self._recurse_prog((csr.ecap, csr.rows_per, nd, fcap0,
                                    depth, allow_loop, formula,
                                    len(devsets)))
-        with otrace.span("device_kernel", kernel="mesh.recurse",
-                         depth=depth, devices=self.n_devices) as sp:
-            masks, tots = prog(csr.sharded.subjects, _edge_rows(csr), erank,
-                               rrank, csr.shard_edges, devsets,
-                               self.mesh.put(pad_frontier(seeds, fcap0)))
-            masks, tots = masks.cpu().numpy(), tots.cpu().numpy()
-            self._c_dispatch.inc()
-            self._c_hops.inc(depth)
-            levels = []
-            frontier = seeds
-            total = 0
-            for lvl in range(depth):
-                trav = int(tots[lvl])
-                total += trav
-                otrace.event("mesh_hop", hop=lvl, edges=trav,
-                             frontier=len(frontier))
-                levels.append((frontier, trav))
-                frontier = tgt[masks[lvl]].astype(np.int64)
-            self._c_edges.inc(total)
-            if sp:
-                sp.set(edges=total)
+        # in the caller's device seam (obs/costs.kernel)
+        sp = otrace.current()
+        if sp:
+            sp.set(depth=depth, devices=self.n_devices)
+        masks, tots = prog(csr.sharded.subjects, _edge_rows(csr), erank,
+                           rrank, csr.shard_edges, devsets,
+                           self.mesh.put(pad_frontier(seeds, fcap0)))
+        masks, tots = masks.cpu().numpy(), tots.cpu().numpy()
+        costs.transfer(d2h=int(masks.nbytes + tots.nbytes))
+        self._c_dispatch.inc()
+        self._c_hops.inc(depth)
+        levels = []
+        frontier = seeds
+        total = 0
+        for lvl in range(depth):
+            trav = int(tots[lvl])
+            total += trav
+            otrace.event("mesh_hop", hop=lvl, edges=trav,
+                         frontier=len(frontier))
+            levels.append((frontier, trav))
+            frontier = tgt[masks[lvl]].astype(np.int64)
+        self._c_edges.inc(total)
+        if sp:
+            sp.set(edges=total)
         return levels
 
     # -- fused shortest-path BFS: the whole expandOut loop, ONE run ----------
@@ -879,20 +885,22 @@ class MeshExecutor:
             sp_ = int(np.searchsorted(tgt, stop_at))
             if sp_ < nd and tgt[sp_] == stop_at:
                 stop_rank = sp_
-        with otrace.span("device_kernel", kernel="mesh.bfs",
-                         devices=self.n_devices, preds=len(csrs),
-                         nd=nd) as sp:
-            dist_d, hops_h, edges_d = prog(
-                preds, vis, dist, min(src, SNT), int(max_depth),
-                min(budget, (1 << 30)), stop_rank)
-            dist_h = dist_d.cpu().numpy()
-            edges_h = int(edges_d)
-            self._c_dispatch.inc()
-            self._c_hops.inc(int(hops_h))
-            self._c_edges.inc(edges_h)
-            otrace.event("mesh_hop", hop=int(hops_h), edges=edges_h)
-            if sp:
-                sp.set(edges=edges_h, hops=int(hops_h))
+        # in the caller's device seam (obs/costs.kernel)
+        sp = otrace.current()
+        if sp:
+            sp.set(devices=self.n_devices, preds=len(csrs), nd=nd)
+        dist_d, hops_h, edges_d = prog(
+            preds, vis, dist, min(src, SNT), int(max_depth),
+            min(budget, (1 << 30)), stop_rank)
+        dist_h = dist_d.cpu().numpy()
+        costs.transfer(d2h=int(dist_h.nbytes) + edges_d.element_size())
+        edges_h = int(edges_d)
+        self._c_dispatch.inc()
+        self._c_hops.inc(int(hops_h))
+        self._c_edges.inc(edges_h)
+        otrace.event("mesh_hop", hop=int(hops_h), edges=edges_h)
+        if sp:
+            sp.set(edges=edges_h, hops=int(hops_h))
         return dist_h, int(hops_h), edges_h
 
     # -- sharded vector top-k: row-scan fan-out, replicated merge ------------
@@ -962,17 +970,19 @@ class MeshExecutor:
         vdev = self.mesh.shard_put(valid.reshape(self.n_devices, rows_per))
         kk = min(kprime, rows_per)
         prog = self._vec_program(rows_per, vi.dim, kk, vi.metric)
-        with otrace.span("device_kernel", kernel="mesh.vector_topk",
-                         rows=int(vi.n), k=kk,
-                         devices=self.n_devices) as sp:
-            scores, rows = prog(mat, nrm, vdev,
-                                self.mesh.put(q.astype(np.float32)))
-            scores_h, rows_h = scores.cpu().numpy(), rows.cpu().numpy()
-            self._c_dispatch.inc()
-            self.metrics.counter(
-                "dgraph_vector_mesh_dispatches_total").inc()
-            if sp:
-                sp.set(cands=int((scores_h > -np.inf).sum()))
+        # in the caller's device seam (obs/costs.kernel)
+        sp = otrace.current()
+        if sp:
+            sp.set(rows=int(vi.n), k=kk, devices=self.n_devices)
+        scores, rows = prog(mat, nrm, vdev,
+                            self.mesh.put(q.astype(np.float32)))
+        scores_h, rows_h = scores.cpu().numpy(), rows.cpu().numpy()
+        costs.transfer(d2h=int(scores_h.nbytes + rows_h.nbytes))
+        self._c_dispatch.inc()
+        self.metrics.counter(
+            "dgraph_vector_mesh_dispatches_total").inc()
+        if sp:
+            sp.set(cands=int((scores_h > -np.inf).sum()))
         return rows_h[scores_h > -np.inf]
 
     # -- whole-graph analytics: device-resident loops -------------------------
@@ -1060,20 +1070,23 @@ class MeshExecutor:
         rank0[:n] = 1.0 / max(n, 1)
         pr_prog = self._pagerank_program(epc, ncap)
         f32 = np.float32
-        with otrace.span("device_kernel", kernel="mesh.pagerank",
-                         nodes=n, edges=len(esrc),
-                         devices=self.n_devices) as sp:
-            r, it = pr_prog(es, ed, self.mesh.put(outdeg),
-                            self.mesh.put(dangling), self.mesh.put(live),
-                            self.mesh.put(rank0),
-                            torch.tensor(f32(max(n, 1))),
-                            torch.tensor(f32(damping)),
-                            torch.tensor(f32(tol)), int(max_iters))
-            r_h = r.cpu().numpy()[:n].copy()
-            self._c_dispatch.inc()
-            self._c_edges.inc(len(esrc) * int(it))
-            if sp:
-                sp.set(iterations=int(it))
+        # in the caller's device seam (obs/costs.kernel)
+        sp = otrace.current()
+        if sp:
+            sp.set(nodes=n, edges=len(esrc), devices=self.n_devices)
+        r, it = pr_prog(es, ed, self.mesh.put(outdeg),
+                        self.mesh.put(dangling), self.mesh.put(live),
+                        self.mesh.put(rank0),
+                        torch.tensor(f32(max(n, 1))),
+                        torch.tensor(f32(damping)),
+                        torch.tensor(f32(tol)), int(max_iters))
+        r_h = r.cpu().numpy()
+        costs.transfer(d2h=int(r_h.nbytes))
+        r_h = r_h[:n].copy()
+        self._c_dispatch.inc()
+        self._c_edges.inc(len(esrc) * int(it))
+        if sp:
+            sp.set(iterations=int(it))
         return r_h, int(it)
 
     def _cc_program(self, epc: int, ncap: int):
@@ -1123,15 +1136,18 @@ class MeshExecutor:
         lab0 = np.arange(ncap, dtype=np.int32)
         maxit = max_iters or (n + 2)
         cc_prog = self._cc_program(epc, ncap)
-        with otrace.span("device_kernel", kernel="mesh.cc",
-                         nodes=n, edges=len(esrc),
-                         devices=self.n_devices) as sp:
-            lab, it = cc_prog(es, ed, self.mesh.put(lab0), int(maxit))
-            l_h = lab.cpu().numpy()[:n].copy()
-            self._c_dispatch.inc()
-            self._c_edges.inc(2 * len(esrc) * int(it))
-            if sp:
-                sp.set(iterations=int(it))
+        # in the caller's device seam (obs/costs.kernel)
+        sp = otrace.current()
+        if sp:
+            sp.set(nodes=n, edges=len(esrc), devices=self.n_devices)
+        lab, it = cc_prog(es, ed, self.mesh.put(lab0), int(maxit))
+        l_h = lab.cpu().numpy()
+        costs.transfer(d2h=int(l_h.nbytes))
+        l_h = l_h[:n].copy()
+        self._c_dispatch.inc()
+        self._c_edges.inc(2 * len(esrc) * int(it))
+        if sp:
+            sp.set(iterations=int(it))
         return l_h, int(it)
 
     def _tri_program(self, rows_per: int, ncap: int):
@@ -1174,13 +1190,16 @@ class MeshExecutor:
         rows_per = ncap // S
         arow = self.mesh.shard_put(a.reshape(S, rows_per, ncap))
         tri_prog = self._tri_program(rows_per, ncap)
-        with otrace.span("device_kernel", kernel="mesh.triangles",
-                         nodes=n, edges=len(esrc),
-                         devices=self.n_devices) as sp:
-            t_h = float(tri_prog(arow, self.mesh.put(a)))
-            self._c_dispatch.inc()
-            self._c_edges.inc(len(esrc))
-            tri = int(round(t_h / 6.0))
-            if sp:
-                sp.set(triangles=tri)
+        # in the caller's device seam (obs/costs.kernel)
+        sp = otrace.current()
+        if sp:
+            sp.set(nodes=n, edges=len(esrc), devices=self.n_devices)
+        t_d = tri_prog(arow, self.mesh.put(a))
+        t_h = float(t_d)
+        costs.transfer(d2h=t_d.element_size())
+        self._c_dispatch.inc()
+        self._c_edges.inc(len(esrc))
+        tri = int(round(t_h / 6.0))
+        if sp:
+            sp.set(triangles=tri)
         return tri

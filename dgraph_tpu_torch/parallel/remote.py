@@ -1467,18 +1467,22 @@ class RemoteWorker:
             md.append((tnc.WIRE_KEY, tenant))
         sp = otrace.current()
         lg = costs.current()
-        if sp is None and lg is None:
-            if not md:
-                return decode_result(self._serve(msg))
-            return decode_result(self._serve(msg, metadata=tuple(md),
-                                             timeout=timeout))
-        if sp is None:
-            # cost ledger armed without a sampled trace: with_call so the
-            # worker's shipped cost record is readable from the trailer
-            resp, call = self._serve.with_call(
-                msg, metadata=tuple(md) or None, timeout=timeout)
-            self._merge_cost(lg, call)
-            return decode_result(resp)
+        if not sp:
+            # unsampled: the call's span books its time, no context rides
+            # the wire
+            with otrace.span("rpc:ServeTask"):
+                if lg is None:
+                    if not md:
+                        return decode_result(self._serve(msg))
+                    return decode_result(self._serve(
+                        msg, metadata=tuple(md), timeout=timeout))
+                # cost ledger armed without a sampled trace: with_call so
+                # the worker's shipped cost record is readable from the
+                # trailer
+                resp, call = self._serve.with_call(
+                    msg, metadata=tuple(md) or None, timeout=timeout)
+                self._merge_cost(lg, call)
+                return decode_result(resp)
         # propagate the span context; the worker's spans ride back in
         # trailing metadata and graft into this trace's buffer
         with sp.tracer.start("rpc:ServeTask", parent=sp, kind="client",

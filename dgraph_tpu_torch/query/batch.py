@@ -541,20 +541,20 @@ class DeviceBatcher:
                                 torch.from_numpy(rows_cat).to(csr.device),
                                 out_cap=cap)
             tot = int(res.total)            # device sync point
-            return res.targets[:tot].cpu().numpy()
+            return (res.targets[:tot].cpu().numpy(),
+                    res.total.element_size())
 
         try:
-            with otrace.span("device_kernel", kernel="batch.expand",
-                             need=total, batch=nbatch) as sp:
-                targets, dt_ms = self._timed_gate_run(kernel, "expand")
+            with costs.kernel("batch.expand", charge=False, need=total,
+                              batch=nbatch) as ck:
+                (targets, tot_bytes), dt_ms = self._timed_gate_run(
+                    kernel, "expand")
+                d2h = tot_bytes + int(targets.nbytes)
                 self._charge(entries, "batch.expand", dt_ms,
                              weights=[float(e.work.need) for e in entries],
-                             h2d=int(rows_cat.nbytes),
-                             d2h=int(targets.nbytes))
-                if sp:
-                    sp.set(edges=total,
-                           transfer_h2d_bytes=int(rows_cat.nbytes),
-                           transfer_d2h_bytes=int(targets.nbytes))
+                             h2d=int(rows_cat.nbytes), d2h=d2h)
+                ck.set(h2d=int(rows_cat.nbytes), d2h=d2h)
+                ck.annotate(edges=total)
             targets = targets.astype(np.int64)
         except FaultError:
             # injected residency.h2d_upload fault at the batched upload
@@ -620,17 +620,14 @@ class DeviceBatcher:
         from dgraph_tpu_torch.utils.faults import FaultError
 
         try:
-            with otrace.span("device_kernel", kernel="batch.vector_topk",
-                             rows=int(vi.n), k=kprime, batch=nbatch) as sp:
+            with costs.kernel("batch.vector_topk", charge=False,
+                              rows=int(vi.n), k=kprime, batch=nbatch) as ck:
                 (nd_h, rows_h), dt_ms = self._timed_gate_run(kernel,
                                                              "vector")
+                d2h = int(nd_h.nbytes + rows_h.nbytes)
                 self._charge(entries, "batch.vector_topk", dt_ms,
-                             h2d=int(Q.nbytes),
-                             d2h=int(nd_h.nbytes + rows_h.nbytes))
-                if sp:
-                    sp.set(transfer_h2d_bytes=int(Q.nbytes),
-                           transfer_d2h_bytes=int(
-                               nd_h.nbytes + rows_h.nbytes))
+                             h2d=int(Q.nbytes), d2h=d2h)
+                ck.set(h2d=int(Q.nbytes), d2h=d2h)
         except FaultError:
             # injected residency.h2d_upload fault: each member answers
             # through vecindex.search, whose own fallback serves the
@@ -686,8 +683,8 @@ class DeviceBatcher:
                 g.in_subjects, seeds, depth=depth, chunks=g.chunks,
                 chunks_d=g.chunks_d, allow_loop=allow_loop)
 
-        with otrace.span("device_kernel", kernel="batch.recurse",
-                         depth=depth, batch=nbatch):
+        with costs.kernel("batch.recurse", charge=False, depth=depth,
+                          batch=nbatch):
             (masks_p, trav, fresh), dt_ms = self._timed_gate_run(
                 kernel, "recurse")
             self._charge(entries, "batch.recurse", dt_ms)

@@ -195,9 +195,10 @@ class Executor:
 
     @staticmethod
     def _traced_dispatch(inner):
-        """Span per task at the dispatch seam: cache tiers and the gate run
+        """Span per task at the dispatch seam (`task:<attr>`, recorded on
+        every request, sampled or not): cache tiers and the gate run
         INSIDE the span, so cache hit/miss and wait time are attributed to
-        the task that caused them. One contextvar read when unsampled.
+        the task that caused them.
 
         The per-task deadline check lives here too: a budgeted multi-hop
         query gives up BETWEEN tasks the moment its budget runs out (typed
@@ -210,30 +211,27 @@ class Executor:
         read when unarmed."""
         from dgraph_tpu_torch.utils import deadline as _dl
 
-        def run_ledgered(q):
-            lg = costs.current()
-            if lg is None:
-                return inner(q)
-            attr = q.attr[1:] if q.attr.startswith("~") else q.attr
-            with lg.task(attr):
-                res = inner(q)
-            lg.add_task(attr, int(res.traversed_edges))
-            return res
-
         def traced(q):
             if _dl.current() is not None:      # unbudgeted: zero cost
                 _dl.check(f"task:{q.attr}")
-            if otrace.current() is None:
-                return run_ledgered(q)
-            attrs = {"attr": q.attr}
-            if q.func is not None:
-                attrs["func"] = q.func[0]
-            if q.frontier is not None:
-                attrs["frontier"] = int(len(q.frontier))
-            with otrace.span("task:" + q.attr, **attrs) as sp:
-                res = run_ledgered(q)
-                sp.set(dest=int(len(res.dest_uids)),
-                       edges=int(res.traversed_edges))
+            with otrace.span("task:" + q.attr) as sp:
+                if sp:
+                    sp.set(attr=q.attr)
+                    if q.func is not None:
+                        sp.set(func=q.func[0])
+                    if q.frontier is not None:
+                        sp.set(frontier=int(len(q.frontier)))
+                lg = costs.current()
+                if lg is None:
+                    res = inner(q)
+                else:
+                    attr = q.attr[1:] if q.attr.startswith("~") else q.attr
+                    with lg.task(attr):
+                        res = inner(q)
+                    lg.add_task(attr, int(res.traversed_edges))
+                if sp:
+                    sp.set(dest=int(len(res.dest_uids)),
+                           edges=int(res.traversed_edges))
                 return res
         return traced
 
@@ -267,6 +265,10 @@ class Executor:
 
     def execute(self, req: dql.ParsedRequest) -> dict:
         """Run all query blocks in dependency waves (query/query.go:2431)."""
+        with otrace.span("execute"):
+            return self._execute(req)
+
+    def _execute(self, req: dql.ParsedRequest) -> dict:
         blocks = [SubGraph(gq=q, attr=q.attr) for q in req.queries]
         pending = list(blocks)
         done_vars: set[str] = set()
@@ -288,7 +290,8 @@ class Executor:
         for b in blocks:
             if b.gq.attr == "var":
                 continue
-            encode_result(self, b, out)
+            with otrace.span("encode"):
+                encode_result(self, b, out)
         if self.mesh is not None and (self._mesh_fused or
                                       self._mesh_misses or
                                       self._mesh_touched):
@@ -306,6 +309,10 @@ class Executor:
     # ---------------------------------------------------------------- blocks
 
     def _process_block(self, sg: SubGraph) -> None:
+        with otrace.span("block"):
+            self._run_block(sg)
+
+    def _run_block(self, sg: SubGraph) -> None:
         gq = sg.gq
         if gq.shortest is not None:
             from dgraph_tpu_torch.query.shortest import shortest_path
@@ -1045,26 +1052,25 @@ class Executor:
             mat, norms, subs_dev = vi.device()
             c_subs, c_ptr, c_idx = csr.device_arrays()
             dr = torch.zeros(0, dtype=torch.int32)
-            qv = torch.from_numpy(vec).to(mat.device)
-            with otrace.span("device_kernel", kernel="vector.ann_expand",
-                             rows=int(vi.n), k=kprime, ecap=ecap) as sp, \
-                    costs.kernel("vector.ann_expand",
-                                 attr=gq.func.attr) as ck:
+            with costs.kernel("vector.ann_expand", attr=gq.func.attr,
+                              rows=int(vi.n), k=kprime, ecap=ecap) as ck:
+                qv = torch.from_numpy(vec).to(mat.device)
                 nd, uids, res = self.gated(lambda: vops.ann_expand(
                     mat, norms, qv, vi.n, dr,
                     subs_dev, c_subs, c_ptr, c_idx,
                     k=kprime, metric=vi.metric, ecap=ecap),
                     klass="vector")
                 nd_h = nd.cpu().numpy()
-                uids_h = uids.cpu().numpy().astype(np.int64)
-                counts_h = res.counts.cpu().numpy()[:kprime]
+                uids_h = uids.cpu().numpy()
+                counts_h = res.counts.cpu().numpy()
                 targets_h = res.targets.cpu().numpy()
-                d2h = int(nd_h.nbytes + uids_h.nbytes
-                          + counts_h.nbytes + targets_h.nbytes)
-                ck.set(d2h=d2h)
-                if sp:
-                    sp.set(edges=int(res.total),
-                           transfer_d2h_bytes=d2h)
+                ck.set(h2d=int(vec.nbytes),
+                       d2h=int(nd_h.nbytes + uids_h.nbytes
+                               + counts_h.nbytes + targets_h.nbytes))
+                counts_h = counts_h[:kprime]
+                uids_h = uids_h.astype(np.int64)
+                if ck.sampled:
+                    ck.annotate(edges=int(res.total))
         except FaultError:
             # injected residency.h2d_upload fault before any result state
             # was written: the classic stepped path (which falls back to

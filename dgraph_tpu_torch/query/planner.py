@@ -138,7 +138,7 @@ class Plan:
             self.metrics.histogram(
                 "dgraph_planner_est_error_log2").observe(err)
         sp = otrace.current()
-        if sp is not None:
+        if sp:
             # est-vs-actual per executed plan step rides the span timeline
             # (instant events in the Perfetto export / slow-query tree)
             sp.event("plan_step", kind=step.kind, desc=step.desc,

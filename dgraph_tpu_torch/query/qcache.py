@@ -411,6 +411,7 @@ class DispatchGate:
         self._sem = threading.BoundedSemaphore(self.width)
         self._inflight = self.metrics.counter("dgraph_dispatch_inflight")
         self._waits = self.metrics.counter("dgraph_dispatch_waits_total")
+        self._wait_ns = self.metrics.counter("dgraph_dispatch_wait_ns_total")
         self._shed = self.metrics.counter("dgraph_shed_total")
         self._wlock = locks.Lock(
             "qcache.DispatchGate._wlock")  # guards the _waiting count
@@ -457,6 +458,13 @@ class DispatchGate:
         fire-immediately-when-idle check."""
         return self._inflight.value > 0 or self._waiting > 0
 
+    def _waited(self, t0: float) -> None:
+        """Book one gate wait since t0: the node's wait counter and the
+        request's cost ledger."""
+        dt = time.perf_counter() - t0
+        self._wait_ns.inc(round(dt * 1e9))
+        costs.add_gate_wait(dt * 1e3)
+
     def _acquire(self, klass: str | None = None) -> None:
         """Budget-aware semaphore acquisition. Raises typed errors instead
         of waiting past the caller's deadline."""
@@ -500,7 +508,7 @@ class DispatchGate:
             # a budgeted request can never hang in the fair queue
             if fair.acquire(self.tenant_fn(), self._sem):
                 self._waits.inc()
-                costs.add_gate_wait((time.perf_counter() - t0) * 1e3)
+                self._waited(t0)
             return
         if self._sem.acquire(blocking=False):
             return
@@ -509,7 +517,7 @@ class DispatchGate:
         if rem is None:
             t0 = time.perf_counter()
             self._sem.acquire()
-            costs.add_gate_wait((time.perf_counter() - t0) * 1e3)
+            self._waited(t0)
             return
         # shed before queueing: a request whose remaining budget cannot
         # cover even one expected device step would only occupy a queue
@@ -546,7 +554,7 @@ class DispatchGate:
         finally:
             with self._wlock:
                 self._waiting -= 1
-            costs.add_gate_wait((time.perf_counter() - t0) * 1e3)
+            self._waited(t0)
         if not ok:
             otrace.event("deadline", where="dispatch_gate")
             raise DeadlineExceeded(

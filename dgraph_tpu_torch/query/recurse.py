@@ -30,7 +30,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from dgraph_tpu_torch.obs import costs
+from dgraph_tpu_torch.obs import costs, otrace
 from dgraph_tpu_torch.ops import pull_bfs as pb
 from dgraph_tpu_torch.query.engine import QueryError, SubGraph
 from dgraph_tpu_torch.query.task import TaskQuery
@@ -68,7 +68,9 @@ class FreshFlags:
     def level(self, lvl) -> np.ndarray:
         if self._h is None:
             d = self._dev
-            packed = pb.pack_mask(d.view(-1, d.shape[-1])).cpu().numpy()
+            with costs.kernel("pb.fresh_flags") as ck:
+                packed = pb.pack_mask(d.view(-1, d.shape[-1])).cpu().numpy()
+                ck.set(d2h=int(packed.nbytes))
             self._h = np.stack([pb.unpack_words(p, d.shape[-1])
                                 for p in packed])
         return self._h[0] if self._dev.dim() == 1 else self._h[lvl]
@@ -231,10 +233,16 @@ def _seeds_mask(uids: np.ndarray, num_nodes: int,
     m = torch.zeros((num_nodes,), dtype=torch.bool, device=device)
     if len(sel):
         m[torch.from_numpy(sel).to(device)] = True
+        costs.transfer(h2d=int(sel.nbytes))
     return m
 
 
 def recurse(ex, sg: SubGraph) -> None:
+    with otrace.span("recurse"):
+        _recurse(ex, sg)
+
+
+def _recurse(ex, sg: SubGraph) -> None:
     gq = sg.gq
     spec = gq.recurse
     depth = spec.depth if spec.depth > 0 else 64  # "until exhaustion" cap
@@ -343,8 +351,8 @@ def recurse(ex, sg: SubGraph) -> None:
                 # kernel path: one stepped level
                 st = _kstate(cgq.attr, csr)
                 g = st["g"]
-                fmask = _seeds_mask(frontier, g.num_nodes, g.device)
-                with costs.kernel("pb.recurse_step", attr=cgq.attr):
+                with costs.kernel("pb.recurse_step", attr=cgq.attr) as ck:
+                    fmask = _seeds_mask(frontier, g.num_nodes, g.device)
                     dest_words, trav, seen2, fresh = ex.gated(
                         lambda: pb.recurse_step(
                             g.in_src_pad, g.in_iptr_rank, g.subjects,
@@ -352,8 +360,11 @@ def recurse(ex, sg: SubGraph) -> None:
                             chunks=g.chunks, num_nodes=g.num_nodes,
                             allow_loop=spec.allow_loop),
                         klass="recurse")
+                    dest_h = dest_words.cpu().numpy()
+                    ck.set(d2h=int(dest_h.nbytes) + trav.element_size())
+                    trav = int(trav)
                 st["seen"] = seen2
-                edges += int(trav)
+                edges += trav
                 if edges > ex.edge_budget():
                     raise QueryError(
                         "recurse exceeded edge budget (ErrTooBig)")
@@ -362,7 +373,7 @@ def recurse(ex, sg: SubGraph) -> None:
                 child.uid_matrix = m
                 child.counts = LazyCounts(m)
                 child.dest_uids = np.flatnonzero(pb.unpack_words(
-                    dest_words.cpu().numpy(), g.num_nodes)).astype(np.int64)
+                    dest_h, g.num_nodes)).astype(np.int64)
             elif csr is not None and not getattr(csr, "is_dist", False):
                 # small CSR: vectorized host-mirror gather
                 if cgq.attr not in seen_masks and len(frontier):
@@ -488,7 +499,9 @@ def _recurse_fused_path(ex, sg: SubGraph, cgq, csr, depth: int,
         g, seeds_mask, depth, allow_loop, _solo_fused)
     # one fetch for the whole traversal, bit-packed in dst-rank space (fresh
     # flags stay on the device until a uidMatrix is materialized)
-    masks_h, trav_h = masks_p.cpu().numpy(), trav.cpu().numpy()
+    with costs.kernel("pb.recurse_fused", attr=cgq.attr) as ck:
+        masks_h, trav_h = masks_p.cpu().numpy(), trav.cpu().numpy()
+        ck.set(d2h=int(masks_h.nbytes + trav_h.nbytes))
     nd = len(g.host_in_subjects)
     shared_fresh = FreshFlags(fresh)
     frontier = seeds

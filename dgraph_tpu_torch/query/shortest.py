@@ -34,7 +34,7 @@ import heapq
 
 import numpy as np
 
-from dgraph_tpu_torch.obs import costs
+from dgraph_tpu_torch.obs import costs, otrace
 from dgraph_tpu_torch.query import dql
 from dgraph_tpu_torch.query.engine import QueryError, SubGraph, VarValue
 from dgraph_tpu_torch.query.task import TaskQuery
@@ -171,7 +171,9 @@ def _device_shortest(attr: str, csr, src: int, dst: int, max_depth: int):
     # a depth past the kernel's distance labels keeps the sssp tier (its
     # max_iters honours any depth): 254+ hop paths must not go "unreachable"
     if csr.num_edges >= _sssp_kernel_min(csr) and max_depth < pb.DIST_UNREACHED:
-        path = pb.shortest_bfs(pb.pull_graph_for(csr), src, dst, max_depth)
+        with costs.kernel("pb.shortest_bfs"):
+            path = pb.shortest_bfs(pb.pull_graph_for(csr), src, dst,
+                                   max_depth)
         if path is None:
             return None
         return (float(len(path) - 1), path, [attr] * (len(path) - 1))
@@ -183,12 +185,15 @@ def _device_shortest(attr: str, csr, src: int, dst: int, max_depth: int):
         return None              # endpoint outside this predicate's uid space
     # pow2 capacity class, as the JAX package sizes it
     num_nodes = 1 << max(int(np.ceil(np.log2(hi + 2))), 4)
-    res = traversal.sssp(csr.subjects, csr.indptr, csr.indices, None,
-                         src, num_nodes=num_nodes, max_iters=max_depth)
-    dist = float(res.dist[dst])
-    if not np.isfinite(dist):
-        return None
-    parent = res.parent.cpu().numpy()
+    with costs.kernel("traversal.sssp") as ck:
+        res = traversal.sssp(csr.subjects, csr.indptr, csr.indices, None,
+                             src, num_nodes=num_nodes, max_iters=max_depth)
+        dist = float(res.dist[dst])
+        ck.set(d2h=res.dist.element_size())
+        if not np.isfinite(dist):
+            return None
+        parent = res.parent.cpu().numpy()
+        ck.set(d2h=int(parent.nbytes))
     path = [dst]
     while path[-1] != src:
         p = int(parent[path[-1]])
@@ -359,6 +364,11 @@ def _mesh_bfs_adjacency(ex, sg: SubGraph, csrs, src: int):
 
 
 def shortest_path(ex, sg: SubGraph) -> None:
+    with otrace.span("shortest"):
+        _shortest_path(ex, sg)
+
+
+def _shortest_path(ex, sg: SubGraph) -> None:
     spec = sg.gq.shortest
     src = _resolve_end(ex, spec.from_)
     dst = _resolve_end(ex, spec.to)

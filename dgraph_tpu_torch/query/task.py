@@ -196,22 +196,19 @@ def _expand_overlay(ov, uids: np.ndarray,
             base_targets = _gather_rows_host(indptr_h, indices_h, rb,
                                              deg_b, offs)
         else:
-            with otrace.span("device_kernel", kernel="csr.expand_masked",
-                             need=need_base,
-                             cutover=int(cutover or HOST_EXPAND_MAX)) as sp, \
-                    costs.kernel("csr.expand_masked") as ck:
+            keep = ro >= 0
+            with costs.kernel("csr.expand_masked", need=need_base,
+                              cutover=int(cutover or HOST_EXPAND_MAX)) as ck:
                 res = csrops.expand_masked(
                     indptr_d, indices_d,
                     torch.from_numpy(rb).to(base.device),
-                    torch.from_numpy(ro >= 0).to(base.device), out_cap=cap)
+                    torch.from_numpy(keep).to(base.device), out_cap=cap)
                 # one D2H, which is also the sync that lands the kernel's
                 # time in this span
                 targets_h = res.targets.cpu().numpy()
-                ck.set(h2d=int(rb.nbytes), d2h=int(targets_h.nbytes))
-                if sp:
-                    sp.set(edges=need_base,
-                           transfer_h2d_bytes=int(rb.nbytes),
-                           transfer_d2h_bytes=int(targets_h.nbytes))
+                ck.set(h2d=int(rb.nbytes + keep.nbytes),
+                       d2h=int(targets_h.nbytes))
+                ck.annotate(edges=need_base)
             base_targets = targets_h[:need_base].astype(np.int64)
     matrix = [base_targets[offs[i]: offs[i + 1]] for i in range(len(uids))]
     for i in np.flatnonzero(ro >= 0).tolist():
@@ -262,19 +259,19 @@ def _expand_csr(csr: PredCSR, uids: np.ndarray, first: int = 0,
                                      deg, uids, need, cutover)
         return apply_first(matrix, first), need
     cap = 1 << max(int(np.ceil(np.log2(need + 1))), 4)
-    with otrace.span("device_kernel", kernel="csr.expand", need=need,
-                     cutover=int(cutover or HOST_EXPAND_MAX)) as sp, \
-            costs.kernel("csr.expand") as ck:
+    with costs.kernel("csr.expand", need=need,
+                      cutover=int(cutover or HOST_EXPAND_MAX)) as ck:
         rows_d = torch.from_numpy(rows).to(csr.device)
         res = csrops.expand(indptr_d, indices_d, rows_d, out_cap=cap)
         total = int(res.total)                   # device sync point
         targets = res.targets[:total].cpu().numpy()
-        ck.set(h2d=int(rows.nbytes), d2h=int(targets.nbytes))
-        if sp:
-            sp.set(edges=total, transfer_h2d_bytes=int(rows.nbytes),
-                   transfer_d2h_bytes=int(targets.nbytes))
+        counts = res.counts.cpu().numpy()
+        ck.set(h2d=int(rows.nbytes),
+               d2h=res.total.element_size() + int(targets.nbytes)
+               + int(counts.nbytes))
+        ck.annotate(edges=total)
     targets = targets.astype(np.int64)
-    counts = res.counts.cpu().numpy()[: len(uids)]
+    counts = counts[: len(uids)]
     offs = np.zeros(len(uids) + 1, dtype=np.int64)
     np.cumsum(counts, out=offs[1:])
     matrix = [targets[offs[i]: offs[i + 1]] for i in range(len(uids))]
@@ -322,22 +319,20 @@ def _index_uids_for_rows(ti: TokenIndex, rows: list[int]) -> np.ndarray:
         # injected residency.h2d_upload fault: host merge, byte-identical
         _upload_fault_fallback(ti)
         return host_union()
-    rows_arr = us.make_set(np.asarray(rows, dtype=np.int32),
-                           capacity=len(rows), device=ti.device)
     cap = int(indptr_h[-1]) or 1
-    with otrace.span("device_kernel", kernel="csr.expand_dest",
-                     need=total, rows=len(rows)) as sp, \
-            costs.kernel("csr.expand_dest") as ck:
+    with costs.kernel("csr.expand_dest", need=total, rows=len(rows)) as ck:
+        rows_arr = us.make_set(np.asarray(rows, dtype=np.int32),
+                               capacity=len(rows), device=ti.device)
         dest, _total = csrops.expand_dest(indptr_d, uids_d, rows_arr,
                                           out_cap=cap)
         # the union is at most the whole index (cap), so it is complete;
         # the sentinel tail stays on the device
-        n = int(us.size(dest))
-        out = dest[:n].cpu().numpy().astype(np.int64)
-        ck.set(d2h=int(out.nbytes))
-        if sp:
-            sp.set(edges=int(len(out)), transfer_d2h_bytes=int(out.nbytes))
-    return out
+        n_d = us.size(dest)
+        out = dest[:int(n_d)].cpu().numpy()
+        ck.set(h2d=rows_arr.numel() * rows_arr.element_size(),
+               d2h=n_d.element_size() + int(out.nbytes))
+        ck.annotate(edges=int(len(out)))
+    return out.astype(np.int64)
 
 
 def _index_uids_intersect_rows(ti: TokenIndex, rows: list[int]) -> np.ndarray:
@@ -616,7 +611,8 @@ def finish_uid_expand(pd: PredData, q: TaskQuery, frontier: np.ndarray,
             keep |= (len(vsub) > 0) & (vsub[posv] == frontier)
         res.dest_uids = frontier[keep]
     else:
-        res.dest_uids = _merge_matrix(matrix)
+        with otrace.span("merge"):
+            res.dest_uids = _merge_matrix(matrix)
     return res
 
 

@@ -49,7 +49,7 @@ import numpy as np
 import torch
 
 from dgraph_tpu_torch import resolve_device
-from dgraph_tpu_torch.obs import otrace
+from dgraph_tpu_torch.obs import costs
 from dgraph_tpu_torch.ops import vector as vops
 from dgraph_tpu_torch.utils.schema import VectorSpec
 from dgraph_tpu_torch.utils.types import TypeID, Val
@@ -377,18 +377,18 @@ def _device_candidates(vi: VectorIndex, q: np.ndarray, kprime: int,
     placements fan the row scan across the mesh with a replicated top-k
     merge (parallel/mesh_exec.py)."""
     if vi._mesh is not None:
-        return vi._mesh.vector_topk(vi, q, kprime, dead_rows)
+        with costs.kernel("mesh.vector_topk", rows=int(vi.n), k=kprime):
+            return vi._mesh.vector_topk(vi, q, kprime, dead_rows)
     mat, norms, _subs = vi.device()
-    with otrace.span("device_kernel", kernel="vector.topk",
-                     rows=int(vi.n), k=kprime) as sp:
+    with costs.kernel("vector.topk", rows=int(vi.n), k=kprime) as ck:
+        q32 = q.astype(np.float32)
         nd, rows = vops.topk_candidates(
-            mat, norms, torch.from_numpy(q.astype(np.float32)).to(mat.device),
+            mat, norms, torch.from_numpy(q32).to(mat.device),
             vi.n, torch.from_numpy(np.asarray(dead_rows, np.int32)),
             k=kprime, metric=vi.metric)
         rows_h = rows.cpu().numpy()
         nd_h = nd.cpu().numpy()
-        if sp:
-            sp.set(transfer_d2h_bytes=int(rows_h.nbytes + nd_h.nbytes))
+        ck.set(h2d=int(q32.nbytes), d2h=int(rows_h.nbytes + nd_h.nbytes))
     return rows_h[nd_h > -np.inf]
 
 
@@ -523,15 +523,15 @@ def _ivf_device_stage(base: VectorIndex, q: np.ndarray, rows: np.ndarray,
     cr = np.full(ccap, R, np.int32)
     cr[: len(rows)] = rows
     kprime = vops.k_capacity(k, ccap)
-    with otrace.span("device_kernel", kernel="vector.ivf_topk",
-                     cands=int(len(rows)), k=kprime) as sp:
+    with costs.kernel("vector.ivf_topk", cands=int(len(rows)),
+                      k=kprime) as ck:
+        q32 = q.astype(np.float32)
         nd, sel = vops.ivf_topk(
-            mat, norms,
-            torch.from_numpy(q.astype(np.float32)).to(mat.device),
+            mat, norms, torch.from_numpy(q32).to(mat.device),
             torch.from_numpy(cr).to(mat.device), k=kprime,
             metric=base.metric)
         sel_h = sel.cpu().numpy()
         nd_h = nd.cpu().numpy()
-        if sp:
-            sp.set(transfer_d2h_bytes=int(sel_h.nbytes + nd_h.nbytes))
+        ck.set(h2d=int(q32.nbytes + cr.nbytes),
+               d2h=int(sel_h.nbytes + nd_h.nbytes))
     return sel_h[nd_h > -np.inf]

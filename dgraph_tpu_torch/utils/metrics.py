@@ -274,6 +274,7 @@ class Registry:
                      "dgraph_result_cache_bytes",
                      "dgraph_dispatch_inflight",
                      "dgraph_dispatch_waits_total",
+                     "dgraph_dispatch_wait_ns_total",
                      # delta-overlay maintenance tier (storage/delta.py)
                      "dgraph_overlay_stamps_total",
                      "dgraph_overlay_fold_fallbacks_total",
@@ -381,6 +382,16 @@ class Registry:
                      "dgraph_residency_budget_overruns_total",
                      # host posting-list memory (Node.enforce_memory)
                      "dgraph_memory_bytes",
+                     # layer spans (obs/otrace.py): each layer's span
+                     # self time, the bytes the device seams moved, and
+                     # the span-ring entries overwritten
+                     "dgraph_span_self_ns_node_total",
+                     "dgraph_span_self_ns_engine_total",
+                     "dgraph_span_self_ns_traversal_total",
+                     "dgraph_span_self_ns_device_total",
+                     "dgraph_transfer_h2d_bytes_total",
+                     "dgraph_transfer_d2h_bytes_total",
+                     "dgraph_span_ring_dropped_total",
                      # query cost ledger (obs/costs.py)
                      "dgraph_cost_records_total",
                      "dgraph_cost_regressions_total",

@@ -53,6 +53,7 @@ from dgraph_tpu.utils.deadline import DeadlineExceeded as JDeadline
 from dgraph_tpu_torch import tenancy as ttnc
 from dgraph_tpu_torch.api.server import Node as TNode
 from dgraph_tpu_torch.coord.zero import TxnConflict as TTxnConflict
+from dgraph_tpu_torch.obs import otrace as totrace
 from dgraph_tpu_torch.query import engine as teng
 from dgraph_tpu_torch.query import groupby as tgb
 from dgraph_tpu_torch.storage import csr_build as tcb
@@ -588,8 +589,15 @@ def test_slow_log_and_cost_ledger(twin):
                 walk(node.get("children", []))
         walk(e["tree"])
         return {"error": e["error"], "spans": sorted(names)}
-    got = twin.same(slow)
-    assert "task" in got["spans"]
+    j, t = twin.both(slow)
+    assert t["error"] == j["error"]
+    # the port's tree holds every span of the JAX package's, and beside
+    # them the port's layer spans (obs/otrace.SPAN_LAYERS), which the JAX
+    # package does not record
+    assert set(j["spans"]) <= set(t["spans"])
+    assert set(t["spans"]) - set(j["spans"]) <= {
+        n.rstrip(":") for n in totrace.SPAN_LAYERS}
+    assert "task" in t["spans"]
 
     def top(n, p):
         rows = n.cost_book.top(window_s=600, by="edges", group="pred")
