@@ -16,13 +16,14 @@ Out-of-range indices are clamped and masked explicitly (torch raises where
 jnp.take clips).
 
 expand_dest is the union of many rows (index root functions union the uid
-rows of their tokens): expand, sort, dedup. expand_masked is the base-side
-half of a delta-overlay merge-on-read (storage/delta.OverlayCSR): the
-frontier expands over the unchanged base with the patched slots masked to
-the sentinel. EXPANDS, UNIONS and MASKED count the calls of expand (the
-gather under the other two as well), expand_dest and expand_masked by the
-device type of the tensors they were given, so a caller can show which
-side ran.
+rows of their tokens): expand, sort, dedup. unique_targets dedups one
+gather's targets on their device, for a level's dest set. expand_masked is
+the base-side half of a delta-overlay merge-on-read
+(storage/delta.OverlayCSR): the frontier expands over the unchanged base
+with the patched slots masked to the sentinel. EXPANDS, UNIONS and MASKED
+count the calls of expand (the gather under the other two as well),
+expand_dest and expand_masked by the device type of the tensors they were
+given, so a caller can show which side ran.
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ from typing import NamedTuple
 
 import torch
 
-from dgraph_tpu_torch.ops.uidset import _dedup_sorted, sentinel
+from dgraph_tpu_torch.ops.uidset import _dedup_sorted, sentinel, size
 
 EXPANDS = {"cuda": 0, "cpu": 0}
 UNIONS = {"cuda": 0, "cpu": 0}
@@ -124,3 +125,31 @@ def expand_dest(indptr: torch.Tensor, indices: torch.Tensor,
     UNIONS[rows.device.type] = UNIONS.get(rows.device.type, 0) + 1
     res = expand(indptr, indices, rows, out_cap)
     return _dedup_sorted(torch.sort(res.targets).values), res.total
+
+
+# unique_targets, and engine._unique_uids on the host, take the bitmap where
+# the largest uid is below this many times their count, the crossover
+# measured on the card's host (bench_torch_crossover.py section 5). On an
+# H100 the bitmap wins at this spread and still at 4 (int32 uids over a
+# 1M-uid range, bitmap against sort: 16M targets 0.49 / 2.04 ms, 1.5M
+# 0.18 / 0.39, 256K 0.15 / 0.28), so the card sorts somewhat early.
+UNIQUE_BITMAP_SPREAD = 1
+
+
+def unique_targets(targets: torch.Tensor) -> tuple[torch.Tensor, int]:
+    """Sorted unique uids of one gather's valid targets (no sentinel among
+    them), on their device, in their dtype: one scatter into a bitmap
+    where the uids are dense, else a sort and _dedup_sorted as expand_dest
+    does. Returns (the compact set, the bytes of the scalars read back to
+    choose and size it)."""
+    if targets.numel() == 0:
+        return targets[:0], 0
+    lo, hi = torch.stack(torch.aminmax(targets)).tolist()
+    read = 2 * targets.element_size()
+    if lo >= 0 and hi < UNIQUE_BITMAP_SPREAD * targets.numel():
+        seen = torch.zeros(hi + 1, dtype=torch.bool, device=targets.device)
+        seen[targets.to(torch.int64)] = True
+        return torch.nonzero(seen).flatten().to(targets.dtype), read
+    dest = _dedup_sorted(torch.sort(targets).values)
+    n = size(dest)
+    return dest[:int(n)], read + n.element_size()

@@ -41,7 +41,7 @@ from ..utils import faults
 from ..utils.ballot import tally as _tally
 from ..utils.retry import CircuitBreaker
 from ..utils.errors import FailedPrecondition, Unavailable
-from ..query.task import TaskQuery, TaskResult, process_task
+from ..query.task import TaskQuery, TaskResult, UidMatrix, process_task
 from ..storage.csr_build import STRUCTURAL_RECORDS
 from ..storage.store import _key_bytes, decode_record
 from ..storage.postings import DirectedEdge, Op, Posting
@@ -116,15 +116,12 @@ def _facets_from_json(s: str):
 
 
 def encode_result(res: TaskResult) -> ipb.TaskResponse:
-    offs = np.zeros(len(res.uid_matrix) + 1, dtype="<i8")
-    if res.uid_matrix:
-        np.cumsum([len(r) for r in res.uid_matrix], out=offs[1:])
-    flat = (np.concatenate([np.asarray(r, dtype="<i8")
-                            for r in res.uid_matrix])
-            if res.uid_matrix else np.zeros(0, dtype="<i8"))
+    m = res.uid_matrix          # columnar: the wire's own layout
     return ipb.TaskResponse(
-        matrix_flat=flat.tobytes(), matrix_offsets=offs.tobytes(),
-        dest_uids=_uids_to_bytes(res.dest_uids), counts=list(res.counts),
+        matrix_flat=m.flat.astype("<i8", copy=False).tobytes(),
+        matrix_offsets=m.offsets.astype("<i8", copy=False).tobytes(),
+        dest_uids=_uids_to_bytes(res.dest_uids),
+        counts=list(res.counts),
         value_matrix_json=_vals_json(res.value_matrix)
         if res.value_matrix else "",
         facet_matrix_json=_facets_json(res.facet_matrix)
@@ -135,10 +132,9 @@ def encode_result(res: TaskResult) -> ipb.TaskResponse:
 def decode_result(msg: ipb.TaskResponse) -> TaskResult:
     res = TaskResult()
     offs = np.frombuffer(msg.matrix_offsets, dtype="<i8")
-    flat = _uids_from_bytes(msg.matrix_flat)
-    if len(offs) > 1:
-        res.uid_matrix = [flat[int(offs[i]): int(offs[i + 1])]
-                          for i in range(len(offs) - 1)]
+    if len(offs):
+        res.uid_matrix = UidMatrix(_uids_from_bytes(msg.matrix_flat),
+                                   offs.astype(np.int64))
     res.dest_uids = _uids_from_bytes(msg.dest_uids)
     res.counts = list(msg.counts)
     if msg.value_matrix_json:

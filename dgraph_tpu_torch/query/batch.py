@@ -579,9 +579,8 @@ class DeviceBatcher:
             base += w.need
             offs = np.zeros(len(w.frontier) + 1, dtype=np.int64)
             np.cumsum(w.deg, out=offs[1:])
-            matrix = [sl[offs[i]: offs[i + 1]]
-                      for i in range(len(w.frontier))]
-            matrix = taskmod.apply_first(matrix, w.q.first)
+            matrix = taskmod.apply_first(taskmod.UidMatrix(sl, offs),
+                                         w.q.first)
             try:
                 e.result = taskmod.finish_uid_expand(
                     w.pd, w.q, w.frontier, matrix, w.need)

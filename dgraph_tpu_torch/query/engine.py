@@ -40,6 +40,7 @@ import torch
 
 from dgraph_tpu_torch.obs import costs, otrace
 from dgraph_tpu_torch.ops import uidset as us
+from dgraph_tpu_torch.ops.csr import UNIQUE_BITMAP_SPREAD
 from dgraph_tpu_torch.query import dql
 from dgraph_tpu_torch.query.task import TaskQuery, process_task
 from dgraph_tpu_torch.storage.csr_build import GraphSnapshot
@@ -1172,7 +1173,7 @@ class Executor:
                            frontier: np.ndarray) -> None:
         if cgq.var_name:
             if cgq.is_count:
-                vals = {int(u): Val(TypeID.INT, c)
+                vals = {int(u): Val(TypeID.INT, int(c))
                         for u, c in zip(frontier, child.counts)}
                 self.vars[cgq.var_name] = VarValue(vals=vals, is_uid=False)
             elif child.value_matrix:
@@ -1390,11 +1391,6 @@ def _known_uids(snap: GraphSnapshot) -> np.ndarray:
         else np.zeros(0, np.int64)
     snap._known_uids_cache = out
     return out
-
-
-# _unique_uids takes the bitmap where the largest uid is below this many
-# times their count (bench_torch_crossover.py section 5 on the card's host)
-UNIQUE_BITMAP_SPREAD = 1
 
 
 def _unique_uids(uids: np.ndarray) -> np.ndarray:

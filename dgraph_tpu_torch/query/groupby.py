@@ -257,10 +257,8 @@ def _vectorized_groups(ex, gq, uids: np.ndarray):
         if tid == TypeID.UID or (pd is not None and pd.csr is not None):
             res = ex._dispatch(TaskQuery(attr, frontier=uids,
                                          cutover=_PIN_HOST))
-            counts = np.asarray([len(r) for r in res.uid_matrix], np.int64)
-            flat = (np.concatenate([np.asarray(r, np.int64)
-                                    for r in res.uid_matrix])
-                    if counts.sum() else np.zeros(0, np.int64))
+            counts = res.uid_matrix.counts()
+            flat = res.uid_matrix.flat
             uidx = np.repeat(np.arange(n), counts)
             # rank-space coding: codes are ranks in the tablet's cached
             # distinct-target table (one searchsorted — host below the

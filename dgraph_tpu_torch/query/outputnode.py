@@ -58,14 +58,21 @@ def encode_result(ex, sg, out: dict) -> None:
         out[alias] = [{"@groupby": sg.group_result}]
         return
     nodes: list[dict] = []
-    frontier = np.sort(sg.dest_uids)
-    # @ignorereflex: a node never appears in its own subtree — an ancestor
-    # stack is threaded through preTraverse (query/query.go:371,433,541)
-    parents: list[int] | None = [] if gq.ignore_reflex else None
-    for u in sg.dest_uids:
-        node = pre_traverse(sg, frontier, int(u), parents)
-        if node:
-            nodes.append(node)
+    if any(not _block_level(c.gq) for c in sg.children):
+        frontier = np.sort(sg.dest_uids)
+        # @ignorereflex: a node never appears in its own subtree — an
+        # ancestor stack is threaded through preTraverse
+        # (query/query.go:371,433,541)
+        parents: list[int] | None = [] if gq.ignore_reflex else None
+        for u in sg.dest_uids:
+            node = pre_traverse(sg, frontier, int(u), parents)
+            if node:
+                nodes.append(node)
+    else:
+        # no child renders per uid: pre_traverse would give {} for each
+        metrics = getattr(ex.snap, "metrics", None)
+        if metrics is not None:
+            metrics.counter("dgraph_encode_walks_skipped_total").inc()
     # block-level scalars: aggregates and count(uid) become their own objects
     # (dgraph's "me": [..., {"count": n}] / [{"min(val(x))": v}] shape)
     for child in sg.children:
@@ -86,6 +93,12 @@ def encode_result(ex, sg, out: dict) -> None:
         out[alias] = nodes
 
 
+def _block_level(cgq) -> bool:
+    """An aggregate or count(uid): rendered once for the block, never per
+    uid."""
+    return cgq.attr.startswith("__agg_") or (cgq.is_uid_node and cgq.is_count)
+
+
 def pre_traverse(sg, frontier: np.ndarray, uid: int,
                  parents: list[int] | None = None) -> dict:
     """Build the response object for one uid at one level.
@@ -100,7 +113,7 @@ def pre_traverse(sg, frontier: np.ndarray, uid: int,
     for child in sg.children:
         cgq = child.gq
         alias = cgq.alias or cgq.attr
-        if cgq.attr.startswith("__agg_") or (cgq.is_uid_node and cgq.is_count):
+        if _block_level(cgq):
             continue  # block-level, handled by encode_result
         if cgq.is_uid_node:
             node["uid"] = _uid_hex(uid)

@@ -198,12 +198,13 @@ def copy_result(res: TaskResult) -> TaskResult:
     matrix rows and reassign attributes (checkpwd, facet filters, child
     pagination) but never mutate a row in place, so sharing the inner
     numpy arrays / Val rows is safe while the outer lists must be owned
-    by the caller."""
+    by the caller. The columnar uidMatrix and the counts are reassigned,
+    never mutated, so they are shared whole."""
     return TaskResult(
-        uid_matrix=list(res.uid_matrix),
+        uid_matrix=res.uid_matrix,
         value_matrix=[list(r) for r in res.value_matrix],
         facet_matrix=[list(r) for r in res.facet_matrix],
-        counts=list(res.counts),
+        counts=res.counts,
         dest_uids=res.dest_uids,
         traversed_edges=res.traversed_edges)
 
@@ -218,9 +219,8 @@ def _nbytes(x) -> int:
 
 def result_nbytes(res: TaskResult) -> int:
     """Byte-footprint estimate for size-aware eviction."""
-    n = 256 + 8 * len(res.counts) + _nbytes(res.dest_uids)
-    for r in res.uid_matrix:
-        n += _nbytes(r) + 16
+    n = 256 + 8 * len(res.counts) + _nbytes(res.dest_uids) \
+        + res.uid_matrix.nbytes()
     for row in res.value_matrix:
         n += 72 * len(row) + 16
     for row in res.facet_matrix:
@@ -371,8 +371,7 @@ class TaskResultCache(_ByteLRU):
         fl.result = res
         with self._lock:
             self._flights.pop(fk, None)
-            if isinstance(res.uid_matrix, list):  # lazy matrix: skip
-                self._store_locked(fk, res, result_nbytes(res))
+            self._store_locked(fk, res, result_nbytes(res))
         fl.event.set()
         return copy_result(res)
 

@@ -13,13 +13,18 @@ password. Lossy tokenizers re-check candidates against stored values
 
 The per-uid pointer walk is one batched CSR gather (ops/csr.expand) over the
 predicate's device adjacency, or a host-mirror gather below HOST_EXPAND_MAX
-edges; over a delta overlay (storage/delta.OverlayCSR) the base's rows
-come from the same two paths (ops/csr.expand_masked on the device) and the
-overlay's replacement rows are spliced in. Index functions pick token rows on the host (the term table is
-small) and union the rows' uid lists on the host below HOST_EXPAND_MAX
-uids, on the snapshot's device above it (ops/csr.expand_dest). Numeric
-compares read the float64 host mirror (num_values_host), as the JAX package
-does: exact for INT below 2^53, DATETIME, FLOAT and BOOL.
+edges. Every path keeps the level's uidMatrix as columns (UidMatrix: flat
+targets and row offsets), and the device gather dedups the level's dest
+set on the card beside it (ops/csr.unique_targets); rows are views cut,
+and the targets cast to int64, only where a reader asks for them. Over a
+delta overlay (storage/delta.OverlayCSR) the base's rows come from the
+same two paths (ops/csr.expand_masked on the device) and the overlay's
+replacement rows are spliced in. Index functions pick token rows on the
+host (the term table is small) and union the rows' uid lists on the host
+below HOST_EXPAND_MAX uids, on the snapshot's device above it
+(ops/csr.expand_dest). Numeric compares read the float64 host mirror
+(num_values_host), as the JAX package does: exact for INT below 2^53,
+DATETIME, FLOAT and BOOL.
 
 similar_to probes the vector index (storage/vecindex.search): the top-k
 uids with their float64 distances, which the engine binds as the
@@ -61,6 +66,11 @@ class TaskError(ValueError):
 # the host wins 2.5x at ~2^12 and the device 1.7x at 2^18.
 HOST_EXPAND_MAX = 1 << 16
 
+# frontier filters over a uid predicate: finish_uid_expand keeps the
+# frontier slots their rows pass and merges no dest, so their expand
+# computes none
+_ROW_FILTERS = ("uid_in", "has")
+
 
 @dataclass
 class TaskQuery:
@@ -79,16 +89,96 @@ class TaskQuery:
     cutover: int = 0
 
 
+class UidMatrix:
+    """A uid level's uidMatrix as columns: flat int64 targets grouped by
+    frontier slot, and int64 offsets, one more than the frontier has
+    slots. It reads as the list of per-slot rows it replaces: len, m[i]
+    (the view flat[offsets[i]:offsets[i + 1]]) and iteration. Read-only: a
+    caller that replaces rows assigns a plain list. The targets may arrive
+    in the gather's own integer dtype: flat casts them to int64 on its
+    first read, so a level no reader walks never pays the cast. dest is
+    the level's sorted-unique targets where the gather computed them
+    beside the rows (on the card), else None."""
+
+    __slots__ = ("_flat", "offsets", "dest")
+
+    def __init__(self, flat: np.ndarray, offsets: np.ndarray,
+                 dest: np.ndarray | None = None) -> None:
+        self._flat = flat
+        self.offsets = offsets
+        self.dest = dest
+
+    @classmethod
+    def from_rows(cls, rows) -> "UidMatrix":
+        rows = [np.asarray(r, dtype=np.int64) for r in rows]
+        offs = np.zeros(len(rows) + 1, dtype=np.int64)
+        if rows:
+            np.cumsum([len(r) for r in rows], out=offs[1:])
+        flat = np.concatenate(rows) if rows else np.zeros(0, np.int64)
+        return cls(flat, offs)
+
+    @classmethod
+    def empty(cls, n: int = 0) -> "UidMatrix":
+        """n empty rows."""
+        return cls(np.zeros(0, np.int64), np.zeros(n + 1, np.int64))
+
+    @property
+    def flat(self) -> np.ndarray:
+        if self._flat.dtype != np.int64:
+            self._flat = self._flat.astype(np.int64)
+        return self._flat
+
+    def nbytes(self) -> int:
+        """The columns' bytes with the targets as int64, read without
+        casting them."""
+        return 8 * len(self._flat) + int(self.offsets.nbytes)
+
+    def __len__(self) -> int:
+        return len(self.offsets) - 1
+
+    def __getitem__(self, i: int) -> np.ndarray:
+        n = len(self)
+        if not -n <= i < n:
+            raise IndexError("uidMatrix row out of range")
+        i %= n
+        return self.flat[self.offsets[i]: self.offsets[i + 1]]
+
+    def __iter__(self):
+        flat, offs = self.flat, self.offsets.tolist()
+        return (flat[offs[i]: offs[i + 1]] for i in range(len(offs) - 1))
+
+    def counts(self) -> np.ndarray:
+        return np.diff(self.offsets)
+
+    def truncated(self, first: int) -> "UidMatrix":
+        """Each row cut to row[:first] (first > 0) or row[first:]
+        (first < 0), in one pass over the flat targets."""
+        cnt = self.counts()
+        keep = np.minimum(cnt, abs(first))
+        pos = np.arange(len(self._flat)) - np.repeat(self.offsets[:-1], cnt)
+        mask = (pos < first) if first > 0 else \
+            (pos >= np.repeat(cnt - keep, cnt))
+        offs = np.zeros(len(cnt) + 1, dtype=np.int64)
+        np.cumsum(keep, out=offs[1:])
+        return UidMatrix(self._flat[mask], offs)
+
+
 @dataclass
 class TaskResult:
-    """Reference: intern.Result (protos/internal.proto:69)."""
+    """Reference: intern.Result (protos/internal.proto:69). Rows given as
+    a list are taken into a UidMatrix. counts is an int64 array where an
+    expand made it, a list where the wire did."""
 
-    uid_matrix: list[np.ndarray] = field(default_factory=list)
+    uid_matrix: UidMatrix = field(default_factory=UidMatrix.empty)
     value_matrix: list[list[Val]] = field(default_factory=list)
     facet_matrix: list[list[tuple]] = field(default_factory=list)
-    counts: list[int] = field(default_factory=list)
+    counts: np.ndarray | list[int] = field(default_factory=list)
     dest_uids: np.ndarray = field(default_factory=lambda: np.zeros(0, np.int64))
     traversed_edges: int = 0
+
+    def __post_init__(self) -> None:
+        if not isinstance(self.uid_matrix, UidMatrix):
+            self.uid_matrix = UidMatrix.from_rows(self.uid_matrix)
 
 
 def rows_for_uids(csr: PredCSR, uids: np.ndarray) -> np.ndarray:
@@ -111,15 +201,15 @@ def _frontier_degrees(csr, uids: np.ndarray):
 
 def _host_expand_matrix(indptr_h: np.ndarray, indices_h: np.ndarray,
                         rows: np.ndarray, deg: np.ndarray, uids: np.ndarray,
-                        need: int, cutover: int) -> list[np.ndarray]:
+                        need: int, cutover: int) -> UidMatrix:
     """Below-cutover (or cold-tier) uidMatrix straight from the host
     mirrors."""
     otrace.event("host_expand", need=need,
                  cutover=int(cutover or HOST_EXPAND_MAX))
     offs = np.zeros(len(uids) + 1, dtype=np.int64)
     np.cumsum(deg, out=offs[1:])
-    targets = _gather_rows_host(indptr_h, indices_h, rows, deg, offs)
-    return [targets[offs[i]: offs[i + 1]] for i in range(len(uids))]
+    return UidMatrix(_gather_rows_host(indptr_h, indices_h, rows, deg, offs),
+                     offs)
 
 
 def _gather_rows_host(indptr_h: np.ndarray, indices_h: np.ndarray,
@@ -162,7 +252,7 @@ def _upload_fault_fallback(csr) -> None:
 
 
 def _expand_overlay(ov, uids: np.ndarray,
-                    cutover: int = 0) -> tuple[list[np.ndarray], int]:
+                    cutover: int = 0) -> tuple[UidMatrix, int]:
     """Merge-on-read expand over an OverlayCSR (storage/delta.py): gather
     the untouched rows from the unchanged base (host mirror at or below
     the cutover or on a cold base, ops/csr.expand_masked on the base's
@@ -213,21 +303,26 @@ def _expand_overlay(ov, uids: np.ndarray,
     matrix = [base_targets[offs[i]: offs[i + 1]] for i in range(len(uids))]
     for i in np.flatnonzero(ro >= 0).tolist():
         matrix[i] = ov.delta.rows[ro[i]]
-    return matrix, total
+    return UidMatrix.from_rows(matrix), total
 
 
 def _expand_csr(csr: PredCSR, uids: np.ndarray, first: int = 0,
-                cutover: int = 0) -> tuple[list[np.ndarray], int]:
+                cutover: int = 0, want_dest: bool = True,
+                metrics=None) -> tuple[UidMatrix, int]:
     """uidMatrix for a frontier over one adjacency: exact degree sum counted
     on the host indptr mirror, then the host gather (small, or a cold
     tablet) or one device gather at a pow2 capacity class (large); both
-    give the same matrix. An overlaid adjacency (OverlayCSR) merges on read
-    (_expand_overlay); a mesh-sharded one gathers over its mesh.
+    give the same matrix. The device gather also dedups its targets on the
+    card into the matrix's dest (counted in metrics'
+    dgraph_expand_dest_on_device_total), unless the caller reads no dest
+    (want_dest False) or first truncates the rows. An overlaid adjacency
+    (OverlayCSR) merges on read (_expand_overlay); a mesh-sharded one
+    gathers over its mesh.
 
     cutover: the planner's override of the host/device switch point (0 =
     HOST_EXPAND_MAX)."""
     if len(uids) == 0 or csr is None:
-        return [np.zeros(0, np.int64) for _ in range(len(uids))], 0
+        return UidMatrix.empty(len(uids)), 0
     if getattr(csr, "is_dist", False):
         # mesh-sharded tablet: the SAME size-adaptive host/device cutover
         # as the resident path — a small frontier gathers from the host
@@ -239,7 +334,8 @@ def _expand_csr(csr: PredCSR, uids: np.ndarray, first: int = 0,
                                          rows, deg, uids, need, cutover)
             total = need
         else:
-            matrix, total = csr.expand_matrix(uids)
+            rows_l, total = csr.expand_matrix(uids)
+            matrix = UidMatrix.from_rows(rows_l)
         return apply_first(matrix, first), total
     if isinstance(csr, OverlayCSR):
         matrix, total = _expand_overlay(csr, uids, cutover)
@@ -259,38 +355,46 @@ def _expand_csr(csr: PredCSR, uids: np.ndarray, first: int = 0,
                                      deg, uids, need, cutover)
         return apply_first(matrix, first), need
     cap = 1 << max(int(np.ceil(np.log2(need + 1))), 4)
+    dest = None
     with costs.kernel("csr.expand", need=need,
                       cutover=int(cutover or HOST_EXPAND_MAX)) as ck:
         rows_d = torch.from_numpy(rows).to(csr.device)
         res = csrops.expand(indptr_d, indices_d, rows_d, out_cap=cap)
         total = int(res.total)                   # device sync point
-        targets = res.targets[:total].cpu().numpy()
+        flat_d = res.targets[:total]
+        targets = flat_d.cpu().numpy()
         counts = res.counts.cpu().numpy()
-        ck.set(h2d=int(rows.nbytes),
-               d2h=res.total.element_size() + int(targets.nbytes)
-               + int(counts.nbytes))
+        d2h = res.total.element_size() + int(targets.nbytes) \
+            + int(counts.nbytes)
+        if want_dest and first == 0:
+            # the level's dest from the same gather, deduplicated on the
+            # card: only the set comes back beside the rows
+            dest_d, read = csrops.unique_targets(flat_d)
+            dest = dest_d.cpu().numpy().astype(np.int64)
+            d2h += read + int(dest_d.numel() * dest_d.element_size())
+        ck.set(h2d=int(rows.nbytes), d2h=d2h)
         ck.annotate(edges=total)
-    targets = targets.astype(np.int64)
-    counts = counts[: len(uids)]
+    if dest is not None and metrics is not None:
+        metrics.counter("dgraph_expand_dest_on_device_total").inc()
     offs = np.zeros(len(uids) + 1, dtype=np.int64)
-    np.cumsum(counts, out=offs[1:])
-    matrix = [targets[offs[i]: offs[i + 1]] for i in range(len(uids))]
+    np.cumsum(counts[: len(uids)], out=offs[1:])
+    # the targets stay in the gather's dtype until a reader asks for rows
+    matrix = UidMatrix(targets, offs, dest)
     return apply_first(matrix, first), total
 
 
-def apply_first(matrix: list[np.ndarray], first: int) -> list[np.ndarray]:
+def apply_first(matrix: UidMatrix, first: int) -> UidMatrix:
     """Per-uid result truncation (intern.Query.first)."""
-    if first > 0:
-        return [m[:first] for m in matrix]
-    if first < 0:
-        return [m[first:] for m in matrix]
-    return matrix
+    return matrix.truncated(first) if first else matrix
 
 
-def _merge_matrix(matrix: list[np.ndarray]) -> np.ndarray:
-    if not matrix:
-        return np.zeros(0, np.int64)
-    return np.unique(np.concatenate(matrix)) if any(len(m) for m in matrix) else np.zeros(0, np.int64)
+def _merge_matrix(matrix: UidMatrix) -> np.ndarray:
+    """A level's dest: the sorted-unique union of its rows — the dest its
+    gather computed on the card, else the host unique of its flat
+    targets."""
+    if matrix.dest is not None:
+        return matrix.dest
+    return np.unique(matrix.flat)
 
 
 # ---------------------------------------------------------------------------
@@ -458,9 +562,10 @@ def process_task(snap: GraphSnapshot, q: TaskQuery,
     # ---- frontier + uid-edge predicate: expand ----------------------------
     if pd.type_id == TypeID.UID or pd.csr is not None or q.reverse:
         csr = pd.rev_csr if q.reverse else pd.csr
-        matrix, traversed = _expand_csr(csr, frontier, q.first, q.cutover) \
-            if csr is not None else (
-            [np.zeros(0, np.int64) for _ in frontier], 0)
+        matrix, traversed = _expand_csr(
+            csr, frontier, q.first, q.cutover,
+            want_dest=fname not in _ROW_FILTERS,
+            metrics=getattr(snap, "metrics", None))
         return finish_uid_expand(pd, q, frontier, matrix, traversed)
 
     # ---- frontier + value predicate: fetch values / compare filter --------
@@ -579,7 +684,7 @@ def process_task(snap: GraphSnapshot, q: TaskQuery,
 
 
 def finish_uid_expand(pd: PredData, q: TaskQuery, frontier: np.ndarray,
-                      matrix: list[np.ndarray], traversed: int) -> TaskResult:
+                      matrix: UidMatrix, traversed: int) -> TaskResult:
     """Host tail of a uid-predicate frontier task: the edge facets, the
     uid_in / has filter functions and the dest merge. q is reverse-resolved
     (attr without "~", q.reverse set) as process_task rewrites it."""
@@ -587,32 +692,32 @@ def finish_uid_expand(pd: PredData, q: TaskQuery, frontier: np.ndarray,
     fname = q.func[0].lower() if q.func else None
     args = q.func[1] if q.func else []
     res.uid_matrix = matrix
-    res.counts = [len(m) for m in matrix]
+    res.counts = matrix.counts()
     res.traversed_edges = traversed
     if q.facet_keys:
         # every facet of each edge; the encoder keeps the asked keys
         res.facet_matrix = [
             [pd.facets.get((int(s), int(o)), ()) for o in m]
             for s, m in zip(frontier, matrix)]
-    if fname == "uid_in":
+    if fname not in _ROW_FILTERS:
+        with otrace.span("merge"):
+            res.dest_uids = _merge_matrix(matrix)
+    elif fname == "uid_in":
         # uid_in(pred, u1, u2, ...) keeps subjects with ANY listed object
         want = {int(str(a), 0) for a in args}
         keep = np.asarray([bool(want.intersection(m)) for m in matrix],
                           dtype=bool)
         res.dest_uids = frontier[keep]
-    elif fname == "has":
+    else:
         # has(attr) over a frontier: subjects with >= 1 edge (or a value,
         # for mixed untyped predicates)
-        keep = np.asarray([len(m) > 0 for m in matrix], dtype=bool)
+        keep = res.counts > 0
         if pd.value_subjects_host is not None:
             vsub = pd.value_subjects_host
             posv = np.clip(np.searchsorted(vsub, frontier), 0,
                            max(len(vsub) - 1, 0))
             keep |= (len(vsub) > 0) & (vsub[posv] == frontier)
         res.dest_uids = frontier[keep]
-    else:
-        with otrace.span("merge"):
-            res.dest_uids = _merge_matrix(matrix)
     return res
 
 

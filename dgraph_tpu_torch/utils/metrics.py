@@ -392,6 +392,12 @@ class Registry:
                      "dgraph_transfer_h2d_bytes_total",
                      "dgraph_transfer_d2h_bytes_total",
                      "dgraph_span_ring_dropped_total",
+                     # per-uid host work the engine skipped
+                     # (query/outputnode.py, query/task.py): blocks
+                     # encoded without the per-uid walk, and uid levels
+                     # whose dest set came off the card
+                     "dgraph_encode_walks_skipped_total",
+                     "dgraph_expand_dest_on_device_total",
                      # query cost ledger (obs/costs.py)
                      "dgraph_cost_records_total",
                      "dgraph_cost_regressions_total",
