@@ -73,8 +73,10 @@ SPAN_LAYERS = {
     # engine: the executor, its tasks and its host work on their results
     "execute": "engine", "block": "engine", "task:": "engine",
     "merge": "engine", "encode": "engine",
-    # traversal: @recurse and shortest-path
+    # traversal: @recurse and shortest-path, and inside the shortest
+    # kernel tier its device BFS loop and its host predecessor walk
     "recurse": "traversal", "shortest": "traversal",
+    "shortest_bfs": "traversal", "shortest_walk": "traversal",
     # device: the host waiting on the card (launches, syncs, copies), the
     # span obs/costs.kernel opens at every device site
     "device_kernel": "device",
@@ -188,6 +190,15 @@ def transfer(h2d: int = 0, d2h: int = 0) -> None:
     sp = _current.get()
     if sp is not None:
         sp.transfer(h2d, d2h)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add `n` to the counter `name` of the registry the current request's
+    tracer serves (a Node's); nothing outside a request, or where the
+    tracer serves no registry."""
+    sp = _current.get()
+    if sp is not None:
+        sp.tracer.count(name, n)
 
 
 def wire_context() -> str | None:
@@ -413,6 +424,7 @@ class Tracer:
         # what every span of this tracer books: the registry's counters
         # (utils/metrics.Registry pre-registers them), or counters of its
         # own for a tracer that serves no registry
+        self._metrics = metrics
         if metrics is not None:
             c = metrics.counter
             self._self_ns = {
@@ -432,6 +444,10 @@ class Tracer:
         for lay, s in by_layer.items():
             if s:
                 self._self_ns[lay].inc(round(s * 1e9))
+
+    def count(self, name: str, n: int = 1) -> None:
+        if self._metrics is not None:
+            self._metrics.counter(name).inc(n)
 
     def _transfer(self, h2d: int, d2h: int) -> None:
         if h2d:

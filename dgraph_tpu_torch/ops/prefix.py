@@ -14,7 +14,13 @@ design notes and bounds are there.
 Dispatch is by the tensors' device: CPU tensors take the plain PyTorch
 versions (active_prefix_ref / active_prefix_sparse_ref); CUDA tensors launch
 the kernel or raise. There is no fallback between the two. Each launch adds
-one to LAUNCHES[name]; the plain versions count nothing.
+one to LAUNCHES[name]; the plain versions count nothing. Inside a request,
+every run (a launch, or on CPU tensors the plain version) also books itself
+and what it streamed in the request's Node registry (obs/otrace.count):
+dgraph_prefix_k{1,2}_launches_total, _edge_slots_total (src_pad's length,
+padding included) and K1's _bitmap_words_total or K2's
+_table_entries_total, from which the benchmark's roofline readers compute
+each launch's bytes and operations.
 
 The shared library is built at first use with nvcc (sm_90a) into
 build/dgraph_tpu_torch/ at the repository root, named by a hash of the
@@ -33,6 +39,8 @@ import time
 from pathlib import Path
 
 import torch
+
+from dgraph_tpu_torch.obs import otrace
 
 EDGE_BLOCK = 8192   # E_pad granularity: the TPU grid step (pallas_bfs), kept
                     # by name; the CUDA tile (dg_tile_edges) must divide it
@@ -225,13 +233,17 @@ def active_prefix(words: torch.Tensor, src_pad: torch.Tensor,
         raise ValueError(f"words must be ({chunks * 8}, {LANES}), got "
                          f"{tuple(words.shape)}")
     if src_pad.device.type == "cpu":
-        return active_prefix_ref(words, src_pad, chunks)
-    if src_pad.numel() == 0:
+        out = active_prefix_ref(words, src_pad, chunks)
+    elif src_pad.numel() == 0:
         return torch.empty_like(src_pad)
-    lib = _load()
-    out = _launch(lib.dg_active_prefix, src_pad, words.data_ptr(),
-                  chunks * 8)
-    _count("active_prefix")
+    else:
+        lib = _load()
+        out = _launch(lib.dg_active_prefix, src_pad, words.data_ptr(),
+                      chunks * 8)
+        _count("active_prefix")
+    otrace.count("dgraph_prefix_k1_launches_total")
+    otrace.count("dgraph_prefix_k1_edge_slots_total", src_pad.numel())
+    otrace.count("dgraph_prefix_k1_bitmap_words_total", words.numel())
     return out
 
 
@@ -250,10 +262,14 @@ def active_prefix_sparse(ftab: torch.Tensor,
         raise ValueError(f"ftab must be (33, {LANES}), got "
                          f"{tuple(ftab.shape)}")
     if src_pad.device.type == "cpu":
-        return active_prefix_sparse_ref(ftab, src_pad)
-    if src_pad.numel() == 0:
+        out = active_prefix_sparse_ref(ftab, src_pad)
+    elif src_pad.numel() == 0:
         return torch.empty_like(src_pad)
-    lib = _load()
-    out = _launch(lib.dg_active_prefix_sparse, src_pad, ftab.data_ptr())
-    _count("active_prefix_sparse")
+    else:
+        lib = _load()
+        out = _launch(lib.dg_active_prefix_sparse, src_pad, ftab.data_ptr())
+        _count("active_prefix_sparse")
+    otrace.count("dgraph_prefix_k2_launches_total")
+    otrace.count("dgraph_prefix_k2_edge_slots_total", src_pad.numel())
+    otrace.count("dgraph_prefix_k2_table_entries_total", ftab.numel())
     return out

@@ -171,9 +171,7 @@ def _device_shortest(attr: str, csr, src: int, dst: int, max_depth: int):
     # a depth past the kernel's distance labels keeps the sssp tier (its
     # max_iters honours any depth): 254+ hop paths must not go "unreachable"
     if csr.num_edges >= _sssp_kernel_min(csr) and max_depth < pb.DIST_UNREACHED:
-        with costs.kernel("pb.shortest_bfs"):
-            path = pb.shortest_bfs(pb.pull_graph_for(csr), src, dst,
-                                   max_depth)
+        path = pb.shortest_bfs(pb.pull_graph_for(csr), src, dst, max_depth)
         if path is None:
             return None
         return (float(len(path) - 1), path, [attr] * (len(path) - 1))

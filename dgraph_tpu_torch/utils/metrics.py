@@ -398,6 +398,21 @@ class Registry:
                      # whose dest set came off the card
                      "dgraph_encode_walks_skipped_total",
                      "dgraph_expand_dest_on_device_total",
+                     # the shortest kernel tier (ops/pull_bfs.py): the
+                     # time in its device BFS loop and in its host walk,
+                     # and the hops the loop ran
+                     "dgraph_shortest_bfs_ns_total",
+                     "dgraph_shortest_walk_ns_total",
+                     "dgraph_shortest_bfs_hops_total",
+                     # the active-prefix kernels (ops/prefix.py), inside
+                     # a request: K1/K2 runs and what each streamed (edge
+                     # slots with padding, frontier words)
+                     "dgraph_prefix_k1_launches_total",
+                     "dgraph_prefix_k1_edge_slots_total",
+                     "dgraph_prefix_k1_bitmap_words_total",
+                     "dgraph_prefix_k2_launches_total",
+                     "dgraph_prefix_k2_edge_slots_total",
+                     "dgraph_prefix_k2_table_entries_total",
                      # query cost ledger (obs/costs.py)
                      "dgraph_cost_records_total",
                      "dgraph_cost_regressions_total",
