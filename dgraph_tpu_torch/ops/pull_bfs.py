@@ -37,7 +37,7 @@ from dgraph_tpu_torch.ops.csr import expand as _csr_expand
 from dgraph_tpu_torch.ops.prefix import (EDGE_BLOCK, FRONTIER_CAP, INT32_MAX,
                                          LANES, NODES_PER_CHUNK,
                                          active_prefix, active_prefix_sparse)
-from dgraph_tpu_torch.ops.uidset import index_of
+from dgraph_tpu_torch.ops.uidset import rank_of
 
 # Path-choice constants carried over from the TPU tuning by name. They pick
 # a path and never change an output; their H100 values await measurement.
@@ -84,14 +84,6 @@ def _chunks_for(n: int) -> int:
     return c
 
 
-def _rank_of(sorted_t: torch.Tensor, values: torch.Tensor,
-             miss: int) -> torch.Tensor:
-    """uidset.host_rank_of on tensors: the int32 position of each value in
-    a sorted uid tensor, `miss` where absent."""
-    pos = index_of(sorted_t, values)
-    return torch.where(pos >= 0, pos, miss).to(torch.int32)
-
-
 def prep_pull(subjects: np.ndarray, indptr: np.ndarray, indices: np.ndarray,
               num_nodes: int, with_host_arrays: bool = False,
               device: str | torch.device = "cuda") -> PullGraph:
@@ -127,7 +119,7 @@ def prep_pull(subjects: np.ndarray, indptr: np.ndarray, indices: np.ndarray,
     nd = in_subjects.numel()
     iptr = torch.zeros(nd + 1, dtype=torch.int32, device=dev)
     iptr[1:] = torch.cumsum(counts, 0)
-    map_s2d = _rank_of(in_subjects, sub, nd)
+    map_s2d = rank_of(in_subjects, sub, nd)
 
     chunks = _chunks_for(ns)
     pad_src = chunks * NODES_PER_CHUNK - 1     # beyond Ns: bit always 0
@@ -146,7 +138,7 @@ def prep_pull(subjects: np.ndarray, indptr: np.ndarray, indices: np.ndarray,
     del src_d
 
     fwd_dst_rank = torch.searchsorted(in_subjects, ind).to(torch.int32)
-    map_d2s = _rank_of(sub, in_subjects, INT32_MAX)
+    map_d2s = rank_of(sub, in_subjects, INT32_MAX)
     host = (None,) * 6
     if with_host_arrays:
         inv_order = torch.empty(E, dtype=torch.int32, device=dev)

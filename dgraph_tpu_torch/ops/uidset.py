@@ -202,6 +202,15 @@ def index_of(a: torch.Tensor, v) -> torch.Tensor:
     return torch.where(hit, idx, -1).to(torch.int32)
 
 
+def rank_of(sorted_t: torch.Tensor, values: torch.Tensor,
+            miss: int) -> torch.Tensor:
+    """host_rank_of on tensors: the int32 position of each value in a
+    sorted uid tensor, `miss` where absent. values must fit sorted_t's
+    dtype (index_of casts, so a wider value would wrap)."""
+    pos = index_of(sorted_t, values)
+    return torch.where(pos >= 0, pos, miss).to(torch.int32)
+
+
 def paginate(a: torch.Tensor, offset: int, count: int) -> torch.Tensor:
     """Keep valid entries with rank in [offset, offset+count); a negative
     offset counts from the end, count < 0 runs to the end (x/x.go:191

@@ -13,15 +13,18 @@ password. Lossy tokenizers re-check candidates against stored values
 
 The per-uid pointer walk is one batched CSR gather (ops/csr.expand) over the
 predicate's device adjacency, or a host-mirror gather below HOST_EXPAND_MAX
-edges. Every path keeps the level's uidMatrix as columns (UidMatrix: flat
-targets and row offsets), and the device gather dedups the level's dest
-set on the card beside it (ops/csr.unique_targets); rows are views cut,
-and the targets cast to int64, only where a reader asks for them. Over a
-delta overlay (storage/delta.OverlayCSR) the base's rows come from the
-same two paths (ops/csr.expand_masked on the device) and the overlay's
-replacement rows are spliced in. Index functions pick token rows on the
-host (the term table is small) and union the rows' uid lists on the host
-below HOST_EXPAND_MAX uids, on the snapshot's device above it
+edges. A frontier of uidset.HOST_CUTOVER uids or more maps to CSR rows on
+the card (the device subjects and indptr), a smaller one by a binary
+search of the host mirror. Every path keeps the level's uidMatrix as
+columns (UidMatrix: flat targets and row offsets), and the device gather
+dedups the level's dest set on the card beside it
+(ops/csr.unique_targets); rows are views cut, and the targets cast to
+int64, only where a reader asks for them. Over a delta overlay
+(storage/delta.OverlayCSR) the base's rows come from the same two paths
+(ops/csr.expand_masked on the device) and the overlay's replacement rows
+are spliced in. Index functions pick token rows on the host (the term
+table is small) and union the rows' uid lists on the host below
+HOST_EXPAND_MAX uids, on the snapshot's device above it
 (ops/csr.expand_dest). Numeric compares read the float64 host mirror
 (num_values_host), as the JAX package does: exact for INT below 2^53,
 DATETIME, FLOAT and BOOL.
@@ -189,14 +192,39 @@ def rows_for_uids(csr: PredCSR, uids: np.ndarray) -> np.ndarray:
 
 def _frontier_degrees(csr, uids: np.ndarray):
     """(rows, indptr_h, deg, need) for a frontier over one adjacency's host
-    mirrors — the shared first pass of every size-adaptive expand branch
+    mirrors — the host first pass of the size-adaptive expand branches
     (and of the batcher's classification)."""
     rows = rows_for_uids(csr, uids)
     indptr_h = csr.host_arrays()[1]
+    deg = _row_degrees(indptr_h, rows)
+    return rows, indptr_h, deg, int(deg.sum())
+
+
+def _row_degrees(indptr_h: np.ndarray, rows: np.ndarray) -> np.ndarray:
+    """Per-slot degree of CSR rows from the host indptr (SENTINEL32 rows
+    read 0)."""
     rc = np.clip(rows, 0, max(len(indptr_h) - 2, 0))
     ok = rows != us.SENTINEL32
-    deg = np.where(ok, indptr_h[rc + 1] - indptr_h[rc], 0)
-    return rows, indptr_h, deg, int(deg.sum())
+    return np.where(ok, indptr_h[rc + 1] - indptr_h[rc], 0)
+
+
+def _rows_on_device(subjects_d: torch.Tensor,
+                    uids: np.ndarray) -> tuple[torch.Tensor, int]:
+    """rows_for_uids on the card: the frontier goes up (int32 where every
+    uid fits, else int64 with the uids outside the int32 uid space mapped
+    to a miss, since the rank's cast would wrap them) and is ranked in the
+    device subjects. Returns (int32 rows, SENTINEL32 for a miss; the bytes
+    uploaded)."""
+    miss = int(us.SENTINEL32)
+    if int(uids.min()) >= 0 and int(uids.max()) <= miss:
+        u_d = torch.from_numpy(uids.astype(np.int32)).to(subjects_d.device)
+        return us.rank_of(subjects_d, u_d, miss), 4 * len(uids)
+    u_d = torch.from_numpy(np.ascontiguousarray(uids, np.int64)).to(
+        subjects_d.device)
+    fits = (u_d >= 0) & (u_d < miss)
+    rows_d = us.rank_of(subjects_d,
+                        torch.where(fits, u_d, 0).to(torch.int32), miss)
+    return torch.where(fits, rows_d, miss), 8 * len(uids)
 
 
 def _host_expand_matrix(indptr_h: np.ndarray, indices_h: np.ndarray,
@@ -310,10 +338,11 @@ def _expand_csr(csr: PredCSR, uids: np.ndarray, first: int = 0,
                 cutover: int = 0, want_dest: bool = True,
                 metrics=None) -> tuple[UidMatrix, int]:
     """uidMatrix for a frontier over one adjacency: exact degree sum counted
-    on the host indptr mirror, then the host gather (small, or a cold
-    tablet) or one device gather at a pow2 capacity class (large); both
-    give the same matrix. The device gather also dedups its targets on the
-    card into the matrix's dest (counted in metrics'
+    on the host indptr mirror (or, for a large frontier over a resident
+    tablet, on the card: _expand_rows_on_device), then the host gather
+    (small, or a cold tablet) or one device gather at a pow2 capacity
+    class (large); all give the same matrix. The device gather also dedups
+    its targets on the card into the matrix's dest (counted in metrics'
     dgraph_expand_dest_on_device_total), unless the caller reads no dest
     (want_dest False) or first truncates the rows. An overlaid adjacency
     (OverlayCSR) merges on read (_expand_overlay); a mesh-sharded one
@@ -340,8 +369,20 @@ def _expand_csr(csr: PredCSR, uids: np.ndarray, first: int = 0,
     if isinstance(csr, OverlayCSR):
         matrix, total = _expand_overlay(csr, uids, cutover)
         return apply_first(matrix, first), total
+    co = cutover or HOST_EXPAND_MAX
+    # a large frontier maps to rows on the card, from HOST_CUTOVER uids
+    # (the card's measured crossover for a searchsorted membership with
+    # its copies; on an H100 the map with its upload and read took 0.65 ms
+    # against the host's 0.85 ms at 2048 uids of a 547K-subject tablet,
+    # 1.26 against 20.6 ms at 300K); a cutover at or above the tablet's
+    # size keeps the host gather, and a cold tablet (a consult here: the
+    # host path below counts its serve) is never uploaded
+    if len(uids) >= us.HOST_CUTOVER and co < csr.num_edges \
+            and not csr.prefer_host():
+        return _expand_rows_on_device(csr, uids, first, co, want_dest,
+                                      metrics)
     rows, indptr_h, deg, need = _frontier_degrees(csr, uids)
-    if need <= (cutover or HOST_EXPAND_MAX) or _tier_prefer_host(csr):
+    if need <= co or _tier_prefer_host(csr):
         matrix = _host_expand_matrix(indptr_h, csr.host_arrays()[2], rows,
                                      deg, uids, need, cutover)
         return apply_first(matrix, first), need
@@ -354,32 +395,87 @@ def _expand_csr(csr: PredCSR, uids: np.ndarray, first: int = 0,
         matrix = _host_expand_matrix(indptr_h, csr.host_arrays()[2], rows,
                                      deg, uids, need, cutover)
         return apply_first(matrix, first), need
-    cap = 1 << max(int(np.ceil(np.log2(need + 1))), 4)
-    dest = None
-    with costs.kernel("csr.expand", need=need,
-                      cutover=int(cutover or HOST_EXPAND_MAX)) as ck:
+    with costs.kernel("csr.expand", need=need, cutover=int(co)) as ck:
         rows_d = torch.from_numpy(rows).to(csr.device)
-        res = csrops.expand(indptr_d, indices_d, rows_d, out_cap=cap)
-        total = int(res.total)                   # device sync point
-        flat_d = res.targets[:total]
-        targets = flat_d.cpu().numpy()
-        counts = res.counts.cpu().numpy()
-        d2h = res.total.element_size() + int(targets.nbytes) \
-            + int(counts.nbytes)
-        if want_dest and first == 0:
-            # the level's dest from the same gather, deduplicated on the
-            # card: only the set comes back beside the rows
-            dest_d, read = csrops.unique_targets(flat_d)
-            dest = dest_d.cpu().numpy().astype(np.int64)
-            d2h += read + int(dest_d.numel() * dest_d.element_size())
+        matrix, total, d2h = _gather_on_device(
+            indptr_d, indices_d, rows_d, need, want_dest and first == 0, ck)
         ck.set(h2d=int(rows.nbytes), d2h=d2h)
-        ck.annotate(edges=total)
-    if dest is not None and metrics is not None:
+    if matrix.dest is not None and metrics is not None:
         metrics.counter("dgraph_expand_dest_on_device_total").inc()
-    offs = np.zeros(len(uids) + 1, dtype=np.int64)
-    np.cumsum(counts[: len(uids)], out=offs[1:])
-    # the targets stay in the gather's dtype until a reader asks for rows
-    matrix = UidMatrix(targets, offs, dest)
+    return apply_first(matrix, first), total
+
+
+def _gather_on_device(indptr_d: torch.Tensor, indices_d: torch.Tensor,
+                      rows_d: torch.Tensor, need: int, want_dest: bool,
+                      ck) -> tuple[UidMatrix, int, int]:
+    """The device gather of a frontier's rows at a pow2 capacity class,
+    inside the caller's csr.expand seam `ck`: (the uidMatrix, the edge
+    total, the bytes read back). The targets stay in the gather's dtype
+    until a reader asks for rows; with want_dest the level's dest comes
+    from the same gather, deduplicated on the card, so only the set comes
+    back beside the rows."""
+    cap = 1 << max(int(np.ceil(np.log2(need + 1))), 4)
+    res = csrops.expand(indptr_d, indices_d, rows_d, out_cap=cap)
+    total = int(res.total)                       # device sync point
+    flat_d = res.targets[:total]
+    targets = flat_d.cpu().numpy()
+    counts = res.counts.cpu().numpy()
+    d2h = res.total.element_size() + int(targets.nbytes) + int(counts.nbytes)
+    dest = None
+    if want_dest:
+        dest_d, read = csrops.unique_targets(flat_d)
+        dest = dest_d.cpu().numpy().astype(np.int64)
+        d2h += read + int(dest_d.numel() * dest_d.element_size())
+    ck.annotate(edges=total)
+    offs = np.zeros(len(counts) + 1, dtype=np.int64)
+    np.cumsum(counts, out=offs[1:])
+    return UidMatrix(targets, offs, dest), total, d2h
+
+
+def _expand_rows_on_device(csr: PredCSR, uids: np.ndarray, first: int,
+                           co: int, want_dest: bool,
+                           metrics) -> tuple[UidMatrix, int]:
+    """_expand_csr's branch for a large frontier over a resident tablet:
+    the frontier's rows and their degree sum come from the device
+    subjects and indptr (one scalar read sizes the gather), not from a
+    binary search of the host mirror. At or below the cutover `co` the
+    rows come back (4 bytes a uid) for the host gather; above it the
+    device gather runs on the rows already on the card. Same matrix,
+    counts and total as the host map; counted in metrics'
+    dgraph_expand_rows_on_device_total."""
+    try:
+        subjects_d, indptr_d, indices_d = csr.device_arrays()
+    except FaultError:
+        # injected residency.h2d_upload fault: the host gather is
+        # byte-identical, the read never fails
+        _upload_fault_fallback(csr)
+        rows, indptr_h, deg, need = _frontier_degrees(csr, uids)
+        matrix = _host_expand_matrix(indptr_h, csr.host_arrays()[2], rows,
+                                     deg, uids, need, co)
+        return apply_first(matrix, first), need
+    rows = matrix = None
+    with costs.kernel("csr.expand", cutover=int(co)) as ck:
+        rows_d, h2d = _rows_on_device(subjects_d, uids)
+        need_d = csrops.degrees(indptr_d, rows_d).sum()
+        need = int(need_d)                       # the sync that sizes cap
+        ck.annotate(need=need, rows_on_device=True)
+        if need <= co:
+            rows = rows_d.cpu().numpy()
+            total, d2h = need, int(rows.nbytes)
+        else:
+            matrix, total, d2h = _gather_on_device(
+                indptr_d, indices_d, rows_d, need,
+                want_dest and first == 0, ck)
+        ck.set(h2d=h2d, d2h=need_d.element_size() + d2h)
+    if metrics is not None:
+        metrics.counter("dgraph_expand_rows_on_device_total").inc()
+        if matrix is not None and matrix.dest is not None:
+            metrics.counter("dgraph_expand_dest_on_device_total").inc()
+    if rows is not None:
+        indptr_h, indices_h = csr.host_arrays()[1:]
+        matrix = _host_expand_matrix(indptr_h, indices_h, rows,
+                                     _row_degrees(indptr_h, rows), uids,
+                                     need, co)
     return apply_first(matrix, first), total
 
 

@@ -299,34 +299,53 @@ def test_result_nbytes_reads_no_row_and_stays_within_the_old_estimate(
     assert got >= flat.nbytes + res.dest_uids.nbytes
 
 
-def _node_graph(node):
-    s, p, x = _random_csr(17, n=60, m=400)
+def _node_graph(node, n=60, m=400, k=6):
+    """Load a random graph; returns k subjects with a row (all the
+    subjects, empty rows too, where k is None)."""
+    s, p, x = _random_csr(17, n=n, m=m)
     quads = []
     for i, u in enumerate(s.tolist()):
         quads += [f"<0x{u:x}> <friend> <0x{int(v):x}> ."
                   for v in x[p[i]: p[i + 1]]]
     node.alter(schema_text=SCHEMA)
     node.mutate(set_nquads="\n".join(quads), commit_now=True)
-    return [int(u) for u in s[p[1:] > p[:-1]][:6]]
+    if k is None:
+        return [int(u) for u in s]
+    return [int(u) for u in s[p[1:] > p[:-1]][:k]]
 
 
-@pytest.mark.parametrize("first", [0, 1, -1])
-def test_batched_expand_gives_the_solo_columns(first, monkeypatch):
+@pytest.mark.parametrize("first,size", [
+    pytest.param(f, size, id=str(f) if size == "small" else f"{f}-{size}")
+    for size in ("small", "large") for f in (0, 1, -1)])
+def test_batched_expand_gives_the_solo_columns(first, size, monkeypatch):
+    """The batcher's expand (rows ranked on the host by its
+    classification) against the solo one; a large frontier's solo expand
+    maps its rows on the card (from uidset.HOST_CUTOVER uids)."""
     import threading
 
+    from dgraph_tpu_torch.ops import uidset as us
     from dgraph_tpu_torch.query.batch import DeviceBatcher
     monkeypatch.setattr(ttask, "HOST_EXPAND_MAX", 0)
     n = Node(device="cpu", planner=False, task_cache_mb=0,
              result_cache_mb=0)
     try:
-        seeds = _node_graph(n)
+        if size == "small":
+            seeds = _node_graph(n)
+        else:
+            seeds = _node_graph(n, n=2 * us.HOST_CUTOVER + 200,
+                                m=6 * us.HOST_CUTOVER, k=None)
+        half = len(seeds) // 2
         batcher = DeviceBatcher(n.dispatch_gate, n.metrics, window_ms=2000,
                                 max_batch=2, idle_fire=False)
         snap, schema = n.snapshot(), n.store.schema
         qs = [ttask.TaskQuery("friend", frontier=np.asarray(
             sorted(part), dtype=np.int64), first=first)
-            for part in (seeds[:3], seeds[3:])]
+            for part in (seeds[:half], seeds[half:])]
+        rows_on_card = snap.metrics.counter(
+            "dgraph_expand_rows_on_device_total")
+        c0 = rows_on_card.value
         want = [ttask.process_task(snap, q, schema) for q in qs]
+        assert rows_on_card.value - c0 == (2 if size == "large" else 0)
         got = [None, None]
         barrier = threading.Barrier(2)
 
