@@ -1,7 +1,7 @@
 """Batched multi-query device execution: amortize the fixed dispatch+sync.
 
 Port of dgraph_tpu/query/batch.py. Three families batch, as in JAX: expand
-(concatenated frontiers through one ops/csr.expand), vector (stacked query
+(concatenated frontiers through task.gather_on_device), vector (stacked query
 matrices through one ops/vector.topk_candidates_batch) and recurse (stacked
 seed masks through ops/pull_bfs.recurse_fused_multi, which runs K1/K2
 level-major for the whole batch). The JAX batch pads the stacked seed
@@ -29,9 +29,10 @@ scaling with concurrency. This module is the classic serving-stack answer
     execution (the host tails are the SAME functions the solo path runs:
     task.finish_uid_expand / task.set_similar_result).
   * Three kernel families batch:
-      expand  — concatenated frontiers through one ops/csr.expand (the
-                segment ids split the flat target stream back per source
-                slot);
+      expand  — concatenated frontiers through the solo expand's own
+                device gather (task.gather_on_device), classified by its
+                own route (task.expand_route); the counts split the flat
+                target stream back per task;
       vector  — stacked [B, D] query matrices through one top-k product
                 (ops/vector.topk_candidates_batch);
       recurse — stacked seed masks through the multi-source fused recurse
@@ -81,16 +82,15 @@ def kernel_klass(q) -> str:
 # ---------------------------------------------------------------------------
 
 class _ExpandWork:
-    """One classified device-class expand: the reverse-resolved task plus
-    the frontier's host-mirror first pass (rows/deg/need), shared with the
-    batched gather so classification work is never repeated."""
+    """One classified device-class expand: the reverse-resolved task and
+    its route (task.expand_route), whose host first pass, where it made
+    one, the batched gather uploads instead of ranking again."""
 
-    __slots__ = ("pd", "csr", "q", "frontier", "rows", "deg", "need")
+    __slots__ = ("pd", "csr", "q", "frontier", "route")
 
-    def __init__(self, pd, csr, q, frontier, rows, deg, need):
+    def __init__(self, pd, csr, q, frontier, route):
         self.pd, self.csr, self.q = pd, csr, q
-        self.frontier, self.rows, self.deg, self.need = \
-            frontier, rows, deg, need
+        self.frontier, self.route = frontier, route
 
 
 class _RecurseWork:
@@ -139,46 +139,31 @@ def classify(snap, schema, q):
 
 def _classify_expand(snap, schema, q):
     from dgraph_tpu_torch.query import task as taskmod
-    from dgraph_tpu_torch.storage.delta import OverlayCSR
     from dgraph_tpu_torch.utils.types import TypeID
 
-    attr, reverse = q.attr, q.reverse
-    if attr.startswith("~"):
-        attr, reverse = attr[1:], True
-    pd = snap.pred(attr)
+    q = taskmod.resolve_reverse(q)
+    pd = snap.pred(q.attr)
     if pd is None:
         return None, "no_pred", None
-    if not (pd.type_id == TypeID.UID or pd.csr is not None or reverse):
+    if not (pd.type_id == TypeID.UID or pd.csr is not None or q.reverse):
         return None, "value_pred", None
-    csr = pd.rev_csr if reverse else pd.csr
+    csr = pd.rev_csr if q.reverse else pd.csr
     if csr is None:
         return None, "empty_csr", None
-    if getattr(csr, "is_dist", False):
-        return None, "mesh_sharded", None
-    if isinstance(csr, OverlayCSR):
-        return None, "overlay", None
     frontier = np.asarray(q.frontier, dtype=np.int64)
-    if len(frontier) == 0:
-        return None, "empty_frontier", None
-    rows, _indptr_h, deg, need = taskmod._frontier_degrees(csr, frontier)
-    if need <= (q.cutover or taskmod.HOST_EXPAND_MAX):
-        return None, "host_path", None
-    # residency tier consult (storage/residency.py): a COLD tablet must
-    # not be uploaded by a batched kernel any more than by a solo one —
-    # the solo path serves it through the host gather (and counts the
-    # cold serve there; this is a consult, not a serve)
-    pf = getattr(csr, "prefer_host", None)
-    if pf is not None and pf():
-        return None, "cold_tier", None
-    # the reverse-resolved task process_task would execute (its rewrite)
-    cq = taskmod.TaskQuery(attr, frontier, q.func, reverse, q.lang,
-                           q.facet_keys, q.first, q.cutover)
+    # the solo path's own route, a consult: a cold tablet is no more
+    # uploaded by a batched kernel than by a solo one, and its cold serve
+    # is counted where the solo path serves it
+    route = taskmod.expand_route(csr, frontier, q.cutover)
+    if route.kind != "device":
+        return None, ("empty_frontier" if route.kind == "empty"
+                      else route.kind), None
     # id(csr) pins BOTH the tablet and the snapshot version: assemblers
     # replace (never mutate) CSR objects on any visible change, and the
     # work object holds a strong reference, so the id cannot be recycled
     # while the batch is open
     return ("expand", id(csr)), "expand", \
-        _ExpandWork(pd, csr, cq, frontier, rows, deg, need)
+        _ExpandWork(pd, csr, q, frontier, route)
 
 
 def _classify_vector(snap, schema, q):
@@ -519,71 +504,45 @@ class DeviceBatcher:
     # --------------------------------------------------------------- runners
 
     def _run_expand(self, entries: list[_Entry]) -> None:
-        """One ops/csr.expand over the concatenated frontiers; the flat
-        target stream splits back per task by the same per-slot offsets the
-        solo path uses, then task.finish_uid_expand runs the identical host
+        """task.gather_on_device over the concatenated frontiers, under
+        the gate; the flat targets split back per task by the counts that
+        come back, then task.finish_uid_expand runs the identical host
         tail per task — so each member's TaskResult is byte-identical to
         solo execution."""
-        import torch
-
-        from dgraph_tpu_torch.ops import csr as csrops
         from dgraph_tpu_torch.query import task as taskmod
-        from dgraph_tpu_torch.utils.faults import FaultError
 
-        csr = entries[0].work.csr
-        rows_cat = np.concatenate([e.work.rows for e in entries])
-        total = int(sum(e.work.need for e in entries))
-        cap = 1 << max(int(np.ceil(np.log2(total + 1))), 4)
-        nbatch = len(entries)
-
-        def kernel():
-            res = csrops.expand(csr.indptr, csr.indices,
-                                torch.from_numpy(rows_cat).to(csr.device),
-                                out_cap=cap)
-            tot = int(res.total)            # device sync point
-            return (res.targets[:tot].cpu().numpy(),
-                    res.total.element_size())
-
-        try:
-            with costs.kernel("batch.expand", charge=False, need=total,
-                              batch=nbatch) as ck:
-                (targets, tot_bytes), dt_ms = self._timed_gate_run(
-                    kernel, "expand")
-                d2h = tot_bytes + int(targets.nbytes)
-                self._charge(entries, "batch.expand", dt_ms,
-                             weights=[float(e.work.need) for e in entries],
-                             h2d=int(rows_cat.nbytes), d2h=d2h)
-                ck.set(h2d=int(rows_cat.nbytes), d2h=d2h)
-                ck.annotate(edges=total)
-            targets = targets.astype(np.int64)
-        except FaultError:
-            # injected residency.h2d_upload fault at the batched upload
-            # seam: the host gather is byte-identical per slot (the same
-            # fallback the solo path performs), so the batch members get
-            # correct results instead of a shared typed failure
-            taskmod._upload_fault_fallback(csr)
-            _subs_h, indptr_h, indices_h = csr.host_arrays()
-            parts = []
-            for e in entries:
-                w = e.work
-                offs = np.zeros(len(w.frontier) + 1, dtype=np.int64)
-                np.cumsum(w.deg, out=offs[1:])
-                parts.append(taskmod._gather_rows_host(
-                    indptr_h, indices_h, w.rows, w.deg, offs))
-            targets = np.concatenate(parts) if parts \
-                else np.zeros(0, np.int64)
-        base = 0
-        for e in entries:
+        works = [e.work for e in entries]
+        csr = works[0].csr
+        uids = np.concatenate([w.frontier for w in works])
+        routes = [w.route for w in works]
+        # the members' host rows go up where every route carries them;
+        # else the card ranks the concatenated frontier as a whole
+        route = taskmod.ExpandRoute("device") \
+            if any(r.rows is None for r in routes) else taskmod.ExpandRoute(
+                "device", np.concatenate([r.rows for r in routes]),
+                np.concatenate([r.deg for r in routes]),
+                sum(r.need for r in routes))
+        with costs.kernel("batch.expand", charge=False,
+                          batch=len(entries)) as ck:
+            (matrix, _total, h2d, d2h), dt_ms = self._timed_gate_run(
+                lambda: taskmod.gather_on_device(csr, uids, route, None,
+                                                 False, ck=ck), "expand")
+            # each member's first slot, and its first edge, in the batch
+            slot = np.cumsum([0] + [len(w.frontier) for w in works])
+            edge = matrix.offsets[slot]
+            self._charge(entries, "batch.expand", dt_ms,
+                         weights=np.diff(edge).astype(float).tolist(),
+                         h2d=h2d, d2h=d2h)
+        flat, offs = matrix.flat, matrix.offsets
+        for i, e in enumerate(entries):
             w = e.work
-            sl = targets[base: base + w.need]
-            base += w.need
-            offs = np.zeros(len(w.frontier) + 1, dtype=np.int64)
-            np.cumsum(w.deg, out=offs[1:])
-            matrix = taskmod.apply_first(taskmod.UidMatrix(sl, offs),
-                                         w.q.first)
+            part = taskmod.UidMatrix(flat[edge[i]: edge[i + 1]],
+                                     offs[slot[i]: slot[i + 1] + 1] - edge[i])
             try:
                 e.result = taskmod.finish_uid_expand(
-                    w.pd, w.q, w.frontier, matrix, w.need)
+                    w.pd, w.q, w.frontier,
+                    taskmod.apply_first(part, w.q.first),
+                    int(part.offsets[-1]))
             except BaseException as err:
                 # a poisoned task fails typed; the rest of the batch is
                 # unaffected (its expansion was independent by slot)

@@ -15,11 +15,13 @@ The per-uid pointer walk is one batched CSR gather (ops/csr.expand) over the
 predicate's device adjacency, or a host-mirror gather below HOST_EXPAND_MAX
 edges. A frontier of uidset.HOST_CUTOVER uids or more maps to CSR rows on
 the card (the device subjects and indptr), a smaller one by a binary
-search of the host mirror. Every path keeps the level's uidMatrix as
-columns (UidMatrix: flat targets and row offsets), and the device gather
-dedups the level's dest set on the card beside it
-(ops/csr.unique_targets); rows are views cut, and the targets cast to
-int64, only where a reader asks for them. Over a delta overlay
+search of the host mirror. expand_route is the one decision of the path,
+for the solo expand and the batcher's classification (query/batch.py)
+alike, and gather_on_device the one device gather of both. Every path
+keeps the level's uidMatrix as columns (UidMatrix: flat targets and row
+offsets), and the device gather dedups the level's dest set on the card
+beside it (ops/csr.unique_targets); rows are views cut, and the targets
+cast to int64, only where a reader asks for them. Over a delta overlay
 (storage/delta.OverlayCSR) the base's rows come from the same two paths
 (ops/csr.expand_masked on the device) and the overlay's replacement rows
 are spliced in. Index functions pick token rows on the host (the term
@@ -38,7 +40,9 @@ from __future__ import annotations
 
 import bisect
 import re as remod
-from dataclasses import dataclass, field
+from contextlib import nullcontext
+from dataclasses import dataclass, field, replace
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -191,13 +195,11 @@ def rows_for_uids(csr: PredCSR, uids: np.ndarray) -> np.ndarray:
 
 
 def _frontier_degrees(csr, uids: np.ndarray):
-    """(rows, indptr_h, deg, need) for a frontier over one adjacency's host
-    mirrors — the host first pass of the size-adaptive expand branches
-    (and of the batcher's classification)."""
+    """(rows, deg, need) for a frontier over one adjacency's host mirrors:
+    the host first pass of a size-adaptive expand."""
     rows = rows_for_uids(csr, uids)
-    indptr_h = csr.host_arrays()[1]
-    deg = _row_degrees(indptr_h, rows)
-    return rows, indptr_h, deg, int(deg.sum())
+    deg = _row_degrees(csr.host_arrays()[1], rows)
+    return rows, deg, int(deg.sum())
 
 
 def _row_degrees(indptr_h: np.ndarray, rows: np.ndarray) -> np.ndarray:
@@ -227,15 +229,22 @@ def _rows_on_device(subjects_d: torch.Tensor,
     return torch.where(fits, rows_d, miss), 8 * len(uids)
 
 
-def _host_expand_matrix(indptr_h: np.ndarray, indices_h: np.ndarray,
-                        rows: np.ndarray, deg: np.ndarray, uids: np.ndarray,
-                        need: int, cutover: int) -> UidMatrix:
-    """Below-cutover (or cold-tier) uidMatrix straight from the host
-    mirrors."""
-    otrace.event("host_expand", need=need,
-                 cutover=int(cutover or HOST_EXPAND_MAX))
+def _host_expand_matrix(csr, uids: np.ndarray, rows: np.ndarray | None,
+                        deg: np.ndarray | None,
+                        cutover: int | None) -> UidMatrix:
+    """The uidMatrix of a frontier from the host mirrors: below the
+    cutover, on a cold tablet, after an upload fault, or on rows the card
+    mapped and read back. Ranks the frontier on the host where `rows` is
+    None, and reads the degrees where `deg` is."""
+    _, indptr_h, indices_h = csr.host_arrays()
+    if rows is None:
+        rows, deg, _need = _frontier_degrees(csr, uids)
+    elif deg is None:
+        deg = _row_degrees(indptr_h, rows)
     offs = np.zeros(len(uids) + 1, dtype=np.int64)
     np.cumsum(deg, out=offs[1:])
+    otrace.event("host_expand", need=int(offs[-1]),
+                 cutover=int(cutover or HOST_EXPAND_MAX))
     return UidMatrix(_gather_rows_host(indptr_h, indices_h, rows, deg, offs),
                      offs)
 
@@ -252,31 +261,97 @@ def _gather_rows_host(indptr_h: np.ndarray, indices_h: np.ndarray,
     return indices_h[pos].astype(np.int64)
 
 
-def _tier_prefer_host(csr) -> bool:
-    """Residency tier consult (storage/residency.py): True when the tablet
-    is COLD — its device footprint exceeds the node's whole device budget —
-    so the read takes the host-mirror path at any size. Unmanaged owners
-    never prefer host. This sits at the serve sites (expand, overlay,
-    index union), so a True counts one cold serve; consult-only callers
-    (the batcher's classification) use owner.prefer_host() directly."""
-    f = getattr(csr, "prefer_host", None)
+def _host_reason(owner, need: int, cutover: int = 0,
+                 serve: bool = True) -> str | None:
+    """The host-or-device rule for a gather of `need` edges (or index
+    uids) from one owner: "host_path" at or below the cutover (0 =
+    HOST_EXPAND_MAX), "cold_tier" above it on an owner the residency tier
+    holds COLD (storage/residency.py: its device footprint exceeds the
+    node's whole budget), None for the device. A caller that serves the
+    read on the host now (serve) counts the cold serve; a consult
+    (expand_route) counts none. Unmanaged owners are never cold."""
+    if need <= (cutover or HOST_EXPAND_MAX):
+        return "host_path"
+    f = getattr(owner, "prefer_host", None)
     if f is None or not f():
-        return False
-    mgr = getattr(csr, "_res", None)
+        return None
+    if serve:
+        _note_cold_serve(owner)
+    return "cold_tier"
+
+
+def _note_cold_serve(owner) -> None:
+    mgr = getattr(owner, "_res", None)
     if mgr is not None:
         mgr.note_cold_serve()
-    return True
 
 
-def _upload_fault_fallback(csr) -> None:
-    """An injected residency.h2d_upload fault surfaced mid-expand: count it
-    and let the caller serve the byte-identical host gather. Only the
-    injected faults.FaultError reaches here: a real CUDA error or an
+def _device_arrays(owner) -> tuple | None:
+    """The owner's device arrays (uploaded at first use), or None after an
+    injected residency.h2d_upload fault, counted in
+    dgraph_residency_host_fallbacks_total: the caller serves the
+    byte-identical host answer, so the read never fails. Only the
+    injected faults.FaultError comes here: a real CUDA error or an
     out-of-memory on upload raises to the caller."""
-    mgr = getattr(csr, "_res", None)
-    if mgr is not None:
-        mgr.metrics.counter(
-            "dgraph_residency_host_fallbacks_total").inc()
+    try:
+        return owner.device_arrays()
+    except FaultError:
+        mgr = getattr(owner, "_res", None)
+        if mgr is not None:
+            mgr.metrics.counter(
+                "dgraph_residency_host_fallbacks_total").inc()
+        return None
+
+
+class ExpandRoute(NamedTuple):
+    """The path a uid expand takes (expand_route), with the host first
+    pass (rows, deg, need) where the route computed one."""
+
+    # empty, mesh_sharded, overlay, cold_tier, host_path or device
+    kind: str
+    rows: np.ndarray | None = None
+    deg: np.ndarray | None = None
+    need: int | None = None
+
+
+def expand_route(csr, uids: np.ndarray, cutover: int = 0) -> ExpandRoute:
+    """Which path an expand of `uids` over `csr` takes: the one decision
+    behind the solo expand (_expand_csr) and the batcher's classification
+    (query/batch.py). A consult: it uploads nothing and counts no cold
+    serve.
+
+    A frontier of uidset.HOST_CUTOVER uids or more over a tablet the tier
+    does not hold cold, under a cutover below its edge count, is `device`
+    with nothing ranked on the host: the card maps it to rows and learns
+    its degree sum (gather_on_device). That is the card's measured
+    crossover for a searchsorted membership with its copies: on an H100
+    the map with its upload and read took 0.65 ms against the host's 0.85
+    ms at 2048 uids of a 547K-subject tablet, 1.26 against 20.6 ms at
+    300K. A cutover at or above the tablet's edge count is `host_path`
+    unranked. A smaller frontier is ranked on the host and takes
+    _host_reason's answer, else `device`."""
+    if csr is None or len(uids) == 0:
+        return ExpandRoute("empty")
+    if getattr(csr, "is_dist", False):
+        return ExpandRoute("mesh_sharded")
+    if isinstance(csr, OverlayCSR):
+        return ExpandRoute("overlay")
+    co = cutover or HOST_EXPAND_MAX
+    if co >= csr.num_edges:
+        return ExpandRoute("host_path")
+    if len(uids) >= us.HOST_CUTOVER and not csr.prefer_host():
+        return ExpandRoute("device")
+    rows, deg, need = _frontier_degrees(csr, uids)
+    kind = _host_reason(csr, need, cutover, serve=False) or "device"
+    return ExpandRoute(kind, rows, deg, need)
+
+
+def resolve_reverse(q: TaskQuery) -> TaskQuery:
+    """`~attr` as process_task runs it: attr without the "~" and reverse
+    set, every other field kept (the planner's cutover too)."""
+    if not q.attr.startswith("~"):
+        return q
+    return replace(q, attr=q.attr[1:], reverse=True)
 
 
 def _expand_overlay(ov, uids: np.ndarray,
@@ -295,39 +370,28 @@ def _expand_overlay(ov, uids: np.ndarray,
     base = ov.base
     if base is None or need_base == 0:
         base_targets = np.zeros(0, np.int64)
-    elif need_base <= (cutover or HOST_EXPAND_MAX) \
-            or _tier_prefer_host(base):
+    elif _host_reason(base, need_base, cutover) \
+            or (dev := _device_arrays(base)) is None:
         _, indptr_h, indices_h = base.host_arrays()
         base_targets = _gather_rows_host(indptr_h, indices_h, rb, deg_b,
                                          offs)
     else:
+        _, indptr_d, indices_d = dev
         cap = 1 << max(int(np.ceil(np.log2(need_base + 1))), 4)
-        try:
-            indptr_d, indices_d = base.indptr, base.indices
-        except FaultError:
-            # injected residency.h2d_upload fault: the host gather is
-            # byte-identical by the size-adaptive-strategy contract
-            _upload_fault_fallback(base)
-            indptr_d = None
-        if indptr_d is None:
-            _, indptr_h, indices_h = base.host_arrays()
-            base_targets = _gather_rows_host(indptr_h, indices_h, rb,
-                                             deg_b, offs)
-        else:
-            keep = ro >= 0
-            with costs.kernel("csr.expand_masked", need=need_base,
-                              cutover=int(cutover or HOST_EXPAND_MAX)) as ck:
-                res = csrops.expand_masked(
-                    indptr_d, indices_d,
-                    torch.from_numpy(rb).to(base.device),
-                    torch.from_numpy(keep).to(base.device), out_cap=cap)
-                # one D2H, which is also the sync that lands the kernel's
-                # time in this span
-                targets_h = res.targets.cpu().numpy()
-                ck.set(h2d=int(rb.nbytes + keep.nbytes),
-                       d2h=int(targets_h.nbytes))
-                ck.annotate(edges=need_base)
-            base_targets = targets_h[:need_base].astype(np.int64)
+        keep = ro >= 0
+        with costs.kernel("csr.expand_masked", need=need_base,
+                          cutover=int(cutover or HOST_EXPAND_MAX)) as ck:
+            res = csrops.expand_masked(
+                indptr_d, indices_d,
+                torch.from_numpy(rb).to(base.device),
+                torch.from_numpy(keep).to(base.device), out_cap=cap)
+            # one D2H, which is also the sync that lands the kernel's
+            # time in this span
+            targets_h = res.targets.cpu().numpy()
+            ck.set(h2d=int(rb.nbytes + keep.nbytes),
+                   d2h=int(targets_h.nbytes))
+            ck.annotate(edges=need_base)
+        base_targets = targets_h[:need_base].astype(np.int64)
     matrix = [base_targets[offs[i]: offs[i + 1]] for i in range(len(uids))]
     for i in np.flatnonzero(ro >= 0).tolist():
         matrix[i] = ov.delta.rows[ro[i]]
@@ -337,146 +401,110 @@ def _expand_overlay(ov, uids: np.ndarray,
 def _expand_csr(csr: PredCSR, uids: np.ndarray, first: int = 0,
                 cutover: int = 0, want_dest: bool = True,
                 metrics=None) -> tuple[UidMatrix, int]:
-    """uidMatrix for a frontier over one adjacency: exact degree sum counted
-    on the host indptr mirror (or, for a large frontier over a resident
-    tablet, on the card: _expand_rows_on_device), then the host gather
-    (small, or a cold tablet) or one device gather at a pow2 capacity
-    class (large); all give the same matrix. The device gather also dedups
-    its targets on the card into the matrix's dest (counted in metrics'
-    dgraph_expand_dest_on_device_total), unless the caller reads no dest
-    (want_dest False) or first truncates the rows. An overlaid adjacency
-    (OverlayCSR) merges on read (_expand_overlay); a mesh-sharded one
-    gathers over its mesh.
+    """uidMatrix for a frontier over one adjacency, on the path
+    expand_route picks: the host gather (small, or a cold tablet), the
+    device gather (gather_on_device), the merge on read of an overlaid
+    adjacency (OverlayCSR: _expand_overlay), or the mesh of a
+    mesh-sharded one; all give the same matrix. The device gather also
+    dedups its targets on the card into the matrix's dest (counted in
+    metrics' dgraph_expand_dest_on_device_total), unless the caller reads
+    no dest (want_dest False) or first truncates the rows.
 
     cutover: the planner's override of the host/device switch point (0 =
     HOST_EXPAND_MAX)."""
-    if len(uids) == 0 or csr is None:
+    route = expand_route(csr, uids, cutover)
+    if route.kind == "empty":
         return UidMatrix.empty(len(uids)), 0
-    if getattr(csr, "is_dist", False):
-        # mesh-sharded tablet: the SAME size-adaptive host/device cutover
-        # as the resident path — a small frontier gathers from the host
-        # mirrors; past the cutover the expand runs over the owning mesh
-        # (parallel/dist.DistPredCSR)
-        rows, indptr_h, deg, need = _frontier_degrees(csr, uids)
-        if need <= (cutover or HOST_EXPAND_MAX):
-            matrix = _host_expand_matrix(indptr_h, csr.host_arrays()[2],
-                                         rows, deg, uids, need, cutover)
-            total = need
-        else:
-            rows_l, total = csr.expand_matrix(uids)
-            matrix = UidMatrix.from_rows(rows_l)
-        return apply_first(matrix, first), total
-    if isinstance(csr, OverlayCSR):
+    if route.kind == "overlay":
         matrix, total = _expand_overlay(csr, uids, cutover)
         return apply_first(matrix, first), total
-    co = cutover or HOST_EXPAND_MAX
-    # a large frontier maps to rows on the card, from HOST_CUTOVER uids
-    # (the card's measured crossover for a searchsorted membership with
-    # its copies; on an H100 the map with its upload and read took 0.65 ms
-    # against the host's 0.85 ms at 2048 uids of a 547K-subject tablet,
-    # 1.26 against 20.6 ms at 300K); a cutover at or above the tablet's
-    # size keeps the host gather, and a cold tablet (a consult here: the
-    # host path below counts its serve) is never uploaded
-    if len(uids) >= us.HOST_CUTOVER and co < csr.num_edges \
-            and not csr.prefer_host():
-        return _expand_rows_on_device(csr, uids, first, co, want_dest,
-                                      metrics)
-    rows, indptr_h, deg, need = _frontier_degrees(csr, uids)
-    if need <= co or _tier_prefer_host(csr):
-        matrix = _host_expand_matrix(indptr_h, csr.host_arrays()[2], rows,
-                                     deg, uids, need, cutover)
-        return apply_first(matrix, first), need
-    try:
-        indptr_d, indices_d = csr.indptr, csr.indices
-    except FaultError:
-        # injected residency.h2d_upload fault: the host gather is
-        # byte-identical, the read never fails
-        _upload_fault_fallback(csr)
-        matrix = _host_expand_matrix(indptr_h, csr.host_arrays()[2], rows,
-                                     deg, uids, need, cutover)
-        return apply_first(matrix, first), need
-    with costs.kernel("csr.expand", need=need, cutover=int(co)) as ck:
-        rows_d = torch.from_numpy(rows).to(csr.device)
-        matrix, total, d2h = _gather_on_device(
-            indptr_d, indices_d, rows_d, need, want_dest and first == 0, ck)
-        ck.set(h2d=int(rows.nbytes), d2h=d2h)
-    if matrix.dest is not None and metrics is not None:
-        metrics.counter("dgraph_expand_dest_on_device_total").inc()
-    return apply_first(matrix, first), total
+    if route.kind == "mesh_sharded":
+        # the same size-adaptive rule as a resident tablet: a small
+        # frontier gathers from the host mirrors; past the cutover the
+        # expand runs over the owning mesh (parallel/dist.DistPredCSR)
+        route = ExpandRoute("host_path", *_frontier_degrees(csr, uids))
+        if not _host_reason(csr, route.need, cutover):
+            rows_l, total = csr.expand_matrix(uids)
+            return apply_first(UidMatrix.from_rows(rows_l), first), total
+    if route.kind == "device":
+        matrix, total, _h2d, _d2h = gather_on_device(
+            csr, uids, route, cutover or HOST_EXPAND_MAX,
+            want_dest and first == 0, metrics)
+        return apply_first(matrix, first), total
+    if route.kind == "cold_tier":
+        _note_cold_serve(csr)
+    matrix = _host_expand_matrix(csr, uids, route.rows, route.deg, cutover)
+    return apply_first(matrix, first), int(matrix.offsets[-1])
 
 
-def _gather_on_device(indptr_d: torch.Tensor, indices_d: torch.Tensor,
-                      rows_d: torch.Tensor, need: int, want_dest: bool,
-                      ck) -> tuple[UidMatrix, int, int]:
-    """The device gather of a frontier's rows at a pow2 capacity class,
-    inside the caller's csr.expand seam `ck`: (the uidMatrix, the edge
-    total, the bytes read back). The targets stay in the gather's dtype
-    until a reader asks for rows; with want_dest the level's dest comes
-    from the same gather, deduplicated on the card, so only the set comes
-    back beside the rows."""
-    cap = 1 << max(int(np.ceil(np.log2(need + 1))), 4)
-    res = csrops.expand(indptr_d, indices_d, rows_d, out_cap=cap)
-    total = int(res.total)                       # device sync point
-    flat_d = res.targets[:total]
-    targets = flat_d.cpu().numpy()
-    counts = res.counts.cpu().numpy()
-    d2h = res.total.element_size() + int(targets.nbytes) + int(counts.nbytes)
-    dest = None
-    if want_dest:
-        dest_d, read = csrops.unique_targets(flat_d)
-        dest = dest_d.cpu().numpy().astype(np.int64)
-        d2h += read + int(dest_d.numel() * dest_d.element_size())
-    ck.annotate(edges=total)
-    offs = np.zeros(len(counts) + 1, dtype=np.int64)
-    np.cumsum(counts, out=offs[1:])
-    return UidMatrix(targets, offs, dest), total, d2h
+def gather_on_device(csr: PredCSR, uids: np.ndarray, route: ExpandRoute,
+                     cutover: int | None, want_dest: bool, metrics=None,
+                     ck=None) -> tuple[UidMatrix, int, int, int]:
+    """The device gather of a frontier over a plain tablet: one query's
+    (_expand_csr), or a batch's frontiers concatenated (query/batch.py).
+    Returns (the uidMatrix, the edge total, the bytes up, the bytes back).
 
-
-def _expand_rows_on_device(csr: PredCSR, uids: np.ndarray, first: int,
-                           co: int, want_dest: bool,
-                           metrics) -> tuple[UidMatrix, int]:
-    """_expand_csr's branch for a large frontier over a resident tablet:
-    the frontier's rows and their degree sum come from the device
-    subjects and indptr (one scalar read sizes the gather), not from a
-    binary search of the host mirror. At or below the cutover `co` the
-    rows come back (4 bytes a uid) for the host gather; above it the
-    device gather runs on the rows already on the card. Same matrix,
-    counts and total as the host map; counted in metrics'
-    dgraph_expand_rows_on_device_total."""
-    try:
-        subjects_d, indptr_d, indices_d = csr.device_arrays()
-    except FaultError:
-        # injected residency.h2d_upload fault: the host gather is
-        # byte-identical, the read never fails
-        _upload_fault_fallback(csr)
-        rows, indptr_h, deg, need = _frontier_degrees(csr, uids)
-        matrix = _host_expand_matrix(indptr_h, csr.host_arrays()[2], rows,
-                                     deg, uids, need, co)
-        return apply_first(matrix, first), need
-    rows = matrix = None
-    with costs.kernel("csr.expand", cutover=int(co)) as ck:
-        rows_d, h2d = _rows_on_device(subjects_d, uids)
-        need_d = csrops.degrees(indptr_d, rows_d).sum()
-        need = int(need_d)                       # the sync that sizes cap
-        ck.annotate(need=need, rows_on_device=True)
-        if need <= co:
-            rows = rows_d.cpu().numpy()
-            total, d2h = need, int(rows.nbytes)
-        else:
-            matrix, total, d2h = _gather_on_device(
-                indptr_d, indices_d, rows_d, need,
-                want_dest and first == 0, ck)
-        ck.set(h2d=h2d, d2h=need_d.element_size() + d2h)
-    if metrics is not None:
-        metrics.counter("dgraph_expand_rows_on_device_total").inc()
-        if matrix is not None and matrix.dest is not None:
-            metrics.counter("dgraph_expand_dest_on_device_total").inc()
-    if rows is not None:
-        indptr_h, indices_h = csr.host_arrays()[1:]
-        matrix = _host_expand_matrix(indptr_h, indices_h, rows,
-                                     _row_degrees(indptr_h, rows), uids,
-                                     need, co)
-    return apply_first(matrix, first), total
+    The route's host rows go up where it carries them; else the card
+    ranks the frontier in the device subjects and one scalar read of the
+    degree sum sizes the gather (counted in metrics'
+    dgraph_expand_rows_on_device_total). At or below `cutover` (None: a
+    batch, gathered whatever the sum) the rows come back for the host
+    gather; above it one gather at a pow2 capacity class, whose targets
+    stay in its dtype until a reader asks for rows. With want_dest the
+    level's dest comes from the same gather, deduplicated on the card, so
+    only the set comes back beside the rows. An injected upload fault
+    takes the host gather. The device work runs inside the caller's
+    costs.kernel seam `ck` (a batch's), else inside a csr.expand seam of
+    its own; the seam takes the bytes."""
+    dev = _device_arrays(csr)
+    rows, matrix, h2d, d2h = route.rows, None, 0, 0
+    if dev is not None:
+        subjects_d, indptr_d, indices_d = dev
+        seam = costs.kernel("csr.expand", cutover=cutover) \
+            if ck is None else nullcontext(ck)
+        with seam as ck:
+            if rows is None:
+                rows_d, h2d = _rows_on_device(subjects_d, uids)
+                need_d = csrops.degrees(indptr_d, rows_d).sum()
+                need = int(need_d)               # the sync that sizes cap
+                d2h = need_d.element_size()
+                ck.annotate(need=need, rows_on_device=True)
+                if metrics is not None:
+                    metrics.counter(
+                        "dgraph_expand_rows_on_device_total").inc()
+            else:
+                rows_d = torch.from_numpy(rows).to(csr.device)
+                h2d, need = int(rows.nbytes), route.need
+                ck.annotate(need=need)
+            if cutover is not None and need <= cutover:
+                rows = rows_d.cpu().numpy()
+                d2h += int(rows.nbytes)
+            else:
+                cap = 1 << max(int(np.ceil(np.log2(need + 1))), 4)
+                res = csrops.expand(indptr_d, indices_d, rows_d,
+                                    out_cap=cap)
+                total = int(res.total)           # device sync point
+                flat_d = res.targets[:total]
+                targets = flat_d.cpu().numpy()
+                counts = res.counts.cpu().numpy()
+                d2h += res.total.element_size() + int(targets.nbytes) \
+                    + int(counts.nbytes)
+                dest = None
+                if want_dest:
+                    dest_d, read = csrops.unique_targets(flat_d)
+                    dest = dest_d.cpu().numpy().astype(np.int64)
+                    d2h += read + int(dest_d.numel() * dest_d.element_size())
+                    if metrics is not None:
+                        metrics.counter(
+                            "dgraph_expand_dest_on_device_total").inc()
+                ck.annotate(edges=total)
+                offs = np.zeros(len(counts) + 1, dtype=np.int64)
+                np.cumsum(counts, out=offs[1:])
+                matrix = UidMatrix(targets, offs, dest)
+            ck.set(h2d=h2d, d2h=d2h)
+    if matrix is None:
+        matrix = _host_expand_matrix(csr, uids, rows, route.deg, cutover)
+    return matrix, int(matrix.offsets[-1]), h2d, d2h
 
 
 def apply_first(matrix: UidMatrix, first: int) -> UidMatrix:
@@ -511,14 +539,9 @@ def _index_uids_for_rows(ti: TokenIndex, rows: list[int]) -> np.ndarray:
         return np.unique(np.concatenate(parts))
 
     costs.add_rows(total)
-    if total <= HOST_EXPAND_MAX or _tier_prefer_host(ti):
+    if _host_reason(ti, total) or (dev := _device_arrays(ti)) is None:
         return host_union()
-    try:
-        indptr_d, uids_d = ti.indptr, ti.uids
-    except FaultError:
-        # injected residency.h2d_upload fault: host merge, byte-identical
-        _upload_fault_fallback(ti)
-        return host_union()
+    indptr_d, uids_d = dev
     cap = int(indptr_h[-1]) or 1
     with costs.kernel("csr.expand_dest", need=total, rows=len(rows)) as ck:
         rows_arr = us.make_set(np.asarray(rows, dtype=np.int32),
@@ -631,11 +654,8 @@ def _eq_candidates(pd: PredData, schema, v: Val) -> np.ndarray:
 def process_task(snap: GraphSnapshot, q: TaskQuery,
                  schema: SchemaState) -> TaskResult:
     """Execute one task against a snapshot (reference worker/task.go:605)."""
+    q = resolve_reverse(q)
     attr = q.attr
-    if attr.startswith("~"):
-        attr = attr[1:]
-        q = TaskQuery(attr, q.frontier, q.func, True, q.lang, q.facet_keys,
-                      q.first)
     pd = snap.pred(attr) or PredData(attr, schema.type_of(attr))
     res = TaskResult()
 

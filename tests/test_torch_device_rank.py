@@ -1,5 +1,6 @@
 """A large frontier's CSR rows mapped on the card (query/task.py
-_expand_rows_on_device), on the CPU.
+gather_on_device), and the one expand route (task.expand_route) the solo
+expand and the batcher's classification share, on the CPU.
 
 From uidset.HOST_CUTOVER frontier uids, over a resident plain PredCSR and
 under a cutover below the tablet's size, the expand ranks the frontier in
@@ -16,7 +17,15 @@ of the host mirror's binary search. Against the host map:
   fallback;
 - a cutover above the mapped degree sum takes the host gather with the
   rows read back, with equal answers.
+
+The route's kinds, each with the batch classification's miss reason or
+`expand`; a large frontier classified and batched with nothing ranked on
+the host, its batched answers equal to process_task's alone, also under
+an injected upload fault; and a `~attr` task that keeps the planner's
+host pin.
 """
+
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -24,6 +33,7 @@ import torch
 
 from dgraph_tpu_torch import carry
 from dgraph_tpu_torch.ops import uidset as us
+from dgraph_tpu_torch.query import batch as tbatch
 from dgraph_tpu_torch.query import groupby as tgroupby
 from dgraph_tpu_torch.query import task as ttask
 from dgraph_tpu_torch.storage import csr_build as tcb
@@ -272,3 +282,148 @@ def test_a_cutover_above_the_mapped_need_takes_the_host_gather(monkeypatch):
     got2, total2, metrics2 = _expand(_csr(arrays), uids, cutover=need - 1)
     assert metrics2.counter(DEST_ON_DEVICE).value == 1
     assert got2.flat.tolist() == want.flat.tolist() and total2 == need
+
+
+# ---------------------------------------------------------------------------
+# one route for the solo expand and the batcher
+# ---------------------------------------------------------------------------
+
+# case: (expand_route's kind, whether the route ranked on the host)
+ROUTES = {
+    "empty": ("empty", False),
+    "mesh": ("mesh_sharded", False),
+    "overlay": ("overlay", False),
+    "cold": ("cold_tier", True),
+    "cutover_at_edges": ("host_path", False),
+    "small_host": ("host_path", True),
+    "small_device": ("device", True),
+    "large": ("device", False),
+}
+
+
+def _route_case(case):
+    """(csr, frontier, cutover) of one expand_route case."""
+    arrays = _arrays()
+    csr, uids = _csr(arrays), _frontier("sorted")[:40]
+    need = _want(arrays, uids, 0)[1]
+    cutover = {"small_host": need, "cutover_at_edges": len(arrays[2]),
+               "large": 1}.get(case, need - 1)
+    if case == "empty":
+        uids = uids[:0]
+    if case == "mesh":
+        csr = SimpleNamespace(is_dist=True)
+    if case == "overlay":
+        csr = _overlay()
+    if case == "cold":
+        csr, _mgr = _managed(16)
+    if case == "large":
+        uids = _frontier("unsorted")
+    return csr, uids, cutover
+
+
+@pytest.mark.parametrize("case", list(ROUTES))
+def test_expand_route_and_the_batch_classification_agree(case):
+    csr, uids, cutover = _route_case(case)
+    route = ttask.expand_route(csr, uids, cutover)
+    kind, ranked = ROUTES[case]
+    assert route.kind == kind
+    assert (route.rows is not None) == ranked
+    if ranked:
+        rows, need = _want(csr.host_arrays(), uids, 0)
+        assert route.need == need == int(route.deg.sum())
+        assert route.deg.tolist() == [len(r) for r in rows]
+    snap = _snap(_arrays())
+    snap.pred("friend").csr = csr
+    key, reason, work = tbatch.classify(
+        snap, tschema.SchemaState(),
+        ttask.TaskQuery("friend", frontier=uids, cutover=cutover))
+    want = {"empty": "empty_frontier", "device": "expand"}.get(kind, kind)
+    assert reason == want
+    assert (key is not None) == (kind == "device")
+    if key is not None:
+        assert work.route.kind == "device" and work.csr is csr
+    if case == "cold":
+        # both are consults: nothing uploaded, no cold serve counted
+        assert not csr.device_resident()
+        assert csr._res.metrics.counter(
+            "dgraph_residency_cold_serves_total").value == 0
+
+
+def _no_host_rank(*_a, **_k):
+    raise AssertionError("a frontier was ranked on the host")
+
+
+def test_a_large_frontier_classifies_without_a_host_rank(monkeypatch):
+    snap = _snap(_arrays())
+    monkeypatch.setattr(us, "host_rank_of", _no_host_rank)
+    key, kind, work = tbatch.classify(
+        snap, tschema.SchemaState(),
+        ttask.TaskQuery("friend", frontier=_frontier("repeats"), cutover=1))
+    assert kind == "expand" and key == ("expand", id(snap.pred("friend").csr))
+    assert work.route.rows is None and work.route.need is None
+
+
+@pytest.mark.parametrize("upload", ["plain", "upload_fault"])
+def test_batched_large_frontiers_equal_process_task_alone(upload,
+                                                          monkeypatch):
+    """Two frontiers of HOST_CUTOVER uids or more, batched: the card ranks
+    their concatenation as a whole (nothing is ranked on the host), or
+    under an injected upload fault the host gather serves them."""
+    arrays = _arrays()
+    sc = tschema.SchemaState()
+    frontiers = [_frontier("unsorted", seed=1), _frontier("absent", seed=2)]
+    qs = [ttask.TaskQuery("friend", frontier=f, cutover=1) for f in frontiers]
+    want = [ttask.process_task(_snap(arrays), q, sc) for q in qs]
+    snap = _snap(arrays)
+    mgr = ResidencyManager(budget_bytes=1 << 30, metrics=Registry())
+    mgr._adopt(snap.pred("friend").csr, "friend", "csr")
+    entries = []
+    for q in qs:
+        _key, kind, work = tbatch.classify(snap, sc, q)
+        assert kind == "expand" and work.route.rows is None
+        entries.append(tbatch._Entry(work))
+    batcher = tbatch.DeviceBatcher(metrics=Registry(), idle_fire=False)
+    if upload == "plain":
+        monkeypatch.setattr(us, "host_rank_of", _no_host_rank)
+    try:
+        if upload == "upload_fault":
+            faults.GLOBAL.reseed(3)
+            faults.GLOBAL.install("residency.h2d_upload", "error", p=1.0)
+        batcher._run_expand(entries)
+    finally:
+        faults.GLOBAL.clear()
+    for e, w in zip(entries, want):
+        assert e.error is None
+        assert [r.tolist() for r in e.result.uid_matrix] == \
+            [r.tolist() for r in w.uid_matrix]
+        assert e.result.counts.tolist() == w.counts.tolist()
+        assert e.result.traversed_edges == w.traversed_edges
+        assert e.result.dest_uids.tolist() == w.dest_uids.tolist()
+    csr = snap.pred("friend").csr
+    assert csr.device_resident() == (upload == "plain")
+    assert mgr.metrics.counter(
+        "dgraph_residency_host_fallbacks_total").value == \
+        int(upload == "upload_fault")
+
+
+@pytest.mark.parametrize("cutover", [0, tgroupby._PIN_HOST])
+def test_a_reverse_task_keeps_its_cutover(cutover, monkeypatch):
+    """process_task's `~attr` rewrite keeps every field: the planner's pin
+    holds the reverse expand on the host gather, as in a batch."""
+    monkeypatch.setattr(ttask, "HOST_EXPAND_MAX", 0)
+    s, p, x = _arrays()
+    rev = tcb.transpose_csr(s, p, x)
+    snap = carry.snapshot_from_numpy(
+        {"friend": (int(TypeID.UID), s, p, x),
+         "~friend": (int(TypeID.UID), *rev)}, 1, device="cpu")
+    snap.metrics = Registry()
+    uids = np.asarray(rev[0][: us.HOST_CUTOVER + 1], np.int64)
+    got = ttask.process_task(
+        snap, ttask.TaskQuery("~friend", frontier=uids, cutover=cutover),
+        tschema.SchemaState())
+    pinned = cutover == tgroupby._PIN_HOST
+    assert snap.metrics.counter(ON_DEVICE).value == int(not pinned)
+    assert snap.metrics.counter(DEST_ON_DEVICE).value == int(not pinned)
+    rows, total = _want(rev, uids, 0)
+    assert [r.tolist() for r in got.uid_matrix] == [r.tolist() for r in rows]
+    assert got.traversed_edges == total
