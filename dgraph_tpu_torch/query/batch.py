@@ -86,11 +86,12 @@ class _ExpandWork:
     its route (task.expand_route), whose host first pass, where it made
     one, the batched gather uploads instead of ranking again."""
 
-    __slots__ = ("pd", "csr", "q", "frontier", "route")
+    __slots__ = ("pd", "csr", "q", "frontier", "route", "metrics")
 
-    def __init__(self, pd, csr, q, frontier, route):
+    def __init__(self, pd, csr, q, frontier, route, metrics):
         self.pd, self.csr, self.q = pd, csr, q
         self.frontier, self.route = frontier, route
+        self.metrics = metrics
 
 
 class _RecurseWork:
@@ -163,7 +164,8 @@ def _classify_expand(snap, schema, q):
     # work object holds a strong reference, so the id cannot be recycled
     # while the batch is open
     return ("expand", id(csr)), "expand", \
-        _ExpandWork(pd, csr, q, frontier, route)
+        _ExpandWork(pd, csr, q, frontier, route,
+                    getattr(snap, "metrics", None))
 
 
 def _classify_vector(snap, schema, q):
@@ -505,8 +507,9 @@ class DeviceBatcher:
 
     def _run_expand(self, entries: list[_Entry]) -> None:
         """task.gather_on_device over the concatenated frontiers, under
-        the gate; the flat targets split back per task by the counts that
-        come back, then task.finish_uid_expand runs the identical host
+        the gate; the flat targets, fetched off the card once after it
+        (task.UidMatrix), split back per task by the counts that came
+        back, then task.finish_uid_expand runs the identical host
         tail per task — so each member's TaskResult is byte-identical to
         solo execution."""
         from dgraph_tpu_torch.query import task as taskmod
@@ -526,7 +529,8 @@ class DeviceBatcher:
                           batch=len(entries)) as ck:
             (matrix, _total, h2d, d2h), dt_ms = self._timed_gate_run(
                 lambda: taskmod.gather_on_device(csr, uids, route, None,
-                                                 False, ck=ck), "expand")
+                                                 False, works[0].metrics,
+                                                 ck=ck), "expand")
             # each member's first slot, and its first edge, in the batch
             slot = np.cumsum([0] + [len(w.frontier) for w in works])
             edge = matrix.offsets[slot]

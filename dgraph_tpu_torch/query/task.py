@@ -20,8 +20,9 @@ for the solo expand and the batcher's classification (query/batch.py)
 alike, and gather_on_device the one device gather of both. Every path
 keeps the level's uidMatrix as columns (UidMatrix: flat targets and row
 offsets), and the device gather dedups the level's dest set on the card
-beside it (ops/csr.unique_targets); rows are views cut, and the targets
-cast to int64, only where a reader asks for them. Over a delta overlay
+beside it (ops/csr.unique_targets); its targets stay on the card until a
+reader asks for rows, and rows are views cut, and the targets cast to
+int64, only where one does. Over a delta overlay
 (storage/delta.OverlayCSR) the base's rows come from the same two paths
 (ops/csr.expand_masked on the device) and the overlay's replacement rows
 are spliced in. Index functions pick token rows on the host (the term
@@ -40,6 +41,7 @@ from __future__ import annotations
 
 import bisect
 import re as remod
+import threading
 from contextlib import nullcontext
 from dataclasses import dataclass, field, replace
 from typing import NamedTuple
@@ -103,17 +105,22 @@ class UidMatrix:
     (the view flat[offsets[i]:offsets[i + 1]]) and iteration. Read-only: a
     caller that replaces rows assigns a plain list. The targets may arrive
     in the gather's own integer dtype: flat casts them to int64 on its
-    first read, so a level no reader walks never pays the cast. dest is
-    the level's sorted-unique targets where the gather computed them
-    beside the rows (on the card), else None."""
+    first read, so a level no reader walks never pays the cast. A device
+    gather's targets may stay on the card as a tensor: the first reader
+    of a row copies them back, once, in a uidmatrix.fetch seam of its own
+    (counted in `metrics`' dgraph_expand_targets_fetched_total); len,
+    counts and nbytes read the offsets alone. dest is the level's
+    sorted-unique targets where the gather computed them beside the rows
+    (on the card), else None."""
 
-    __slots__ = ("_flat", "offsets", "dest")
+    __slots__ = ("_flat", "offsets", "dest", "_metrics")
 
-    def __init__(self, flat: np.ndarray, offsets: np.ndarray,
-                 dest: np.ndarray | None = None) -> None:
+    def __init__(self, flat: np.ndarray | torch.Tensor, offsets: np.ndarray,
+                 dest: np.ndarray | None = None, metrics=None) -> None:
         self._flat = flat
         self.offsets = offsets
         self.dest = dest
+        self._metrics = metrics
 
     @classmethod
     def from_rows(cls, rows) -> "UidMatrix":
@@ -129,15 +136,35 @@ class UidMatrix:
         """n empty rows."""
         return cls(np.zeros(0, np.int64), np.zeros(n + 1, np.int64))
 
+    def _host(self) -> np.ndarray:
+        """The targets on the host, in the gather's dtype: a tensor still
+        on the card is copied back here, once, whichever thread asks
+        first (the task cache shares one matrix between requests)."""
+        flat = self._flat
+        if isinstance(flat, torch.Tensor):
+            with _FETCH_LOCK:
+                flat = self._flat
+                if isinstance(flat, torch.Tensor):
+                    with costs.kernel("uidmatrix.fetch",
+                                      edges=flat.numel()) as ck:
+                        flat = flat.cpu().numpy()
+                        ck.set(d2h=flat.nbytes)
+                    if self._metrics is not None:
+                        self._metrics.counter(
+                            "dgraph_expand_targets_fetched_total").inc()
+                    self._flat = flat
+        return flat
+
     @property
     def flat(self) -> np.ndarray:
-        if self._flat.dtype != np.int64:
-            self._flat = self._flat.astype(np.int64)
-        return self._flat
+        flat = self._host()
+        if flat.dtype != np.int64:
+            flat = self._flat = flat.astype(np.int64)
+        return flat
 
     def nbytes(self) -> int:
         """The columns' bytes with the targets as int64, read without
-        casting them."""
+        fetching or casting them."""
         return 8 * len(self._flat) + int(self.offsets.nbytes)
 
     def __len__(self) -> int:
@@ -160,14 +187,20 @@ class UidMatrix:
     def truncated(self, first: int) -> "UidMatrix":
         """Each row cut to row[:first] (first > 0) or row[first:]
         (first < 0), in one pass over the flat targets."""
+        flat = self._host()
         cnt = self.counts()
         keep = np.minimum(cnt, abs(first))
-        pos = np.arange(len(self._flat)) - np.repeat(self.offsets[:-1], cnt)
+        pos = np.arange(len(flat)) - np.repeat(self.offsets[:-1], cnt)
         mask = (pos < first) if first > 0 else \
             (pos >= np.repeat(cnt - keep, cnt))
         offs = np.zeros(len(cnt) + 1, dtype=np.int64)
         np.cumsum(keep, out=offs[1:])
-        return UidMatrix(self._flat[mask], offs)
+        return UidMatrix(flat[mask], offs)
+
+
+# one device-held matrix's targets are copied back once, whichever reader
+# asks first
+_FETCH_LOCK = threading.Lock()
 
 
 @dataclass
@@ -450,12 +483,14 @@ def gather_on_device(csr: PredCSR, uids: np.ndarray, route: ExpandRoute,
     dgraph_expand_rows_on_device_total). At or below `cutover` (None: a
     batch, gathered whatever the sum) the rows come back for the host
     gather; above it one gather at a pow2 capacity class, whose targets
-    stay in its dtype until a reader asks for rows. With want_dest the
-    level's dest comes from the same gather, deduplicated on the card, so
-    only the set comes back beside the rows. An injected upload fault
-    takes the host gather. The device work runs inside the caller's
-    costs.kernel seam `ck` (a batch's), else inside a csr.expand seam of
-    its own; the seam takes the bytes."""
+    stay on the card, in its dtype, until a reader asks for rows (counted
+    in metrics' dgraph_expand_targets_on_device_total; the matrix keeps
+    `metrics` to count its fetch). Only the counts come back, and with
+    want_dest the level's dest, from the same gather, deduplicated on the
+    card. An injected upload fault takes the host gather. The device work
+    runs inside the caller's costs.kernel seam `ck` (a batch's), else
+    inside a csr.expand seam of its own; the seam takes the bytes it
+    copied."""
     dev = _device_arrays(csr)
     rows, matrix, h2d, d2h = route.rows, None, 0, 0
     if dev is not None:
@@ -484,11 +519,12 @@ def gather_on_device(csr: PredCSR, uids: np.ndarray, route: ExpandRoute,
                 res = csrops.expand(indptr_d, indices_d, rows_d,
                                     out_cap=cap)
                 total = int(res.total)           # device sync point
+                # the targets stay on the card until a reader asks for
+                # rows (UidMatrix._host); the counts come back for the
+                # offsets
                 flat_d = res.targets[:total]
-                targets = flat_d.cpu().numpy()
                 counts = res.counts.cpu().numpy()
-                d2h += res.total.element_size() + int(targets.nbytes) \
-                    + int(counts.nbytes)
+                d2h += res.total.element_size() + int(counts.nbytes)
                 dest = None
                 if want_dest:
                     dest_d, read = csrops.unique_targets(flat_d)
@@ -500,7 +536,10 @@ def gather_on_device(csr: PredCSR, uids: np.ndarray, route: ExpandRoute,
                 ck.annotate(edges=total)
                 offs = np.zeros(len(counts) + 1, dtype=np.int64)
                 np.cumsum(counts, out=offs[1:])
-                matrix = UidMatrix(targets, offs, dest)
+                matrix = UidMatrix(flat_d, offs, dest, metrics)
+                if metrics is not None:
+                    metrics.counter(
+                        "dgraph_expand_targets_on_device_total").inc()
             ck.set(h2d=h2d, d2h=d2h)
     if matrix is None:
         matrix = _host_expand_matrix(csr, uids, rows, route.deg, cutover)

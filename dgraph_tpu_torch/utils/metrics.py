@@ -396,10 +396,14 @@ class Registry:
                      # (query/outputnode.py, query/task.py): blocks
                      # encoded without the per-uid walk, and uid levels
                      # whose dest set came off the card, and frontiers
-                     # mapped to CSR rows on the card
+                     # mapped to CSR rows on the card, and gathered
+                     # levels whose targets stayed on the card, and those
+                     # a reader then copied back
                      "dgraph_encode_walks_skipped_total",
                      "dgraph_expand_dest_on_device_total",
                      "dgraph_expand_rows_on_device_total",
+                     "dgraph_expand_targets_on_device_total",
+                     "dgraph_expand_targets_fetched_total",
                      # the shortest kernel tier (ops/pull_bfs.py): the
                      # time in its device BFS loop and in its host walk,
                      # and the hops the loop ran

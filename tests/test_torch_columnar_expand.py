@@ -16,6 +16,16 @@ device gather dedups the level's dest set beside them
   decode, and the batcher; and the device gather's targets are cast to
   int64 only when a row or the flat column is read.
 
+The device gather leaves its targets on the card
+(dgraph_expand_targets_on_device_total): len, bool, counts, nbytes, the
+dest merge, the task cache's sizing and copy, and `has` read none of
+them. Each reader of rows (flat, m[i], iteration, first +1 and -1,
+uid_in, the batcher's split, groupby, the wire encode, @cascade) gives
+the host branch's answer and copies the targets back once
+(dgraph_expand_targets_fetched_total); the gather's seam books no target
+bytes and the fetch's seam books exactly them; a task-cache hit read on
+another thread shares the one copy.
+
 encode_result skips its per-uid walk for a block whose children are all
 aggregates or count(uid): the JSON stays byte-identical to the JAX
 package's Executor, and dgraph_encode_walks_skipped_total moves for such
@@ -49,6 +59,8 @@ from dgraph_tpu_torch.utils.types import TypeID
 
 SKIPPED = "dgraph_encode_walks_skipped_total"
 ON_DEVICE = "dgraph_expand_dest_on_device_total"
+HELD = "dgraph_expand_targets_on_device_total"
+FETCHED = "dgraph_expand_targets_fetched_total"
 SCHEMA = "follow: [uid] @reverse .\nfriend: [uid] ."
 
 
@@ -176,7 +188,9 @@ def test_device_targets_cast_only_when_read(monkeypatch):
     rows, dest, _t = _want(arrays, frontier, 0)
     # the dest and the counts need no cast of the gathered int32 targets
     assert res.dest_uids.tolist() == dest.tolist()
-    assert m._flat.dtype == np.int32
+    # held on the device as the gather left them
+    assert isinstance(m._flat, torch.Tensor)
+    assert m._flat.dtype == torch.int32
     assert m.nbytes() == 8 * len(m._flat) + m.offsets.nbytes
     assert [r.tolist() for r in m] == [r.tolist() for r in rows]
     assert m._flat.dtype == np.int64 and m.flat.dtype == np.int64
@@ -389,6 +403,219 @@ def test_dest_counter_moves_only_on_the_device_branch(path, monkeypatch):
         assert moved == (1 if path == "device" else 0)
     finally:
         n.close()
+
+
+# ---------------------------------------------------------------------------
+# a device-gathered level's targets stay on the card until a reader asks
+# ---------------------------------------------------------------------------
+
+def _device_task(arrays, frontier, func=None):
+    """process_task on the device branch (HOST_EXPAND_MAX 0 is set by the
+    caller): (the result, the snapshot, whose registry counts)."""
+    snap = _snap(arrays)
+    res = ttask.process_task(
+        snap, ttask.TaskQuery("friend", frontier=frontier, func=func),
+        _schema())
+    return res, snap
+
+
+def _cols_of(res):
+    """A task result as plain lists: rows, counts, dest, traversed."""
+    return ([r.tolist() for r in res.uid_matrix],
+            [int(c) for c in res.counts], res.dest_uids.tolist(),
+            res.traversed_edges)
+
+
+def _read_rows(m):
+    return [r.tolist() for r in m]
+
+
+def _split_flat(m):
+    flat = m.flat
+    return [flat[m.offsets[i]: m.offsets[i + 1]].tolist()
+            for i in range(len(m))]
+
+
+def _exec_json(snap, q):
+    return json.dumps(teng.Executor(snap, _schema()).execute(tdql.parse(q)))
+
+
+def _batched(arrays, frontier):
+    """The batcher's expand of two halves of the frontier: each member's
+    result as plain lists."""
+    from dgraph_tpu_torch.query import batch as tbatch
+    snap, sc = _snap(arrays), _schema()
+    half = len(frontier) // 2
+    qs = [ttask.TaskQuery("friend", frontier=part)
+          for part in (frontier[:half], frontier[half:])]
+    works = [tbatch.classify(snap, sc, q)[2] for q in qs]
+    if any(w is None for w in works):
+        # the host branch: the classification sends the tasks solo
+        return [_cols_of(ttask.process_task(snap, q, sc)) for q in qs], snap
+    entries = [tbatch._Entry(w) for w in works]
+    tbatch.DeviceBatcher(metrics=Registry(), idle_fire=False)._run_expand(
+        entries)
+    assert all(e.error is None for e in entries)
+    return [_cols_of(e.result) for e in entries], snap
+
+
+# a reader of rows: (what it reads as plain values, the registry counting
+# the fetch); the fetch must happen once, wherever the reader sits
+def _reader_task(read):
+    def run(arrays, frontier):
+        res, snap = _device_task(arrays, frontier)
+        return (_cols_of(res)[1:], read(res)), snap
+    return run
+
+
+def _reader_func(arrays, frontier):
+    res, snap = _device_task(arrays, frontier,
+                             ("uid_in", [hex(int(frontier[1]))]))
+    return _cols_of(res), snap
+
+
+def _reader_wire(arrays, frontier):
+    from dgraph_tpu_torch.parallel import remote as tremote
+    res, snap = _device_task(arrays, frontier)
+    return tremote.encode_result(res).SerializeToString(), snap
+
+
+def _reader_query(q):
+    def run(arrays, frontier):
+        snap = _snap(arrays)
+        return _exec_json(snap, q % ", ".join(hex(int(u))
+                                              for u in frontier)), snap
+    return run
+
+
+ROW_READERS = {
+    "flat": _reader_task(lambda res: _split_flat(res.uid_matrix)),
+    "getitem": _reader_task(lambda res: [
+        res.uid_matrix[i].tolist() for i in range(len(res.uid_matrix))]),
+    "iter": _reader_task(lambda res: _read_rows(res.uid_matrix)),
+    "first+1": _reader_task(
+        lambda res: _read_rows(ttask.apply_first(res.uid_matrix, 1))),
+    "first-1": _reader_task(
+        lambda res: _read_rows(ttask.apply_first(res.uid_matrix, -1))),
+    "uid_in": _reader_func,
+    "batch": _batched,
+    "groupby": _reader_query(
+        "{ q(func: uid(%s)) @groupby(friend) { count(uid) } }"),
+    "wire": _reader_wire,
+    "cascade": _reader_query(
+        "{ q(func: uid(%s)) @cascade { uid friend { uid } } }"),
+}
+
+
+@pytest.mark.parametrize("reader", list(ROW_READERS))
+def test_a_row_reader_fetches_the_device_targets_once(reader, monkeypatch):
+    from dgraph_tpu_torch.query import groupby as tgroupby
+    # groupby pins its key expansion to the host; unpinned here, so that
+    # its reader meets a level held on the card
+    monkeypatch.setattr(tgroupby, "_PIN_HOST", 0)
+    arrays = _random_csr(29)
+    frontier = _frontier(29)
+    want, _host_snap = ROW_READERS[reader](arrays, frontier)
+    monkeypatch.setattr(ttask, "HOST_EXPAND_MAX", 0)
+    got, snap = ROW_READERS[reader](arrays, frontier)
+    assert got == want
+    # @cascade runs its child again over the frontier it pruned: two levels
+    held = snap.metrics.counter(HELD).value
+    assert held == (2 if reader == "cascade" else 1)
+    assert snap.metrics.counter(FETCHED).value == held
+
+
+def test_a_gathered_level_stays_on_the_device(monkeypatch):
+    monkeypatch.setattr(ttask, "HOST_EXPAND_MAX", 0)
+    arrays = _random_csr(31)
+    frontier = _frontier(31)
+    res, snap = _device_task(arrays, frontier)
+    m = res.uid_matrix
+    assert isinstance(m._flat, torch.Tensor) and m.dest is not None
+    assert snap.metrics.counter(HELD).value == 1
+    assert snap.metrics.counter(FETCHED).value == 0
+    rows, dest, traversed = _want(arrays, frontier, 0)
+    # the readers of the offsets and the dest do not fetch
+    assert len(m) == len(rows) and bool(m)
+    assert m.counts().tolist() == [len(r) for r in rows]
+    assert m.nbytes() == 8 * traversed + m.offsets.nbytes
+    assert res.dest_uids.tolist() == dest.tolist()
+    assert res.traversed_edges == traversed
+    assert ttask._merge_matrix(m) is m.dest
+    assert qcache.result_nbytes(res) > 0
+    qcache.copy_result(res)
+    has, has_snap = _device_task(arrays, frontier, ("has", []))
+    assert has.dest_uids.tolist() == \
+        [int(u) for u, r in zip(frontier, rows) if len(r)]
+    assert isinstance(has.uid_matrix._flat, torch.Tensor)
+    assert isinstance(m._flat, torch.Tensor)
+    for sn in (snap, has_snap):
+        assert sn.metrics.counter(FETCHED).value == 0
+    # the first row read fetches; later reads do not
+    assert _read_rows(m) == [r.tolist() for r in rows]
+    assert isinstance(m._flat, np.ndarray)
+    assert m.flat.tolist() == np.concatenate(rows).tolist()
+    assert snap.metrics.counter(FETCHED).value == 1
+
+
+def test_the_seams_book_the_bytes_each_copied(monkeypatch):
+    from dgraph_tpu_torch.obs import costs
+    monkeypatch.setattr(ttask, "HOST_EXPAND_MAX", 0)
+    timers = []
+    real = costs.kernel
+
+    def spy(name, *a, **kw):
+        t = real(name, *a, **kw)
+        timers.append((name, t))
+        return t
+    monkeypatch.setattr(costs, "kernel", spy)
+    arrays = _random_csr(37)
+    frontier = _frontier(37)
+    res, _snap_ = _device_task(arrays, frontier)
+    assert [n for n, _t in timers] == ["csr.expand"]
+    gather = timers[0][1]
+    rows, dest, traversed = _want(arrays, frontier, 0)
+    flat32 = torch.from_numpy(np.concatenate(rows).astype(np.int32))
+    _dest_d, read = tcsr.unique_targets(flat32)
+    # the total, the counts and the dest (with the scalars that sized
+    # it); the host ranked the rows, so none came back
+    assert gather.d2h == 4 + 4 * len(frontier) + read + 4 * len(dest)
+    _read_rows(res.uid_matrix)
+    _read_rows(res.uid_matrix)
+    assert [n for n, _t in timers] == ["csr.expand", "uidmatrix.fetch"]
+    fetch = timers[1][1]
+    assert (fetch.h2d, fetch.d2h) == (0, 4 * traversed)
+
+
+def test_a_cache_hit_on_a_device_held_level(monkeypatch):
+    import threading
+    monkeypatch.setattr(ttask, "HOST_EXPAND_MAX", 0)
+    arrays = _random_csr(41)
+    frontier = _frontier(41)
+    snap, schema = _snap(arrays), _schema()
+    q = ttask.TaskQuery("friend", frontier=frontier)
+    cache = qcache.TaskResultCache(1 << 20)
+    calls = []
+
+    def compute(tq):
+        calls.append(1)
+        return ttask.process_task(snap, tq, schema)
+
+    first = cache.dispatch(1, q, compute)
+    hit = cache.dispatch(1, q, compute)
+    assert len(calls) == 1
+    assert hit.uid_matrix is first.uid_matrix
+    assert isinstance(hit.uid_matrix._flat, torch.Tensor)
+    rows, dest, traversed = _want(arrays, frontier, 0)
+    want = ([r.tolist() for r in rows], [len(r) for r in rows],
+            dest.tolist(), traversed)
+    got = [None]
+    t = threading.Thread(target=lambda: got.__setitem__(0, _cols_of(hit)))
+    t.start()
+    t.join(30)
+    assert got[0] == want
+    assert _cols_of(first) == want
+    assert snap.metrics.counter(FETCHED).value == 1
 
 
 # ---------------------------------------------------------------------------

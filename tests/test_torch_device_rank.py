@@ -23,6 +23,11 @@ The route's kinds, each with the batch classification's miss reason or
 the host, its batched answers equal to process_task's alone, also under
 an injected upload fault; and a `~attr` task that keeps the planner's
 host pin.
+
+The benchmark's k-hop count through Node.query gives the reference's
+count on both branches; on the device branch every level keeps its
+gathered targets on the card (dgraph_expand_targets_on_device_total)
+and none is copied back (dgraph_expand_targets_fetched_total stays 0).
 """
 
 from types import SimpleNamespace
@@ -427,3 +432,61 @@ def test_a_reverse_task_keeps_its_cutover(cutover, monkeypatch):
     rows, total = _want(rev, uids, 0)
     assert [r.tolist() for r in got.uid_matrix] == [r.tolist() for r in rows]
     assert got.traversed_edges == total
+
+
+# ---------------------------------------------------------------------------
+# the k-hop count through the Node: no reader asks for the gathered rows
+# ---------------------------------------------------------------------------
+
+HELD = "dgraph_expand_targets_on_device_total"
+FETCHED = "dgraph_expand_targets_fetched_total"
+
+
+@pytest.fixture(scope="module")
+def khop_node():
+    from dgraph_tpu_torch.api.server import Node
+    s, p, x = _arrays()
+    node = Node(device="cpu", planner=False, batching=False,
+                task_cache_mb=0, result_cache_mb=0)
+    quads = [f"<0x{int(u):x}> <friend> <0x{int(v):x}> ."
+             for i, u in enumerate(s.tolist()) for v in x[p[i]: p[i + 1]]]
+    node.alter(schema_text="friend: [uid] @reverse .")
+    node.mutate(set_nquads="\n".join(quads), commit_now=True)
+    seeds = np.sort(np.random.default_rng(12).choice(
+        s[p[1:] > p[:-1]], 512, replace=False)).astype(np.int64)
+    yield node, (s, p, x), seeds
+    node.close()
+
+
+def _khop_count(arrays, seeds, hops=3):
+    """|A ∪ B ∪ C|: the uids one to `hops` steps from the seeds."""
+    s, p, x = arrays
+    frontier, reached = seeds, set()
+    for _ in range(hops):
+        rows, _t = _want(arrays, frontier, 0)
+        frontier = np.unique(np.concatenate(rows))
+        reached.update(frontier.tolist())
+    return len(reached)
+
+
+@pytest.mark.parametrize("path", ["host", "device"])
+def test_the_khop_count_keeps_its_targets_on_the_device(path, khop_node,
+                                                        monkeypatch):
+    """The benchmark's k-hop request shape: two of its levels map their
+    frontier on the card, every level gathers there, and nothing reads
+    the rows, so no level's targets come back."""
+    if path == "device":
+        monkeypatch.setattr(ttask, "HOST_EXPAND_MAX", 0)
+    node, arrays, seeds = khop_node
+    q = ("{ var(func: uid(%s)) { A as friend { B as friend { C as friend "
+         "} } } q(func: uid(A, B, C)) { count(uid) } }"
+         % ", ".join(hex(int(u)) for u in seeds))
+    c = {k: node.metrics.counter(k) for k in (HELD, FETCHED, ON_DEVICE)}
+    before = {k: v.value for k, v in c.items()}
+    out = node.query(q)[0]
+    moved = {k: v.value - before[k] for k, v in c.items()}
+    assert out == {"q": [{"count": _khop_count(arrays, seeds)}]}
+    on_card = path == "device"
+    assert moved[HELD] == (3 if on_card else 0)
+    assert moved[ON_DEVICE] == (2 if on_card else 0)
+    assert moved[FETCHED] == 0
