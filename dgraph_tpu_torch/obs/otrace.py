@@ -73,9 +73,11 @@ SPAN_LAYERS = {
     # engine: the executor, its tasks and its host work on their results
     "execute": "engine", "block": "engine", "task:": "engine",
     "merge": "engine", "encode": "engine",
-    # traversal: @recurse and shortest-path, and inside the shortest
+    # traversal: @recurse and shortest-path; inside @recurse the fused
+    # path's device levels and the var binding, inside the shortest
     # kernel tier its device BFS loop and its host predecessor walk
     "recurse": "traversal", "shortest": "traversal",
+    "recurse_levels": "traversal", "recurse_bind": "traversal",
     "shortest_bfs": "traversal", "shortest_walk": "traversal",
     # device: the host waiting on the card (launches, syncs, copies), the
     # span obs/costs.kernel opens at every device site

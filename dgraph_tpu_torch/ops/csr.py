@@ -127,7 +127,7 @@ def expand_dest(indptr: torch.Tensor, indices: torch.Tensor,
     return _dedup_sorted(torch.sort(res.targets).values), res.total
 
 
-# unique_targets, and engine._unique_uids on the host, take the bitmap where
+# unique_targets, and engine._unique_union on the host, take the bitmap where
 # the largest uid is below this many times their count, the crossover
 # measured on the card's host (bench_torch_crossover.py section 5). On an
 # H100 the bitmap wins at this spread and still at 4 (int32 uids over a

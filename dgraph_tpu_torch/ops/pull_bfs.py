@@ -199,9 +199,21 @@ def pack_mask(mask: torch.Tensor) -> torch.Tensor:
 def unpack_words(words: np.ndarray, n: int) -> np.ndarray:
     """Host inverse of pack_words: word [p, l] bit b holds node
     p*4096 + b*128 + l."""
-    w = np.asarray(words)
-    bits = (w[:, None, :] >> np.arange(32, dtype=np.int32)[None, :, None]) & 1
-    return bits.reshape(-1)[:n].astype(bool)
+    w = np.ascontiguousarray(words, dtype="<i4")
+    bits = np.unpackbits(w.view(np.uint8).reshape(w.shape[0], -1, 4),
+                         axis=2, bitorder="little")     # [p, l, b]
+    return bits.transpose(0, 2, 1).reshape(-1)[:n].view(bool)
+
+
+def words_to_uids(words: torch.Tensor,
+                  in_subjects: torch.Tensor) -> torch.Tensor:
+    """dst-rank words [Cd*8, 128] -> int64 uids of their set bits,
+    ascending (in_subjects is sorted): unpack_words and the rank -> uid map
+    on the card, one sync to size the result."""
+    shifts = torch.arange(32, dtype=torch.int32, device=words.device)
+    bits = (words.reshape(-1, 1, LANES) >> shifts.view(1, 32, 1)) & 1
+    ranks = torch.nonzero(bits.view(-1)[: in_subjects.shape[0]]).squeeze(1)
+    return in_subjects[ranks].to(torch.int64)
 
 
 # ---------------------------------------------------------------------------

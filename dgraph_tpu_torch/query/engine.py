@@ -343,7 +343,7 @@ class Executor:
                 uids.append(want)
             else:
                 present = _known_uids(self.snap)
-                uids.append(want[np.isin(want, present)]
+                uids.append(_in_sorted(want, present)
                             if len(present) else want)
         for v in gq.root_uid_vars:
             vv = self.vars.get(v)
@@ -454,7 +454,7 @@ class Executor:
         slots are restored to declaration order so output encoding — which
         walks sg.children — is byte-identical either way."""
         gq = sg.gq
-        frontier = np.sort(sg.dest_uids)
+        frontier = _sorted(sg.dest_uids)
         eff = self._effective_children(gq, frontier)
         if self.mesh is not None and len(frontier) and \
                 self._mesh_fused_plan(sg, eff, frontier):
@@ -1387,22 +1387,43 @@ def _known_uids(snap: GraphSnapshot) -> np.ndarray:
         if pd.csr is not None:
             parts.append(np.asarray(
                 pd.csr.host_arrays()[2]).astype(np.int64))
-    out = _unique_uids(np.concatenate(parts)) if parts \
-        else np.zeros(0, np.int64)
+    out = _unique_union(parts)
     snap._known_uids_cache = out
     return out
 
 
-def _unique_uids(uids: np.ndarray) -> np.ndarray:
-    """np.unique of int64 uids. Where they are dense (a snapshot's
-    subjects and objects name each uid many times over) one scatter into
-    a bitmap replaces the sort; the result is the same."""
-    if len(uids) and uids.min() >= 0 and \
-            uids.max() < UNIQUE_BITMAP_SPREAD * len(uids):
-        seen = np.zeros(int(uids.max()) + 1, dtype=bool)
-        seen[uids] = True
-        return np.flatnonzero(seen).astype(np.int64)
-    return np.unique(uids)
+def _unique_union(parts: list[np.ndarray]) -> np.ndarray:
+    """np.unique of the int64 uids of every array in `parts`. Where they
+    are dense (a snapshot's subjects and objects name each uid many times
+    over) one bitmap takes a scatter of each in place of concatenating and
+    sorting them; the result is the same."""
+    parts = [p for p in parts if len(p)]
+    if not parts:
+        return np.zeros(0, np.int64)
+    lo = min(int(p.min()) for p in parts)
+    hi = max(int(p.max()) for p in parts)
+    if lo >= 0 and hi < UNIQUE_BITMAP_SPREAD * sum(len(p) for p in parts):
+        seen = np.zeros(hi + 1, dtype=bool)
+        for p in parts:
+            seen[p] = True
+        return np.flatnonzero(seen).astype(np.int64, copy=False)
+    return np.unique(np.concatenate(parts))
+
+
+def _sorted(uids: np.ndarray) -> np.ndarray:
+    """uids in ascending order: the array itself where it is already so
+    (a var's uids, a level's dest), else a sorted copy."""
+    if len(uids) < 2 or bool((uids[1:] >= uids[:-1]).all()):
+        return uids
+    return np.sort(uids)
+
+
+def _in_sorted(want: np.ndarray, present: np.ndarray) -> np.ndarray:
+    """The uids of `want` found in `present` (sorted, distinct, not
+    empty), in want's order: a binary search each, where np.isin would
+    sort or tabulate the whole of `present`."""
+    pos = np.minimum(np.searchsorted(present, want), len(present) - 1)
+    return want[present[pos] == want]
 
 
 def _match_any_rhs(op: str, val: Val, args: list) -> bool:

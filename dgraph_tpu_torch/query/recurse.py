@@ -23,16 +23,25 @@ edges (:129-141) unless `loop: true`; bounded by the edge budget (:167).
     formula; value children layer host-side per level); other shapes
     expand per task with (attr, from, to) edge-key dedup, as the wire
     path does.
+
+Vars (bind_vars, after every path): the block's own var binds its roots;
+a var on a uid child binds the sorted union of that child's dest uids over
+every level run, as Dgraph's var map merges the child's copy at each level.
+The JAX package binds only the block's var (a pinned difference,
+tests/test_torch_ldbc_recurse.py).
 """
 
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import torch
 
 from dgraph_tpu_torch.obs import costs, otrace
 from dgraph_tpu_torch.ops import pull_bfs as pb
-from dgraph_tpu_torch.query.engine import QueryError, SubGraph
+from dgraph_tpu_torch.query.engine import (QueryError, SubGraph, VarValue,
+                                           _unique_union)
 from dgraph_tpu_torch.query.task import TaskQuery
 from dgraph_tpu_torch.utils.types import TypeID
 
@@ -79,17 +88,27 @@ class FreshFlags:
 class LazyRecurseMatrix:
     """A recurse level's uidMatrix in deferred CSR form: ragged per-source
     target lists are built on the host only when an encoder, cascade or
-    count reads them."""
+    count reads them. `frontier_of` returns the level's source uids, of
+    which there are `size` (the fused path unpacks them only for a
+    reader)."""
 
-    def __init__(self, csr, g, frontier: np.ndarray, fresh: FreshFlags,
+    def __init__(self, csr, g, frontier_of, size: int, fresh: FreshFlags,
                  level, allow_loop: bool):
         self._csr = csr
         self._g = g
-        self._frontier = np.asarray(frontier, dtype=np.int64)
+        self._frontier_of = frontier_of
+        self._frontier_h: np.ndarray | None = None
+        self._size = size
         self._fresh = fresh
         self._level = level              # row of the stacked buffer, or None
         self._allow_loop = allow_loop
         self._rows: list[np.ndarray] | None = None
+
+    @property
+    def _frontier(self) -> np.ndarray:
+        if self._frontier_h is None:
+            self._frontier_h = np.asarray(self._frontier_of(), dtype=np.int64)
+        return self._frontier_h
 
     def _materialize(self) -> list[np.ndarray]:
         if self._rows is not None:
@@ -101,14 +120,14 @@ class LazyRecurseMatrix:
             fresh_h = self._fresh.level(self._level)
             keep = fresh_h[self._g.inv_order[pos]]
         self._rows = [targets[offs[i]: offs[i + 1]][keep[offs[i]: offs[i + 1]]]
-                      for i in range(len(self._frontier))]
+                      for i in range(self._size)]
         return self._rows
 
     def __len__(self) -> int:
-        return len(self._frontier)
+        return self._size
 
     def __bool__(self) -> bool:
-        return len(self._frontier) > 0
+        return self._size > 0
 
     def __getitem__(self, i):
         return self._materialize()[i]
@@ -134,6 +153,86 @@ class LazyCounts:
 
     def __iter__(self):
         return (len(r) for r in self._m._materialize())
+
+
+class LevelMasks:
+    """The fused path's level masks, bit-packed in dst-rank space (fetched
+    once, and still on the card), and the uids they name: each level's
+    unpacked on the host on its first read, and the union of several
+    unpacked on the card from their OR, one fetch (the ranks' uids ascend,
+    so it is sorted and distinct). A var-only recurse reads the union
+    alone."""
+
+    def __init__(self, g, seeds: np.ndarray, masks_h: np.ndarray,
+                 masks_dev: torch.Tensor, attr: str):
+        self._g = g
+        self._seeds = seeds
+        self._masks = masks_h
+        self._masks_dev = masks_dev
+        self._attr = attr
+        self._dest: dict[int, np.ndarray] = {}
+        # uids reached at each level; a packed mask has no bit past its
+        # last rank
+        self._counts = np.bitwise_count(
+            masks_h.reshape(len(masks_h), -1).view(np.uint32)).sum(axis=1)
+
+    def count(self, lvl: int) -> int:
+        """The uids reached at level lvl (-1: the seeds)."""
+        return len(self._seeds) if lvl < 0 else int(self._counts[lvl])
+
+    def dest(self, lvl: int) -> np.ndarray:
+        """The sorted uids reached at level lvl (-1: the seeds)."""
+        if lvl < 0:
+            return self._seeds
+        if lvl not in self._dest:
+            hs = self._g.host_in_subjects        # sorted: rank -> uid
+            ranks = np.flatnonzero(pb.unpack_words(self._masks[lvl], len(hs)))
+            self._dest[lvl] = hs[ranks].astype(np.int64, copy=False)
+        return self._dest[lvl]
+
+    def union(self, lvls: list[int]) -> np.ndarray:
+        """The sorted distinct uids reached at any of lvls."""
+        words = self._masks_dev[lvls[0]]
+        for lvl in lvls[1:]:
+            words = words | self._masks_dev[lvl]
+        with costs.kernel("pb.recurse_union", attr=self._attr) as ck:
+            uids = pb.words_to_uids(words, self._g.in_subjects).cpu().numpy()
+            ck.set(d2h=int(uids.nbytes))
+        return uids
+
+
+class FusedLevel(SubGraph):
+    """A level of the fused path: its src and dest uids are the level
+    masks', unpacked when first read, unless set."""
+
+    def __init__(self, gq, levels: LevelMasks, lvl: int):
+        super().__init__(gq=gq, attr=gq.attr)
+        self.levels, self.lvl = levels, lvl
+        # the dataclass defaults that __init__ set give way to the masks
+        del self.__dict__["_src"], self.__dict__["_dest"]
+
+    @property
+    def src_uids(self) -> np.ndarray:
+        got = self.__dict__.get("_src")
+        return self.levels.dest(self.lvl - 1) if got is None else got
+
+    @src_uids.setter
+    def src_uids(self, uids: np.ndarray) -> None:
+        self.__dict__["_src"] = uids
+
+    @property
+    def dest_uids(self) -> np.ndarray:
+        got = self.__dict__.get("_dest")
+        return self.levels.dest(self.lvl) if got is None else got
+
+    @dest_uids.setter
+    def dest_uids(self, uids: np.ndarray) -> None:
+        self.__dict__["_dest"] = uids
+
+    def bound_union(self) -> tuple[LevelMasks, int] | None:
+        """(its masks, its level) while its dest is the masks' own, else
+        None."""
+        return None if "_dest" in self.__dict__ else (self.levels, self.lvl)
 
 
 def _gather_frontier_edges(csr, frontier: np.ndarray):
@@ -239,18 +338,73 @@ def _seeds_mask(uids: np.ndarray, num_nodes: int,
 
 def recurse(ex, sg: SubGraph) -> None:
     with otrace.span("recurse"):
-        _recurse(ex, sg)
+        uid_children = _uid_children(ex, sg.gq)
+        _recurse(ex, sg, uid_children)
+        bind_vars(ex, sg, uid_children)
 
 
-def _recurse(ex, sg: SubGraph) -> None:
+def _uid_children(ex, gq) -> list:
+    return [c for c in gq.children
+            if ex.schema.type_of(c.attr) == TypeID.UID
+            or (ex.snap.pred(c.attr) is not None
+                and ex.snap.pred(c.attr).csr is not None)
+            or c.attr.startswith("~")]
+
+
+def bind_vars(ex, sg: SubGraph, uid_children: list) -> None:
+    """The recurse's vars, whichever path ran it: the block's own var binds
+    its roots; a var on a uid child binds the sorted union of that child's
+    dest uids over every level of sg's tree. It reads the dest sets the
+    levels hold (the fused path's as the union of their masks, on the
+    card): no level's uidMatrix is materialized and no fresh flags are
+    fetched. Books its time, the levels run and the uids bound in
+    the request's registry (dgraph_recurse_{bind_ns,levels,bound_uids}
+    _total)."""
+    t0 = time.perf_counter_ns()
+    with otrace.span("recurse_bind"):
+        ex._record_uid_var(sg.gq, sg)
+        uid_gqs = {id(c) for c in uid_children}
+        parts: dict[str, list[SubGraph]] = {
+            c.var_name: [] for c in uid_children if c.var_name}
+        levels = 0
+        todo = [(sg, 0)]
+        while todo:
+            node, lvl = todo.pop()
+            for child in node.children:
+                if id(child.gq) not in uid_gqs:
+                    continue
+                levels = max(levels, lvl + 1)
+                if child.gq.var_name:
+                    parts[child.gq.var_name].append(child)
+                todo.append((child, lvl + 1))
+        bound = 0
+        for name, levels_of_var in parts.items():
+            uids = _dest_union(levels_of_var)
+            ex.vars[name] = VarValue(uids=uids)
+            bound += len(uids)
+    otrace.count("dgraph_recurse_bind_ns_total", time.perf_counter_ns() - t0)
+    otrace.count("dgraph_recurse_levels_total", levels)
+    otrace.count("dgraph_recurse_bound_uids_total", bound)
+
+
+def _dest_union(levels: list[SubGraph]) -> np.ndarray:
+    """The sorted union of the levels' dest uids; the fused path's levels
+    give theirs as the union of their masks (LevelMasks.union)."""
+    parts, fused = [], {}
+    for lv in levels:
+        at = lv.bound_union() if isinstance(lv, FusedLevel) else None
+        if at is None:
+            parts.append(np.asarray(lv.dest_uids, dtype=np.int64))
+        else:
+            fused.setdefault(id(at[0]), (at[0], []))[1].append(at[1])
+    parts += [lm.union(lvls) for lm, lvls in fused.values()]
+    return parts[0] if fused and len(parts) == 1 else _unique_union(parts)
+
+
+def _recurse(ex, sg: SubGraph, uid_children: list) -> None:
     gq = sg.gq
     spec = gq.recurse
     depth = spec.depth if spec.depth > 0 else 64  # "until exhaustion" cap
-    uid_children = [c for c in gq.children
-                    if ex.schema.type_of(c.attr) == TypeID.UID
-                    or (ex.snap.pred(c.attr) is not None
-                        and ex.snap.pred(c.attr).csr is not None)
-                    or c.attr.startswith("~")]
     val_children = [c for c in gq.children if c not in uid_children]
     seen_masks: dict[str, np.ndarray] = {}     # host path: attr -> bool[E]
     kstates: dict[str, dict] = {}              # kernel path: attr -> g, seen
@@ -287,7 +441,6 @@ def _recurse(ex, sg: SubGraph) -> None:
         csr = _csr_for(cgq)
         if _use_kernel(csr):
             _recurse_fused_path(ex, sg, cgq, csr, depth, spec.allow_loop)
-            ex._record_uid_var(gq, sg)
             return
     # ---- mesh fused path: single uid child, filters compile to allow-set
     # formulas, value children layer host-side per level -------------------
@@ -325,7 +478,6 @@ def _recurse(ex, sg: SubGraph) -> None:
                 _mesh_recurse_path(ex, sg, cgq, csr, depth,
                                    spec.allow_loop, mesh, formula, sets,
                                    val_children)
-                ex._record_uid_var(gq, sg)
                 return
 
     def build_level(frontier: np.ndarray, remaining: int) -> list[SubGraph]:
@@ -368,7 +520,8 @@ def _recurse(ex, sg: SubGraph) -> None:
                 if edges > ex.edge_budget():
                     raise QueryError(
                         "recurse exceeded edge budget (ErrTooBig)")
-                m = LazyRecurseMatrix(csr, g, frontier, FreshFlags(fresh),
+                m = LazyRecurseMatrix(csr, g, lambda f=frontier: f,
+                                      len(frontier), FreshFlags(fresh),
                                       None, spec.allow_loop)
                 child.uid_matrix = m
                 child.counts = LazyCounts(m)
@@ -407,7 +560,6 @@ def _recurse(ex, sg: SubGraph) -> None:
         return out
 
     sg.children = build_level(sg.dest_uids, depth)
-    ex._record_uid_var(gq, sg)
 
 
 def _mesh_recurse_path(ex, sg: SubGraph, cgq, csr, depth: int,
@@ -495,30 +647,35 @@ def _recurse_fused_path(ex, sg: SubGraph, cgq, csr, depth: int,
                 depth=depth, chunks=g.chunks, chunks_d=g.chunks_d,
                 allow_loop=allow_loop)
 
-    masks_p, trav, fresh = ex.batched_recurse(
-        g, seeds_mask, depth, allow_loop, _solo_fused)
-    # one fetch for the whole traversal, bit-packed in dst-rank space (fresh
-    # flags stay on the device until a uidMatrix is materialized)
-    with costs.kernel("pb.recurse_fused", attr=cgq.attr) as ck:
-        masks_h, trav_h = masks_p.cpu().numpy(), trav.cpu().numpy()
-        ck.set(d2h=int(masks_h.nbytes + trav_h.nbytes))
-    nd = len(g.host_in_subjects)
+    # the device levels and their fetch: the `recurse_levels` span, its
+    # time booked in dgraph_recurse_levels_ns_total
+    t0 = time.perf_counter_ns()
+    with otrace.span("recurse_levels"):
+        masks_p, trav, fresh = ex.batched_recurse(
+            g, seeds_mask, depth, allow_loop, _solo_fused)
+        # one fetch for the whole traversal, bit-packed in dst-rank space
+        # (fresh flags stay on the device until a uidMatrix is
+        # materialized)
+        with costs.kernel("pb.recurse_fused", attr=cgq.attr) as ck:
+            masks_h, trav_h = masks_p.cpu().numpy(), trav.cpu().numpy()
+            ck.set(d2h=int(masks_h.nbytes + trav_h.nbytes))
+    otrace.count("dgraph_recurse_levels_ns_total",
+                 time.perf_counter_ns() - t0)
+    levels = LevelMasks(g, seeds, masks_h, masks_p, cgq.attr)
     shared_fresh = FreshFlags(fresh)
-    frontier = seeds
     attach = sg.children = []
     cum = 0
     for lvl in range(depth):
-        if len(frontier) == 0:
+        if levels.count(lvl - 1) == 0:
             break
         cum += int(trav_h[lvl])
         if cum > ex.edge_budget():
             raise QueryError("recurse exceeded edge budget (ErrTooBig)")
-        child = SubGraph(gq=cgq, attr=cgq.attr, src_uids=frontier)
-        m = LazyRecurseMatrix(csr, g, frontier, shared_fresh, lvl, allow_loop)
+        child = FusedLevel(cgq, levels, lvl)
+        m = LazyRecurseMatrix(csr, g, lambda lvl=lvl: levels.dest(lvl - 1),
+                              levels.count(lvl - 1), shared_fresh, lvl,
+                              allow_loop)
         child.uid_matrix = m
         child.counts = LazyCounts(m)
-        ranks = np.flatnonzero(pb.unpack_words(masks_h[lvl], nd))
-        child.dest_uids = g.host_in_subjects[ranks].astype(np.int64)
         attach.append(child)
         attach = child.children
-        frontier = child.dest_uids

@@ -410,6 +410,13 @@ class Registry:
                      "dgraph_shortest_bfs_ns_total",
                      "dgraph_shortest_walk_ns_total",
                      "dgraph_shortest_bfs_hops_total",
+                     # @recurse (query/recurse.py): the time in the fused
+                     # path's device levels and in the var binding, the
+                     # levels run, and the uids bound to recurse vars
+                     "dgraph_recurse_levels_ns_total",
+                     "dgraph_recurse_bind_ns_total",
+                     "dgraph_recurse_levels_total",
+                     "dgraph_recurse_bound_uids_total",
                      # the active-prefix kernels (ops/prefix.py), inside
                      # a request: K1/K2 runs and what each streamed (edge
                      # slots with padding, frontier words)

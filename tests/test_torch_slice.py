@@ -606,9 +606,47 @@ def test_rmat_matches_jax(scale, ef, seed):
 @pytest.mark.parametrize("n,hi", [(0, 1), (1, 1), (50, 10), (1000, 800),
                                   (1000, 1000), (1000, 8000), (1000, 1 << 40)])
 def test_unique_uids_equals_np_unique(n, hi):
-    """engine._unique_uids (a bitmap where the uids are dense) is
-    np.unique, on both sides of its density rule."""
+    """engine._unique_union of one array (a bitmap where the uids are
+    dense) is np.unique, on both sides of its density rule."""
     rng = np.random.default_rng(n + hi)
     uids = rng.integers(0, hi, n).astype(np.int64)
-    got = teng._unique_uids(uids)
+    got = teng._unique_union([uids])
     assert got.dtype == np.int64 and np.array_equal(got, np.unique(uids))
+
+
+@pytest.mark.parametrize("sizes,hi", [((), 1), ((0, 5), 10), ((3,), 4),
+                                      ((50, 40, 1), 60), ((500, 700), 900),
+                                      ((10, 20), 1 << 40)])
+def test_unique_union_equals_np_unique_of_the_concatenation(sizes, hi):
+    """engine._unique_union of several arrays is np.unique of their
+    concatenation, dense (one bitmap) or not."""
+    rng = np.random.default_rng(sum(sizes) + hi)
+    parts = [rng.integers(0, hi, n).astype(np.int64) for n in sizes]
+    got = teng._unique_union(parts)
+    want = np.unique(np.concatenate(parts)) if parts else np.zeros(0)
+    assert got.dtype == np.int64 and np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("n,present_n,hi", [(1, 1, 5), (1, 1000, 3000),
+                                            (40, 1000, 3000), (0, 10, 20),
+                                            (200, 50, 100), (30, 3, 2)])
+def test_in_sorted_equals_isin(n, present_n, hi):
+    """engine._in_sorted (a binary search each) keeps what np.isin keeps,
+    in the same order, also past either end of `present`."""
+    rng = np.random.default_rng(n * 7 + present_n)
+    want = np.unique(rng.integers(0, hi + 10, n).astype(np.int64))
+    present = np.unique(rng.integers(5, hi + 5, present_n).astype(np.int64))
+    assert np.array_equal(teng._in_sorted(want, present),
+                          want[np.isin(want, present)])
+
+
+def test_sorted_keeps_a_sorted_array_and_sorts_others():
+    """engine._sorted hands back an ascending array itself (no sort, no
+    copy) and a sorted copy of any other."""
+    up = np.array([1, 2, 2, 9], np.int64)
+    assert teng._sorted(up) is up
+    one = np.array([4], np.int64)
+    assert teng._sorted(one) is one
+    down = np.array([3, 1, 2], np.int64)
+    got = teng._sorted(down)
+    assert got.tolist() == [1, 2, 3] and down.tolist() == [3, 1, 2]
