@@ -11,7 +11,9 @@ torch.searchsorted; unions are a sort plus run dedup.
 
 The *_host combines answer the engine's DestUIDs/filter seam on numpy
 arrays: numpy below HOST_CUTOVER, torch ops on the caller's device from it
-(set from an H100 run of bench_torch_crossover.py section 6). The device
+(set from an H100 run of bench_torch_crossover.py section 6). union_parts
+is uid(A, B, ...)'s union: where a var's uids are on the card already (a
+gathered level's dest) it unions every part there in one pass. The device
 branch keeps int64 throughout, so every uid the host holds comes back, and
 sizes its tensors exactly: the JAX package pads to power-of-two capacities
 (`_pow2_cap`) only to bound XLA recompiles, which torch does not have.
@@ -302,3 +304,46 @@ def difference_host(a: np.ndarray, b: np.ndarray, device) -> np.ndarray:
     if min(len(a), len(b)) < HOST_CUTOVER:
         return np.setdiff1d(a, b)
     return _device_combine("difference", a, b, device)
+
+
+def union_parts(parts: list, device, metrics=None) -> np.ndarray:
+    """The union behind uid(A, B, ...): parts are (host uids, the card's
+    copy of them or None) pairs, the first a uid(...) literal list where
+    there is one. From HOST_CUTOVER uids in all, where two or more parts
+    are given and one of them is on the card already, the union runs
+    there once: only the parts without a copy go up, the parts are joined
+    in int32 where the largest uid fits (else int64), deduplicated by one
+    csr.unique_targets, and the result comes back once and is cast to
+    int64 on the host (counted in metrics'
+    dgraph_var_union_on_device_total, and the parts that went up in
+    dgraph_var_union_parts_uploaded_total). Else union_host folds the
+    parts in order, and a single part is returned as it is. The result is
+    np.union1d's either way."""
+    full = [(h, d) for h, d in parts if len(h)]
+    if len(parts) < 2 or all(d is None for _, d in full) or \
+            sum(len(h) for h, _ in full) < HOST_CUTOVER:
+        out = parts[0][0]
+        for host, _dev in parts[1:]:
+            out = union_host(out, host, device)
+        return out
+    from dgraph_tpu_torch.ops.csr import unique_targets
+
+    dev = next(d.device for _, d in full if d is not None)
+    # a card copy is a level's sorted dest: its last uid is its largest
+    hi = max(int(h[-1]) if d is not None else int(h.max()) for h, d in full)
+    wide = hi > np.iinfo(np.int32).max
+    dtype, npdt = (torch.int64, np.int64) if wide else (torch.int32, np.int32)
+    up = [h for h, d in full if d is None]
+    with costs.kernel("uidset.var_union",
+                      n=sum(len(h) for h, _ in full)) as ck:
+        ts = [torch.from_numpy(np.ascontiguousarray(h, dtype=npdt)).to(dev)
+              if d is None else d.to(dtype) for h, d in full]
+        out_d, read = unique_targets(torch.cat(ts))
+        out = out_d.cpu().numpy()
+        ck.set(h2d=np.dtype(npdt).itemsize * sum(len(h) for h in up),
+               d2h=read + int(out.nbytes))
+    COMBINES["union"][dev.type] = COMBINES["union"].get(dev.type, 0) + 1
+    if metrics is not None:
+        metrics.counter("dgraph_var_union_on_device_total").inc()
+        metrics.counter("dgraph_var_union_parts_uploaded_total").inc(len(up))
+    return out.astype(np.int64, copy=False)

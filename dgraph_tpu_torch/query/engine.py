@@ -67,11 +67,14 @@ class QueryError(ValueError):
 
 @dataclass
 class VarValue:
-    """A recorded variable (reference query.varValue)."""
+    """A recorded variable (reference query.varValue). dev is the card's
+    copy of uids, where uids is a level's dest as its device gather made
+    it (SubGraph.card_dest); uid(...) unions read it (us.union_parts)."""
 
     uids: np.ndarray | None = None                  # uid var
     vals: dict[int, Val] = field(default_factory=dict)  # value var (uid → Val)
     is_uid: bool = True
+    dev: torch.Tensor | None = None
 
 
 @dataclass
@@ -92,6 +95,19 @@ class SubGraph:
     math_vals: dict[int, Val] = field(default_factory=dict)
     paths: list = field(default_factory=list)
     traversed: int = 0
+    # (the dest_uids array, the card's copy of it) where a device gather
+    # made both (task.TaskResult.dest_dev); read through card_dest
+    dest_dev: tuple | None = None
+
+    def card_dest(self) -> torch.Tensor | None:
+        """The card's copy of dest_uids while dest_uids is still the
+        gather's array, else None: a step that gives the level another
+        dest (a filter, pagination, a facet filter, @cascade) leaves the
+        copy behind."""
+        if self.dest_dev is None:
+            return None
+        host, dev = self.dest_dev
+        return dev if host is self.dest_uids else None
 
 
 class Executor:
@@ -334,23 +350,19 @@ class Executor:
         self._finish_level(sg, is_root=True)
 
     def _root_uids(self, gq: dql.GraphQuery) -> np.ndarray:
-        uids: list[np.ndarray] = []
+        # (host uids, the card's copy or None), unioned by us.union_parts
+        uids: list[tuple] = []
         if gq.uids:
             want = np.unique(np.asarray(gq.uids, dtype=np.int64))
             if self._remote:
                 # existence spans groups the local snapshot can't see;
                 # accept explicit uids as-is
-                uids.append(want)
+                uids.append((want, None))
             else:
                 present = _known_uids(self.snap)
-                uids.append(_in_sorted(want, present)
-                            if len(present) else want)
-        for v in gq.root_uid_vars:
-            vv = self.vars.get(v)
-            if vv is not None and vv.uids is not None:
-                uids.append(vv.uids)
-            elif vv is not None and not vv.is_uid:
-                uids.append(np.asarray(sorted(vv.vals.keys()), dtype=np.int64))
+                uids.append((_in_sorted(want, present)
+                             if len(present) else want, None))
+        uids += self._var_parts(gq.root_uid_vars)
         if gq.func is not None:
             fn = gq.func
             if self.plan is not None:
@@ -360,14 +372,13 @@ class Executor:
                     # runs as the root; the demoted root function re-enters
                     # at the probe's old filter position (_eval_filter)
                     fn = sw.new_func
-            uids.append(self._run_root_func(fn))
+            uids.append((self._run_root_func(fn), None))
         if not uids:
             if self.plan is not None:
                 self.plan.record(gq, 0, self.explain)
             return np.zeros(0, np.int64)
-        out = uids[0]
-        for u in uids[1:]:
-            out = us.union_host(out, u, self.snap.device)
+        out = us.union_parts(uids, self.snap.device,
+                             getattr(self.snap, "metrics", None))
         if self.plan is not None:
             self.plan.record(gq, len(out), self.explain)
         return out
@@ -517,6 +528,8 @@ class Executor:
         child.facet_matrix = res.facet_matrix
         child.counts = res.counts
         child.dest_uids = res.dest_uids
+        if res.dest_dev is not None:
+            child.dest_dev = (res.dest_uids, res.dest_dev)
         child.traversed = res.traversed_edges
         if cgq.facets is not None and cgq.facets.filter is not None:
             self._apply_facet_filter(child)
@@ -913,15 +926,10 @@ class Executor:
         name = fn.name.lower()
         if name == "uid":
             uids, refs = dql._split_uid_args(fn.args)
-            sel = np.asarray(uids, dtype=np.int64)
-            for r in refs:
-                vv = self.vars.get(r)
-                if vv is not None and vv.uids is not None:
-                    sel = us.union_host(sel, vv.uids, self.snap.device)
-                elif vv is not None:
-                    sel = us.union_host(
-                        sel, np.asarray(sorted(vv.vals), dtype=np.int64),
-                        self.snap.device)
+            sel = us.union_parts(
+                [(np.asarray(uids, dtype=np.int64), None)]
+                + self._var_parts(refs),
+                self.snap.device, getattr(self.snap, "metrics", None))
             return us.intersect_host(frontier, sel, self.snap.device)
         if fn.is_valvar and fn.args and isinstance(fn.args[0], dql.VarRef):
             vv = self.vars.get(fn.args[0].name)
@@ -952,6 +960,19 @@ class Executor:
         # index-backed functions: run at root, intersect with frontier
         root = self._run_root_func(fn)
         return us.intersect_host(frontier, root, self.snap.device)
+
+    def _var_parts(self, names) -> list[tuple]:
+        """(host uids, the card's copy or None) of each named var that is
+        set: a uid var's uids, a value var's keys."""
+        out = []
+        for v in names:
+            vv = self.vars.get(v)
+            if vv is not None and vv.uids is not None:
+                out.append((vv.uids, vv.dev))
+            elif vv is not None and not vv.is_uid:
+                out.append((np.asarray(sorted(vv.vals), dtype=np.int64),
+                            None))
+        return out
 
     # ----------------------------------------------------- fused ANN pipeline
 
@@ -1167,7 +1188,12 @@ class Executor:
 
     def _record_uid_var(self, gq: dql.GraphQuery, sg: SubGraph) -> None:
         if gq.var_name:
-            self.vars[gq.var_name] = VarValue(uids=np.sort(sg.dest_uids))
+            # a level's dest is ascending already, a root's after an order
+            # may not be: _sorted sorts only that one
+            uids = _sorted(sg.dest_uids)
+            self.vars[gq.var_name] = VarValue(
+                uids=uids,
+                dev=sg.card_dest() if uids is sg.dest_uids else None)
 
     def _record_child_vars(self, cgq: dql.GraphQuery, child: SubGraph,
                            frontier: np.ndarray) -> None:
@@ -1181,7 +1207,8 @@ class Executor:
                         for u, vs in zip(frontier, child.value_matrix) if vs}
                 self.vars[cgq.var_name] = VarValue(vals=vals, is_uid=False)
             else:
-                self.vars[cgq.var_name] = VarValue(uids=child.dest_uids)
+                self.vars[cgq.var_name] = VarValue(uids=child.dest_uids,
+                                                   dev=child.card_dest())
         # facet variables: var per facet key mapped over target uids
         if cgq.facets is not None and cgq.facets.var_map:
             for key, vname in cgq.facets.var_map.items():

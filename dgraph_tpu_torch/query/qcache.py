@@ -368,12 +368,17 @@ class TaskResultCache(_ByteLRU):
                 self._flights.pop(fk, None)
             fl.event.set()
             raise
+        # the card's copy of the dest is the leader's alone: neither the
+        # cache nor a follower keeps it
+        dest_dev, res.dest_dev = res.dest_dev, None
         fl.result = res
         with self._lock:
             self._flights.pop(fk, None)
             self._store_locked(fk, res, result_nbytes(res))
         fl.event.set()
-        return copy_result(res)
+        out = copy_result(res)
+        out.dest_dev = dest_dev
+        return out
 
 
 # ---------------------------------------------------------------------------

@@ -111,15 +111,18 @@ class UidMatrix:
     (counted in `metrics`' dgraph_expand_targets_fetched_total); len,
     counts and nbytes read the offsets alone. dest is the level's
     sorted-unique targets where the gather computed them beside the rows
-    (on the card), else None."""
+    (on the card), else None; dest_dev is the card's copy of that dest,
+    which finish_uid_expand moves onto the TaskResult."""
 
-    __slots__ = ("_flat", "offsets", "dest", "_metrics")
+    __slots__ = ("_flat", "offsets", "dest", "dest_dev", "_metrics")
 
     def __init__(self, flat: np.ndarray | torch.Tensor, offsets: np.ndarray,
-                 dest: np.ndarray | None = None, metrics=None) -> None:
+                 dest: np.ndarray | None = None, metrics=None,
+                 dest_dev: torch.Tensor | None = None) -> None:
         self._flat = flat
         self.offsets = offsets
         self.dest = dest
+        self.dest_dev = dest_dev
         self._metrics = metrics
 
     @classmethod
@@ -207,7 +210,10 @@ _FETCH_LOCK = threading.Lock()
 class TaskResult:
     """Reference: intern.Result (protos/internal.proto:69). Rows given as
     a list are taken into a UidMatrix. counts is an int64 array where an
-    expand made it, a list where the wire did."""
+    expand made it, a list where the wire did. dest_dev is the card's copy
+    of dest_uids where the device gather deduplicated the level there
+    (gather_on_device with want_dest), set only while equal to dest_uids:
+    the task cache keeps none (qcache) and the wire sends none."""
 
     uid_matrix: UidMatrix = field(default_factory=UidMatrix.empty)
     value_matrix: list[list[Val]] = field(default_factory=list)
@@ -215,6 +221,7 @@ class TaskResult:
     counts: np.ndarray | list[int] = field(default_factory=list)
     dest_uids: np.ndarray = field(default_factory=lambda: np.zeros(0, np.int64))
     traversed_edges: int = 0
+    dest_dev: torch.Tensor | None = None
 
     def __post_init__(self) -> None:
         if not isinstance(self.uid_matrix, UidMatrix):
@@ -487,10 +494,10 @@ def gather_on_device(csr: PredCSR, uids: np.ndarray, route: ExpandRoute,
     in metrics' dgraph_expand_targets_on_device_total; the matrix keeps
     `metrics` to count its fetch). Only the counts come back, and with
     want_dest the level's dest, from the same gather, deduplicated on the
-    card. An injected upload fault takes the host gather. The device work
-    runs inside the caller's costs.kernel seam `ck` (a batch's), else
-    inside a csr.expand seam of its own; the seam takes the bytes it
-    copied."""
+    card; the matrix keeps the card's copy of it too (dest_dev). An
+    injected upload fault takes the host gather. The device work runs
+    inside the caller's costs.kernel seam `ck` (a batch's), else inside a
+    csr.expand seam of its own; the seam takes the bytes it copied."""
     dev = _device_arrays(csr)
     rows, matrix, h2d, d2h = route.rows, None, 0, 0
     if dev is not None:
@@ -525,7 +532,7 @@ def gather_on_device(csr: PredCSR, uids: np.ndarray, route: ExpandRoute,
                 flat_d = res.targets[:total]
                 counts = res.counts.cpu().numpy()
                 d2h += res.total.element_size() + int(counts.nbytes)
-                dest = None
+                dest = dest_d = None
                 if want_dest:
                     dest_d, read = csrops.unique_targets(flat_d)
                     dest = dest_d.cpu().numpy().astype(np.int64)
@@ -536,7 +543,7 @@ def gather_on_device(csr: PredCSR, uids: np.ndarray, route: ExpandRoute,
                 ck.annotate(edges=total)
                 offs = np.zeros(len(counts) + 1, dtype=np.int64)
                 np.cumsum(counts, out=offs[1:])
-                matrix = UidMatrix(flat_d, offs, dest, metrics)
+                matrix = UidMatrix(flat_d, offs, dest, metrics, dest_d)
                 if metrics is not None:
                     metrics.counter(
                         "dgraph_expand_targets_on_device_total").inc()
@@ -857,6 +864,10 @@ def finish_uid_expand(pd: PredData, q: TaskQuery, frontier: np.ndarray,
     if fname not in _ROW_FILTERS:
         with otrace.span("merge"):
             res.dest_uids = _merge_matrix(matrix)
+        if matrix.dest_dev is not None:
+            # the card's copy of the dest the merge took goes with the
+            # result, not with the matrix a task cache may keep
+            res.dest_dev, matrix.dest_dev = matrix.dest_dev, None
     elif fname == "uid_in":
         # uid_in(pred, u1, u2, ...) keeps subjects with ANY listed object
         want = {int(str(a), 0) for a in args}

@@ -398,12 +398,16 @@ class Registry:
                      # whose dest set came off the card, and frontiers
                      # mapped to CSR rows on the card, and gathered
                      # levels whose targets stayed on the card, and those
-                     # a reader then copied back
+                     # a reader then copied back, and uid(...) unions run
+                     # on the card (ops/uidset.union_parts) with the parts
+                     # that went up for them
                      "dgraph_encode_walks_skipped_total",
                      "dgraph_expand_dest_on_device_total",
                      "dgraph_expand_rows_on_device_total",
                      "dgraph_expand_targets_on_device_total",
                      "dgraph_expand_targets_fetched_total",
+                     "dgraph_var_union_on_device_total",
+                     "dgraph_var_union_parts_uploaded_total",
                      # the shortest kernel tier (ops/pull_bfs.py): the
                      # time in its device BFS loop and in its host walk,
                      # and the hops the loop ran

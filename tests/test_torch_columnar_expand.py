@@ -26,6 +26,10 @@ the host branch's answer and copies the targets back once
 bytes and the fetch's seam books exactly them; a task-cache hit read on
 another thread shares the one copy.
 
+A gathered level's result carries the card's copy of its dest
+(TaskResult.dest_dev) only on the device branch with a dest, never in
+the task cache, a cache hit or a batched member.
+
 encode_result skips its per-uid walk for a block whose children are all
 aggregates or count(uid): the JSON stays byte-identical to the JAX
 package's Executor, and dgraph_encode_walks_skipped_total moves for such
@@ -616,6 +620,52 @@ def test_a_cache_hit_on_a_device_held_level(monkeypatch):
     assert got[0] == want
     assert _cols_of(first) == want
     assert snap.metrics.counter(FETCHED).value == 1
+
+
+@pytest.mark.parametrize("case", ["device", "host", "first", "has",
+                                  "cache", "batched"])
+def test_the_card_dest_rides_only_a_fresh_gather(case, monkeypatch):
+    """A gathered level's TaskResult carries the card's copy of its dest
+    (dest_dev, equal to dest_uids) only where the gather deduplicated it
+    (want_dest, no first): its matrix keeps none, the task cache stores
+    none and serves a hit with none, and a batched member has none."""
+    from dgraph_tpu_torch.query import batch as tbatch
+    if case != "host":
+        monkeypatch.setattr(ttask, "HOST_EXPAND_MAX", 0)
+    arrays = _random_csr(43)
+    frontier = _frontier(43)
+    snap, schema = _snap(arrays), _schema()
+    dest = _want(arrays, frontier, 0)[1].tolist()
+    q = ttask.TaskQuery("friend", frontier=frontier,
+                        first=2 if case == "first" else 0,
+                        func=("has", []) if case == "has" else None)
+    if case == "cache":
+        cache = qcache.TaskResultCache(1 << 20)
+        led = cache.dispatch(1, q, lambda tq: ttask.process_task(
+            snap, tq, schema))
+        hit = cache.dispatch(1, q, lambda tq: pytest.fail("not cached"))
+        (stored, _nb), = cache._entries.values()
+        assert led.dest_dev.tolist() == led.dest_uids.tolist() == dest
+        assert hit.dest_dev is None and stored.dest_dev is None
+        assert hit.dest_uids.tolist() == dest
+        return
+    if case == "batched":
+        works = [tbatch.classify(snap, schema, ttask.TaskQuery(
+            "friend", frontier=part))[2]
+            for part in (frontier[::2], frontier[1::2])]
+        entries = [tbatch._Entry(w) for w in works]
+        tbatch.DeviceBatcher(metrics=Registry(),
+                             idle_fire=False)._run_expand(entries)
+        assert all(e.error is None and e.result.dest_dev is None
+                   for e in entries)
+        return
+    res = ttask.process_task(snap, q, schema)
+    assert res.uid_matrix.dest_dev is None
+    if case == "device":
+        assert isinstance(res.dest_dev, torch.Tensor)
+        assert res.dest_dev.tolist() == res.dest_uids.tolist() == dest
+    else:
+        assert res.dest_dev is None
 
 
 # ---------------------------------------------------------------------------
