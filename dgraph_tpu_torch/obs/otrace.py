@@ -70,9 +70,12 @@ SPAN_LAYERS = {
     "alter": "node", "analytics": "node", "parse": "node",
     "result_cache": "node", "plan": "node", "prefetch": "node",
     "serve_task": "node", "zero:": "node", "rpc:": "node", "store:": "node",
-    # engine: the executor, its tasks and its host work on their results
+    # engine: the executor, its tasks and its host work on their results,
+    # a level's @groupby (its member expand and var binding included) and
+    # a root's ordering
     "execute": "engine", "block": "engine", "task:": "engine",
-    "merge": "engine", "encode": "engine",
+    "merge": "engine", "encode": "engine", "groupby": "engine",
+    "order": "engine",
     # traversal: @recurse and shortest-path; inside @recurse the fused
     # path's device levels and the var binding, inside the shortest
     # kernel tier its device BFS loop and its host predecessor walk

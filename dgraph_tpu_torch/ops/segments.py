@@ -32,8 +32,10 @@ segment ids, one op), `fused_group_reduce(ops, values, lens, num_groups)`
 (device segment ids from lengths, many ops in one pass) and
 `rank_in_table(table, values)` (the group-code rank search). Each takes
 `device` (default "cuda", which raises without CUDA) and returns numpy.
-REDUCES and RANKS count the device passes by device type, as ops/csr.UNIONS
-counts unions, so a caller can show which side ran.
+`count_in_table(table, values)` counts a gather's targets against its
+sorted dest where both already lie on one device, and returns a tensor
+there. REDUCES and RANKS count the device passes by device type, as
+ops/csr.UNIONS counts unions, so a caller can show which side ran.
 """
 
 from __future__ import annotations
@@ -261,6 +263,19 @@ def rank_in_table(table: np.ndarray, values: np.ndarray,
     pos = np.searchsorted(table, values)
     posc = np.minimum(pos, len(table) - 1)
     return posc.astype(np.int64), table[posc] == values
+
+
+def count_in_table(table: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
+    """How often each entry of a sorted table occurs among `values`, every
+    one of which the table holds (a gather's targets against the level's
+    dest): one rank of the values in the table (a searchsorted, as
+    _rank_kernel) and one bincount over the ranks, on their device. The
+    counts come in int32 where the values are fewer than 2**31, else
+    int64."""
+    pos = torch.searchsorted(table, values)
+    counts = torch.bincount(pos, minlength=table.numel())
+    RANKS[values.device.type] = RANKS.get(values.device.type, 0) + 1
+    return counts.to(torch.int32) if values.numel() < 2**31 else counts
 
 
 # device-runtime observatory (obs/devprof.py): the module's entry points by

@@ -32,6 +32,7 @@ consult it too.
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass, field
 from typing import Any
 
@@ -66,15 +67,118 @@ class QueryError(ValueError):
 
 
 @dataclass
+class ValueColumns:
+    """A value var held as columns, as a grouped var is bound
+    (query/groupby.py): keys, its ascending distinct int64 uids; values,
+    their values in that order as one numeric array of the var's type
+    (tid: INT in any integer dtype, FLOAT in float64); keys_dev, the
+    card's copy of keys where the grouping made them there, else None."""
+
+    keys: np.ndarray
+    values: np.ndarray
+    tid: TypeID
+    keys_dev: torch.Tensor | None = None
+
+    def lookup(self, uids: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+        """(the position in keys, whether keys holds it) of each uid."""
+        if len(self.keys) == 0:
+            return (np.zeros(len(uids), dtype=np.int64),
+                    np.zeros(len(uids), dtype=bool))
+        pos = np.minimum(np.searchsorted(self.keys, uids),
+                         len(self.keys) - 1)
+        return pos, self.keys[pos] == uids
+
+    def vals_of(self, uids: np.ndarray) -> list[Val | None]:
+        """The Val of each uid, None where the var holds none."""
+        pos, hit = self.lookup(uids)
+        got = self.values[pos].tolist()
+        return [Val(self.tid, v) if h else None
+                for v, h in zip(got, hit.tolist())]
+
+    def as_dict(self) -> dict[int, Val]:
+        return {u: Val(self.tid, v) for u, v in
+                zip(self.keys.tolist(), self.values.tolist())}
+
+    def order(self, uids: np.ndarray, desc: bool,
+              need: int | None) -> np.ndarray | None:
+        """uids ordered by their value (_apply_order's rule: ties and the
+        uids without a value keep their order in uids, the latter last), or
+        the first `need` of that order; None where the values hold a NaN or
+        an INT that cannot be negated, which the caller leaves to the
+        value sort."""
+        if uids is self.keys:           # uid(x) itself: each has a value
+            have, rest, key = None, uids[:0], self.values
+        else:
+            pos, hit = self.lookup(uids)
+            have, rest = np.flatnonzero(hit), uids[~hit]
+            key = self.values[pos[have]]
+        if self.tid == TypeID.FLOAT and np.isnan(key).any():
+            return None
+        if desc:
+            if key.dtype.kind == "i" and len(key) and \
+                    key.min() == np.iinfo(key.dtype).min:
+                return None
+            key = -key
+        if need is not None and need < len(key):
+            # every key up to the need-th smallest, ties at it included,
+            # then the stable sort of those alone
+            cand = np.flatnonzero(key <= np.partition(key, need - 1)[need - 1])
+            sel = cand[np.argsort(key[cand], kind="stable")][:need]
+        else:
+            sel = np.argsort(key, kind="stable")
+        out = uids[sel if have is None else have[sel]]
+        if need is None or len(out) < need:
+            out = np.concatenate([out, rest if need is None
+                                  else rest[:need - len(out)]])
+        return out.astype(np.int64, copy=False)
+
+    def aggregate(self, op: str, uids: np.ndarray):
+        """A root aggregate's Val (or None) over the values of uids where
+        the var holds any of them, else over every value: aggregate()'s
+        answer for an INT column, or NotImplemented for a FLOAT one or a
+        sum that could pass int64 (the caller asks aggregate() itself)."""
+        if self.tid != TypeID.INT:
+            return NotImplemented
+        pos, hit = self.lookup(uids)
+        sel = self.values[pos[hit]] if hit.any() else self.values
+        if len(sel) == 0:
+            return None
+        if op in ("min", "max"):
+            return Val(TypeID.INT, int(sel.min() if op == "min"
+                                       else sel.max()))
+        lo, hi = int(sel.min()), int(sel.max())
+        if max(-lo, hi) >= (1 << 62) // len(sel):
+            return NotImplemented
+        total = int(sel.sum(dtype=np.int64))
+        return Val(TypeID.FLOAT, float(total) / len(sel)) if op == "avg" \
+            else Val(TypeID.INT, total)
+
+
 class VarValue:
     """A recorded variable (reference query.varValue). dev is the card's
     copy of uids, where uids is a level's dest as its device gather made
-    it (SubGraph.card_dest); uid(...) unions read it (us.union_parts)."""
+    it (SubGraph.card_dest); uid(...) unions read it (us.union_parts). A
+    value var is a dict of uid → Val (vals), or columns (cols), from which
+    vals is built when a reader first asks for it."""
 
-    uids: np.ndarray | None = None                  # uid var
-    vals: dict[int, Val] = field(default_factory=dict)  # value var (uid → Val)
-    is_uid: bool = True
-    dev: torch.Tensor | None = None
+    __slots__ = ("uids", "_vals", "is_uid", "dev", "cols")
+
+    def __init__(self, uids: np.ndarray | None = None,
+                 vals: dict[int, Val] | None = None, is_uid: bool = True,
+                 dev: torch.Tensor | None = None,
+                 cols: ValueColumns | None = None) -> None:
+        self.uids = uids                    # uid var
+        self._vals = vals
+        self.is_uid = is_uid
+        self.dev = dev
+        self.cols = cols
+
+    @property
+    def vals(self) -> dict[int, Val]:
+        if self._vals is None:
+            self._vals = self.cols.as_dict() if self.cols is not None \
+                else {}
+        return self._vals
 
 
 @dataclass
@@ -843,7 +947,10 @@ class Executor:
             return
         if cgq.attr == "val":
             vv = self.vars.get(cgq.val_ref)
-            if vv is not None:
+            if vv is not None and vv.cols is not None:
+                child.value_matrix = [[v] if v is not None else []
+                                      for v in vv.cols.vals_of(frontier)]
+            elif vv is not None:
                 child.value_matrix = [
                     [vv.vals[int(u)]] if int(u) in vv.vals else [] for u in frontier]
             return
@@ -862,6 +969,11 @@ class Executor:
 
             op = cgq.attr[len("__agg_"):]
             vv = self.vars.get(cgq.val_ref)
+            if vv is not None and vv.cols is not None:
+                got = vv.cols.aggregate(op, frontier)
+                if got is not NotImplemented:
+                    child.agg_value = got
+                    return
             vals = vv.vals if vv else {}
             # aggregate over the enclosing block's uid space when non-empty
             keys = [int(u) for u in frontier if int(u) in vals] or list(vals)
@@ -969,6 +1081,8 @@ class Executor:
             vv = self.vars.get(v)
             if vv is not None and vv.uids is not None:
                 out.append((vv.uids, vv.dev))
+            elif vv is not None and vv.cols is not None:
+                out.append((vv.cols.keys, vv.cols.keys_dev))
             elif vv is not None and not vv.is_uid:
                 out.append((np.asarray(sorted(vv.vals), dtype=np.int64),
                             None))
@@ -1223,15 +1337,35 @@ class Executor:
     # ---------------------------------------------------------------- order
 
     def _apply_order(self, gq: dql.GraphQuery, uids: np.ndarray) -> np.ndarray:
-        """Multi-key order (reference worker/sort.go).
+        """Multi-key order (reference worker/sort.go): the `order` span,
+        its time booked in dgraph_order_ns_total.
 
         Single-key sorts over an indexed sortable predicate walk the token
         buckets in key order (sortWithIndex, worker/sort.go:144-259),
         intersecting each bucket with the candidate set and stopping once
-        offset+first is satisfied; everything else takes the value sort.
-        Stable sorts applied from the last key to the first give multi-key
+        offset+first is satisfied; a single val(x) key over a var held as
+        columns sorts the columns, keeping only offset+first rows where no
+        `after` is given; everything else takes the value sort. Stable
+        sorts applied from the last key to the first give multi-key
         semantics; uids with a missing sort value sink to the end, in either
         direction."""
+        t0 = time.perf_counter_ns()
+        with otrace.span("order"):
+            out = self._order_uids(gq, uids)
+        otrace.count("dgraph_order_ns_total", time.perf_counter_ns() - t0)
+        return out
+
+    def _order_uids(self, gq: dql.GraphQuery, uids: np.ndarray) -> np.ndarray:
+        first = int(gq.args.get("first", 0))
+        bounded = int(gq.args.get("after", 0)) == 0 and first > 0
+        if len(gq.order) == 1 and gq.order[0].is_val:
+            vv = self.vars.get(gq.order[0].attr)
+            if vv is not None and vv.cols is not None:
+                need = int(gq.args.get("offset", 0)) + first \
+                    if bounded else None
+                got = vv.cols.order(uids, gq.order[0].desc, need)
+                if got is not None:
+                    return got
         if (len(gq.order) == 1 and not gq.order[0].is_val
                 and not gq.order[0].lang
                 and int(gq.args.get("after", 0)) == 0

@@ -12,6 +12,24 @@ device once a group set passes _HOST_AGG_MAX members; the host covers
 smaller sets and string/datetime keys. The device functions run on
 `ex.snap.device`, so a CPU snapshot reduces with torch ops on CPU tensors.
 
+Grouped vars (fillGroupedVars): where a block groups by one uid
+predicate, an aggregate child written `x as <agg>` binds x, in a `var`
+block and a rendered one alike, mapping each group's key uid to the value
+its row shows (count(uid): the distinct members, an INT). The var is
+bound as columns (engine.ValueColumns), sorted by key. A value key, or
+two keys or more, binds nothing (the reference refuses those; the JAX
+package binds no grouped var at all). A `var` block whose children are
+all count(uid) builds no rows: its member expand takes the expand's own
+route (task.expand_route), and where the targets stay on the card and
+pass _HOST_AGG_MAX, they are counted there against the level's dest
+(segments.count_in_table), since a posting list is a set and the members
+are distinct: the keys and counts come back once, and the targets never.
+Every other block assembles its rows as before and binds its vars from
+them. process_groupby is the `groupby` span; its time, the groups, the
+member–key pairs, the counts made on the card and the keys bound are
+booked in the request's registry (dgraph_groupby_*, dgraph_grouped_var_
+keys_total).
+
 `fused` is the device terminal a whole-plan mesh fusion stashes on the
 level (engine._mesh_fused_plan): per key-rank member counts and f32 agg
 candidates, held against the host assembly (which stays authoritative) by
@@ -23,10 +41,12 @@ records its group count for EXPLAIN.
 
 from __future__ import annotations
 
+import time
 from typing import Any
 
 import numpy as np
 
+from dgraph_tpu_torch.obs import costs, otrace
 from dgraph_tpu_torch.query import dql
 from dgraph_tpu_torch.query.aggregator import aggregate
 from dgraph_tpu_torch.query.task import TaskQuery
@@ -48,16 +68,131 @@ _PIN_HOST = 1 << 62
 
 
 def process_groupby(ex, sg) -> None:
-    """Fill sg.group_result for a level with @groupby."""
+    """Fill sg.group_result for a level with @groupby, and bind its
+    grouped vars."""
     gq = sg.gq
-    sg.group_result = _build_group_rows(ex, sg)
-    if ex.plan is not None:
-        # EXPLAIN: the planner's groupby terminal step (keyed on the
-        # GroupBy AST node) records the actual group count
-        ex.plan.record(gq.groupby, len(sg.group_result), ex.explain)
+    t0 = time.perf_counter_ns()
+    with otrace.span("groupby"):
+        binds = _grouped_var_children(ex, gq)
+        ngroups = _count_only(ex, sg, binds) if binds else None
+        if ngroups is not None:
+            sg.group_result = []
+        else:
+            vals_out: dict | None = {} if binds else None
+            sg.group_result = _build_group_rows(ex, sg, vals_out)
+            ngroups = len(sg.group_result)
+            if binds:
+                _bind_from_rows(ex, gq, binds, sg.group_result, vals_out)
+        if ex.plan is not None:
+            # EXPLAIN: the planner's groupby terminal step (keyed on the
+            # GroupBy AST node) records the actual group count
+            ex.plan.record(gq.groupby, ngroups, ex.explain)
+    otrace.count("dgraph_groupby_ns_total", time.perf_counter_ns() - t0)
+    otrace.count("dgraph_groupby_groups_total", ngroups)
 
 
-def _build_group_rows(ex, sg) -> list[dict]:
+def _uid_key(ex, attr: str) -> bool:
+    pd = ex.snap.pred(attr)
+    return ex.schema.type_of(attr) == TypeID.UID or (
+        pd is not None and pd.csr is not None)
+
+
+def _grouped_var_children(ex, gq) -> list:
+    """The aggregate children that bind a grouped var: those with a var
+    name, where the block groups by exactly one uid predicate; else
+    none."""
+    if len(gq.groupby.attrs) != 1:
+        return []
+    _alias, attr, lang = gq.groupby.attrs[0]
+    if lang or not _uid_key(ex, attr):
+        return []
+    return [c for c in gq.children if c.var_name and (
+        (c.is_uid_node and c.is_count) or c.attr.startswith("__agg_"))]
+
+
+def _count_only(ex, sg, binds) -> int | None:
+    """A `var` block's count(uid) grouped vars with no rows built: binds
+    each var to (keys, counts) as columns and returns the group count, or
+    None where the block renders rows, asks for another aggregate, or its
+    key tablet is overlaid or sharded (the rows path serves those)."""
+    from dgraph_tpu_torch.query.engine import ValueColumns, VarValue, _sorted
+    from dgraph_tpu_torch.storage.delta import OverlayCSR
+
+    gq = sg.gq
+    if gq.attr != "var" or getattr(sg, "_fused_gb", None) is not None or \
+            not all(c.is_uid_node and c.is_count for c in gq.children):
+        return None
+    attr = gq.groupby.attrs[0][1]
+    pd = ex.snap.pred(attr)
+    csr = pd.csr if pd is not None else None
+    if isinstance(csr, OverlayCSR) or getattr(csr, "is_dist", False):
+        return None
+    uids = _sorted(sg.dest_uids)
+    keys, counts, keys_dev = np.zeros(0, np.int64), np.zeros(0, np.int64), None
+    pairs = 0
+    if len(uids):
+        res = ex._dispatch(TaskQuery(attr, frontier=uids))
+        matrix = res.uid_matrix
+        pairs = int(matrix.offsets[-1])
+        flat_d = matrix.on_card()
+        if flat_d is not None and res.dest_dev is not None and \
+                pairs > _HOST_AGG_MAX:
+            from dgraph_tpu_torch.ops import segments as segs
+
+            with costs.kernel("segments.count_in_table", pairs=pairs) as ck:
+                counts = segs.count_in_table(res.dest_dev,
+                                             flat_d).cpu().numpy()
+                ck.set(d2h=int(counts.nbytes))
+            keys, keys_dev = res.dest_uids, res.dest_dev
+            otrace.count("dgraph_groupby_on_device_total")
+        elif pairs:
+            keys, counts = np.unique(matrix.flat, return_counts=True)
+    otrace.count("dgraph_groupby_pairs_total", pairs)
+    for c in binds:
+        ex.vars[c.var_name] = VarValue(
+            is_uid=False, cols=ValueColumns(keys, counts, TypeID.INT,
+                                            keys_dev))
+    otrace.count("dgraph_grouped_var_keys_total", len(keys) * len(binds))
+    return len(keys)
+
+
+def _bind_from_rows(ex, gq, binds, rows: list[dict], vals_out: dict) -> None:
+    """Bind each grouped var from the assembled rows: the key uid of each
+    row (its hex display) and the Val its aggregate gave the row."""
+    from dgraph_tpu_torch.query.engine import ValueColumns, VarValue
+
+    alias, attr, _lang = gq.groupby.attrs[0]
+    keys = np.asarray([int(r[alias or attr], 16) for r in rows],
+                      dtype=np.int64)
+    order = np.argsort(keys, kind="stable")
+    bound = 0
+    for c in binds:
+        per_group = vals_out.get(id(c)) or [None] * len(rows)
+        got = [(int(keys[i]), per_group[i]) for i in order.tolist()
+               if per_group[i] is not None]
+        tids = {v.tid for _, v in got}
+        cols = None
+        if len(tids) == 1 and tids <= {TypeID.INT, TypeID.FLOAT}:
+            tid = tids.pop()
+            try:
+                values = np.asarray([v.value for _, v in got],
+                                    dtype=np.int64 if tid == TypeID.INT
+                                    else np.float64)
+            except OverflowError:
+                values = None          # an INT past int64: the dict holds it
+            if values is not None:
+                cols = ValueColumns(
+                    np.asarray([k for k, _ in got], dtype=np.int64), values,
+                    tid)
+        ex.vars[c.var_name] = VarValue(is_uid=False, cols=cols) \
+            if cols is not None else VarValue(vals=dict(got), is_uid=False)
+        bound += len(got)
+    otrace.count("dgraph_grouped_var_keys_total", bound)
+
+
+def _build_group_rows(ex, sg, vals_out: dict | None = None) -> list[dict]:
+    """The block's rows; vals_out (when given) takes each var child's Val
+    per row (_assemble_rows)."""
     gq = sg.gq
     fused = getattr(sg, "_fused_gb", None)
     uids = np.sort(sg.dest_uids)
@@ -72,7 +207,8 @@ def _build_group_rows(ex, sg) -> list[dict]:
     if fast is not None:
         keys_sorted, members_per, alias = fast
         return _assemble_rows(
-            ex, gq, [{alias: kv} for kv in keys_sorted], members_per, fused)
+            ex, gq, [{alias: kv} for kv in keys_sorted], members_per, fused,
+            vals_out)
 
     # vectorized GENERAL path: every column — string/bool/datetime
     # value keys and multi-valued uid keys alike — factorizes to dense int
@@ -85,15 +221,14 @@ def _build_group_rows(ex, sg) -> list[dict]:
         vec = _vectorized_groups(ex, gq, uids)
         if vec is not None:
             row_seeds, members_per = vec
-            return _assemble_rows(ex, gq, row_seeds, members_per, fused)
+            return _assemble_rows(ex, gq, row_seeds, members_per, fused,
+                                  vals_out)
 
     # group keys per uid, one column per groupby attr
     columns: list[tuple[str, dict[int, Any]]] = []  # (alias, uid -> key val)
     for alias, attr, lang in gq.groupby.attrs:
         col: dict[int, Any] = {}
-        pd = ex.snap.pred(attr)
-        tid = ex.schema.type_of(attr)
-        if tid == TypeID.UID or (pd is not None and pd.csr is not None):
+        if _uid_key(ex, attr):
             res = ex._dispatch(TaskQuery(attr, frontier=uids,
                                          cutover=_PIN_HOST))
             for u, targets in zip(uids, res.uid_matrix):
@@ -139,7 +274,7 @@ def _build_group_rows(ex, sg) -> list[dict]:
         for (alias, _col), kv in zip(columns, key):
             row[alias] = kv if not isinstance(kv, tuple) else kv[1]
         seeds.append(row)
-    return _assemble_rows(ex, gq, seeds, members_per, fused)
+    return _assemble_rows(ex, gq, seeds, members_per, fused, vals_out)
 
 
 def _pred_value_codes(pd):
@@ -243,9 +378,7 @@ def _vectorized_groups(ex, gq, uids: np.ndarray):
         if lang:
             return None
         pd = ex.snap.pred(attr)
-        tid = ex.schema.type_of(attr)
-        is_uid = tid == TypeID.UID or (pd is not None and pd.csr is not None)
-        if not is_uid and (ex.schema.is_list(attr) or pd is None
+        if not _uid_key(ex, attr) and (ex.schema.is_list(attr) or pd is None
                            or _pred_value_codes(pd) is None):
             return None        # list / remote / no value table: dict path
 
@@ -253,8 +386,7 @@ def _vectorized_groups(ex, gq, uids: np.ndarray):
     cols = []        # (alias, uidx int64[], code int64[], displays, single)
     for alias, attr, lang in gq.groupby.attrs:
         pd = ex.snap.pred(attr)
-        tid = ex.schema.type_of(attr)
-        if tid == TypeID.UID or (pd is not None and pd.csr is not None):
+        if _uid_key(ex, attr):
             res = ex._dispatch(TaskQuery(attr, frontier=uids,
                                          cutover=_PIN_HOST))
             counts = res.uid_matrix.counts()
@@ -368,8 +500,9 @@ def _count_metric(ex, name: str) -> None:
 
 
 def _batch_aggregates(ex, children, members_per: list[np.ndarray],
-                      fused=None, ranks=None) -> dict:
-    """Per-child batched aggregation: {id(child): [row_dict per group]}.
+                      fused=None, ranks=None, vals_out=None) -> dict:
+    """Per-child batched aggregation: {id(child): [row_dict per group]};
+    vals_out (when given) takes {id(child): [Val or None per group]}.
 
     Children whose op/type can't run on the float64 lattice are omitted —
     the caller falls back to the per-group path for those.
@@ -432,11 +565,12 @@ def _batch_aggregates(ex, children, members_per: list[np.ndarray],
         if fused is not None and ranks is not None:
             _check_fused_agg(fused, cgq, op, res, ranks, f32_exact)
         name = cgq.alias or f"{op}(val({cgq.val_ref}))"
-        rows = []
+        rows, vals = [], []
         for g in range(ng):
             r = float(res[g])
             if np.isnan(r):
                 rows.append({})
+                vals.append(None)
                 continue
             if op == "avg":
                 v = Val(TypeID.FLOAT, r)
@@ -445,7 +579,10 @@ def _batch_aggregates(ex, children, members_per: list[np.ndarray],
             else:
                 v = Val(TypeID.FLOAT, r)
             rows.append({name: _val_json(v)})
+            vals.append(v)
         out[id(cgq)] = rows
+        if vals_out is not None:
+            vals_out[id(cgq)] = vals
     return out
 
 
@@ -494,18 +631,36 @@ def _fused_check_counts(fused, row_seeds, members_per) -> np.ndarray:
 
 
 def _assemble_rows(ex, gq, row_seeds: list[dict],
-                   members_per: list[np.ndarray], fused=None) -> list[dict]:
+                   members_per: list[np.ndarray], fused=None,
+                   vals_out: dict | None = None) -> list[dict]:
     """Attach each group's child aggregates to its key row (shared by the
-    vectorized and generic grouping paths)."""
+    vectorized and generic grouping paths). vals_out (when given) takes
+    {id(child): [Val or None per row]} for each child with a var name.
+    Books the member–group pairs in dgraph_groupby_pairs_total."""
+    from dgraph_tpu_torch.query.outputnode import _val_json
+
     ranks = None
     if fused is not None:
         ranks = _fused_check_counts(fused, row_seeds, members_per)
-    batched = _batch_aggregates(ex, gq.children, members_per, fused, ranks)
+    batched = _batch_aggregates(ex, gq.children, members_per, fused, ranks,
+                                vals_out)
+    per_group = set() if vals_out is None else \
+        {id(c) for c in gq.children if c.var_name and id(c) not in batched}
+    for k in per_group:
+        vals_out[k] = []
     for gi, row in enumerate(row_seeds):
         for cgq in gq.children:
             got = batched.get(id(cgq))
-            row.update(got[gi] if got is not None
-                       else _group_agg(ex, cgq, members_per[gi]))
+            if got is not None:
+                row.update(got[gi])
+                continue
+            name, v = _group_agg_val(ex, cgq, members_per[gi])
+            if v is not None:
+                row[name] = _val_json(v)
+            if id(cgq) in per_group:
+                vals_out[id(cgq)].append(v)
+    otrace.count("dgraph_groupby_pairs_total",
+                 sum(len(m) for m in members_per))
     return row_seeds
 
 
@@ -576,17 +731,15 @@ def _group_key(x):
     return x
 
 
-def _group_agg(ex, cgq: dql.GraphQuery, members: np.ndarray) -> dict:
-    alias = cgq.alias or cgq.attr
+def _group_agg_val(ex, cgq: dql.GraphQuery, members: np.ndarray):
+    """(the row's name, the group's Val) of one child: count(uid) an INT,
+    an aggregate its aggregator's Val; the Val is None where the row shows
+    nothing."""
     if cgq.is_uid_node and cgq.is_count:
-        return {alias if cgq.alias else "count": int(len(members))}
+        return cgq.alias or "count", Val(TypeID.INT, int(len(members)))
     if cgq.attr.startswith("__agg_"):
         op = cgq.attr[len("__agg_"):]
         vv = ex.vars.get(cgq.val_ref)
         vals = [vv.vals[int(u)] for u in members if vv and int(u) in vv.vals]
-        v = aggregate(op, vals)
-        name = cgq.alias or f"{op}(val({cgq.val_ref}))"
-        from dgraph_tpu_torch.query.outputnode import _val_json
-
-        return {name: _val_json(v)} if v is not None else {}
-    return {}
+        return cgq.alias or f"{op}(val({cgq.val_ref}))", aggregate(op, vals)
+    return cgq.alias or cgq.attr, None

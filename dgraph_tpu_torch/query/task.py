@@ -158,6 +158,12 @@ class UidMatrix:
                     self._flat = flat
         return flat
 
+    def on_card(self) -> torch.Tensor | None:
+        """The targets while they are still on the card (a tensor in the
+        gather's dtype), else None; copies nothing back."""
+        flat = self._flat
+        return flat if isinstance(flat, torch.Tensor) else None
+
     @property
     def flat(self) -> np.ndarray:
         flat = self._host()

@@ -408,6 +408,17 @@ class Registry:
                      "dgraph_expand_targets_fetched_total",
                      "dgraph_var_union_on_device_total",
                      "dgraph_var_union_parts_uploaded_total",
+                     # @groupby and ordering (query/groupby.py,
+                     # engine._apply_order): the time in each, the groups
+                     # formed and the member-key pairs reduced, the
+                     # groupbys counted on the card, the keys bound to
+                     # grouped vars
+                     "dgraph_groupby_ns_total",
+                     "dgraph_order_ns_total",
+                     "dgraph_groupby_groups_total",
+                     "dgraph_groupby_pairs_total",
+                     "dgraph_groupby_on_device_total",
+                     "dgraph_grouped_var_keys_total",
                      # the shortest kernel tier (ops/pull_bfs.py): the
                      # time in its device BFS loop and in its host walk,
                      # and the hops the loop ran
